@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Quickest proof that impop_tpu_torch runs its main path on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (one line each; any failure exits non-zero):
+  0  identify the machine (device, nvidia-smi name and power limit,
+     torch / CUDA / nvcc versions)
+  1  build the CUDA kernels from impop_tpu_torch/csrc
+  2  each kernel against its plain PyTorch version on the card:
+     (a) [512, 128] x 320 HPRC-shaped windows, 5 panels / 10 disjoint
+         pairs, with kernel and plain per-window times (CUDA events);
+     (b) cap 256 with overlapping panels; (c) a partial-coverage window
+     that sets seed_risk; (d) cap_s = 4096; (e) seed_peel
+  3  the port's ``scan`` end to end on a simulated 2 Mb, 466-haplotype
+     pangenome (400 windows of 5 kb), then the first 20 windows again on
+     the CPU, then a journal resume
+  4  the seed_risk recompute through ``scan --geno-dir`` on a
+     partial-coverage window
+
+Before the last line it prints the kernel table as one JSON object and the
+card's name and power limit; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Exits non-zero without a result when CUDA is unavailable or when the
+package is not beside this script.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+N_HAP = 466                   # HPRC v2: 465 assemblies + CHM13
+CAP_N, CAP_S = 512, 128
+WIN_BP = 5000
+SCAN_BP = 2_000_000           # simulated pangenome for the scan phase
+BATCH = 320
+THRESHOLD = 0.999
+PANEL_SIZES = {"AFR": 140, "AMR": 88, "EAS": 100, "EUR": 60, "SAS": 72}
+RTOL = 1e-5                   # floats: f32 sums in another order
+ATOL = 1e-6
+INT_KEYS = ("n", "num_groups", "pairs_used2", "cnt_aa", "cnt_bb", "cnt_ab",
+            "s", "seed_risk")
+FLOAT_KEYS = ("quad", "sum_aa", "sum_bb", "sum_ab", "gdxy")
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise SmokeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ inputs
+
+
+def hprc_batch(rng, w, cap_n=CAP_N, cap_s=CAP_S, n_hap=N_HAP):
+    """HPRC-shaped windows: a few haplotype classes with class-structured
+    variation and 0.1% noise, the five continental panels side by side."""
+    import numpy as np
+
+    geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
+    member = np.zeros((w, cap_n), bool)
+    smask = np.zeros((w, cap_s), bool)
+    for wi in range(w):
+        n_classes = int(rng.integers(3, 12))
+        n_sites = int(rng.integers(20, cap_s))
+        classes = rng.integers(0, 2, size=(n_classes, n_sites)).astype(
+            np.int8)
+        g = classes[rng.integers(0, n_classes, size=n_hap)]
+        g = np.where(rng.random((n_hap, n_sites)) < 0.001, 1 - g, g)
+        geno[wi, :n_hap, :n_sites] = g
+        member[wi, :n_hap] = True
+        smask[wi, :n_sites] = True
+    panels = np.zeros((w, len(PANEL_SIZES), cap_n), bool)
+    start = 0
+    for pi, size in enumerate(PANEL_SIZES.values()):
+        panels[:, pi, start:start + size] = True
+        start += size
+    lengths = np.full(w, float(WIN_BP), np.float32)
+    return geno, member, smask, panels, lengths
+
+
+def to_dev(dev, *arrays):
+    import torch
+
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def compare_raw(got: dict, want: dict, tag: str) -> float:
+    """Integers exact, floats within RTOL/ATOL; returns the max abs error."""
+    import torch
+
+    worst = 0.0
+    for key in INT_KEYS + FLOAT_KEYS:
+        g, w = got[key].double().cpu(), want[key].double().cpu()
+        if g.shape != w.shape:
+            raise SmokeError(f"{tag}: {key} shape {tuple(g.shape)} vs "
+                             f"{tuple(w.shape)}")
+        if not bool(torch.isfinite(g).all()):
+            raise SmokeError(f"{tag}: {key} has non-finite values")
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        worst = max(worst, err)
+        if key in INT_KEYS:
+            if not torch.equal(g, w):
+                raise SmokeError(f"{tag}: integer output {key} differs "
+                                 f"(max abs {err})")
+        elif not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            raise SmokeError(f"{tag}: {key} max abs err {err} beyond "
+                             f"rtol {RTOL}")
+    return worst
+
+
+def window_case(dev, geno, member, smask, panels, lengths, pairs_disjoint,
+                tag):
+    """Kernel vs plain on one batch; returns (max abs err, inputs)."""
+    from impop_tpu_torch.ops.windowstat import (window_stats,
+                                                window_stats_plain)
+    from impop_tpu_torch.stats.panelstats import panel_mask_stack
+
+    p = panels.shape[1]
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    g, m, sm, pn, ln = to_dev(dev, geno, member, smask, panels, lengths)
+    stack, ma, mb = panel_mask_stack(pn, m, pa, pb, pairs_disjoint)
+    args = (g, m, sm, stack, ma, mb, THRESHOLD, ln, pa, pb, pairs_disjoint)
+    got = window_stats(*args)
+    want = window_stats_plain(*args)
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    return compare_raw(got, want, tag), args, got
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() over reps, CUDA events, after warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def phase_kernels(dev, report):
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.ops.seedpeel import seed_peel, seed_peel_plain
+    from impop_tpu_torch.ops.windowstat import (window_stats,
+                                                window_stats_plain)
+    from impop_tpu_torch.stats.allele import identity_from_alleles
+
+    rng = np.random.default_rng(7)
+    # (a) the HPRC shape
+    batch = hprc_batch(rng, BATCH)
+    err_a, args, _ = window_case(dev, *batch, True, "2a")
+    k_ms = cuda_time_ms(lambda: window_stats(*args), 10)
+    p_ms = cuda_time_ms(lambda: window_stats_plain(*args), 3)
+    say("2a", f"window_stats [{CAP_N},{CAP_S}]x{BATCH} 5 panels/10 pairs "
+        f"disjoint: integers exact, floats within rtol {RTOL} (max_abs_err "
+        f"{err_a:.3e}); kernel {k_ms:.4f} ms/batch "
+        f"= {k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
+        f"= {p_ms / BATCH * 1e3:.3f} us/window")
+    report["window_stats"].update(max_abs_err=err_a, ms=k_ms, plain_ms=p_ms)
+
+    # (b) cap 256, overlapping panels (non-disjoint layout)
+    geno, member, smask, _, lengths = hprc_batch(rng, 64, cap_n=256,
+                                                 n_hap=230)
+    panels = rng.random((64, 4, 256)) < 0.4
+    err_b, _, _ = window_case(dev, geno, member, smask, panels, lengths,
+                              False, "2b")
+    say("2b", f"window_stats [256,128]x64 overlapping panels: max_abs_err "
+        f"{err_b:.3e}")
+
+    # (c) partial coverage: two coverage islands -> seed_risk
+    geno, member, smask, _, lengths = hprc_batch(rng, 4, cap_n=128,
+                                                 n_hap=120)
+    geno[:, :60, 64:] = -1
+    geno[:, 60:, :64] = -1
+    smask[:] = True
+    panels = np.zeros((4, 2, 128), bool)
+    panels[:, 0, :60] = True
+    panels[:, 1, 60:120] = True
+    err_c, _, got_c = window_case(dev, geno, member, smask, panels, lengths,
+                                  True, "2c")
+    if not bool((got_c["seed_risk"] > 0.5).all()):
+        raise SmokeError("2c: partial-coverage windows did not set "
+                         "seed_risk")
+    say("2c", f"window_stats partial coverage: seed_risk set in all 4, "
+        f"max_abs_err {err_c:.3e}")
+
+    # (d) a long window, cap_s = 4096
+    geno, member, smask, panels, lengths = hprc_batch(rng, 8, cap_s=4096)
+    geno[:, :N_HAP, :4096] = np.where(
+        rng.random((8, N_HAP, 4096)) < 0.02, 1, 0).astype(np.int8)
+    smask[:] = True
+    lengths[:] = 200_000.0
+    err_d, _, _ = window_case(dev, geno, member, smask, panels, lengths,
+                              True, "2d")
+    say("2d", f"window_stats [512,4096]x8: max_abs_err {err_d:.3e}")
+    report["window_stats"]["max_abs_err"] = max(err_a, err_b, err_c, err_d)
+
+    # (e) seed_peel at the recompute's shape: one window, 2Q = 20 masks
+    g, m, sm, _, ln = to_dev(dev, *hprc_batch(rng, 4))
+    sim, present = identity_from_alleles(g, m, sm, ln)
+    masks = torch.from_numpy(rng.random((4, 20, CAP_N)) < 0.3).to(dev)
+    got = seed_peel(sim, present, m, masks, THRESHOLD)
+    want = seed_peel_plain(sim, present, m, masks, THRESHOLD)
+    if not torch.equal(got, want):
+        raise SmokeError("2e: seed_peel seeds differ from the plain peel")
+    k_ms = cuda_time_ms(
+        lambda: seed_peel(sim[:1], present[:1], m[:1], masks[:1], THRESHOLD),
+        20)
+    p_ms = cuda_time_ms(
+        lambda: seed_peel_plain(sim[:1], present[:1], m[:1], masks[:1],
+                                THRESHOLD), 5)
+    say("2e", f"seed_peel [512,512] x 20 masks: seeds equal "
+        f"({int(got.sum())} seeds over 4 windows); kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms per window")
+    report["seed_peel"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def read_table(path):
+    with open(path) as fh:
+        lines = [ln.rstrip("\n").split("\t") for ln in fh if ln.strip()]
+    return lines[0], lines[1:]
+
+
+def compare_tables(header, rows_a, rows_b, tag):
+    """Same regions; integer columns exact; π/D rtol 1e-5; Fst atol 2e-3;
+    NA in the same places."""
+    import numpy as np
+
+    if len(rows_a) != len(rows_b):
+        raise SmokeError(f"{tag}: {len(rows_a)} vs {len(rows_b)} rows")
+    for ra, rb in zip(rows_a, rows_b):
+        if ra[:4] != rb[:4]:
+            raise SmokeError(f"{tag}: {ra[:4]} vs {rb[:4]}")
+        for col, va, vb in zip(header[4:], ra[4:], rb[4:]):
+            if (va == "NA") != (vb == "NA"):
+                raise SmokeError(f"{tag}: NA mismatch in {col} at {ra[0]}")
+            if va == "NA":
+                continue
+            a, b = float(va), float(vb)
+            if col.startswith("FST"):
+                ok = abs(a - b) <= 2e-3
+            else:
+                ok = bool(np.isclose(a, b, rtol=1e-5, atol=1e-6))
+            if not ok:
+                raise SmokeError(f"{tag}: {col} at {ra[0]}: {va} vs {vb}")
+
+
+def phase_scan(dev, tmp):
+    import numpy as np
+
+    from impop_tpu_torch.cli import main as torch_main
+    from impop_tpu_torch.hostio import simulate
+
+    ref_len = SCAN_BP
+    t0 = time.perf_counter()
+    sim = simulate(tmp, ref_len=ref_len, n_haps=N_HAP - 1,
+                   site_pool=ref_len // 60, seed=11, span=(0, ref_len))
+    bed = os.path.join(tmp, "w.bed")
+    with open(bed, "w") as fh:
+        for lo in range(0, ref_len, WIN_BP):
+            fh.write(f"chr1\t{lo}\t{lo + WIN_BP}\n")
+    ents = [f"{h.name.split('#')[0]}_hap{h.name.split('#')[1]}"
+            for h in sim.haplotypes]
+    panel_args = []
+    start = 0
+    for pname, size in PANEL_SIZES.items():
+        pfile = os.path.join(tmp, f"agc.{pname}")
+        with open(pfile, "w") as fh:
+            fh.write("\n".join(ents[start:start + size]) + "\n")
+        start += size
+        panel_args += ["--panel", pfile]
+    say("3", f"simulated {ref_len / 1e6:g} Mb x {N_HAP} haplotypes in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    base = ["scan", "-b", bed, "--paf", sim.paf_path, "--fasta",
+            sim.fasta_path, "-P", "CHM13#0#", *panel_args]
+    out_gpu = os.path.join(tmp, "gpu.tsv")
+    journal = os.path.join(tmp, "scan.jsonl")
+    timing = os.path.join(tmp, "timing.json")
+    t0 = time.perf_counter()
+    rc = torch_main(base + ["--batch", "64", "--journal", journal, "-o",
+                            out_gpu, "--timing-json", timing,
+                            "--device", dev.type])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SmokeError(f"scan exited {rc}")
+    header, rows = read_table(out_gpu)
+    n_win = ref_len // WIN_BP
+    if len(rows) != n_win:
+        raise SmokeError(f"scan table has {len(rows)} rows, want {n_win}")
+    pi_cols = [i for i, h in enumerate(header) if h.startswith("PI_")]
+    for r in rows:
+        for i in pi_cols:
+            if r[i] == "NA" or not np.isfinite(float(r[i])):
+                raise SmokeError(f"non-finite {header[i]} at {r[0]}")
+    with open(timing) as fh:
+        stages = json.load(fh)["stages"]
+    brief = ", ".join(f"{k} {v['total_sec']:.3f}s"
+                      for k, v in sorted(stages.items(),
+                                         key=lambda kv: -kv[1]["total_sec"]))
+    say("3", f"scan {n_win} windows on {dev}: {wall:.2f} s wall, "
+        f"{n_win / wall:.2f} windows/s; stages: {brief}")
+
+    # the first 20 windows again, plain PyTorch on the CPU
+    bed20 = os.path.join(tmp, "w20.bed")
+    with open(bed20, "w") as fh:
+        for lo in range(0, 20 * WIN_BP, WIN_BP):
+            fh.write(f"chr1\t{lo}\t{lo + WIN_BP}\n")
+    out_cpu = os.path.join(tmp, "cpu20.tsv")
+    base20 = list(base)
+    base20[2] = bed20
+    if torch_main(base20 + ["--batch", "20", "-o", out_cpu,
+                            "--device", "cpu"]) != 0:
+        raise SmokeError("cpu scan failed")
+    _, rows_cpu = read_table(out_cpu)
+    compare_tables(header, rows[:20], rows_cpu, "3 gpu-vs-cpu")
+    say("3", "first 20 windows: GPU table equals the CPU table "
+        "(integers exact, pi/D rtol 1e-5, Fst atol 2e-3)")
+
+    out_resume = os.path.join(tmp, "resume.tsv")
+    if torch_main(base + ["--journal", journal, "-o", out_resume,
+                          "--device", dev.type]) != 0:
+        raise SmokeError("resume scan failed")
+    with open(out_gpu) as fa, open(out_resume) as fb:
+        if fa.read() != fb.read():
+            raise SmokeError("journal resume changed the table")
+    say("3", f"journal resume: identical {n_win}-row table")
+    return n_win / wall
+
+
+def phase_seed_risk(dev, tmp):
+    """Partial-coverage tile: the (seed, seed) cross pair has no data, so
+    seed_risk fires and FSTG is recomputed exactly (expected 1.0)."""
+    import numpy as np
+
+    from impop_tpu_torch.cli import main as torch_main
+
+    genodir = os.path.join(tmp, "genodir")
+    os.makedirs(genodir, exist_ok=True)
+    geno = np.full((4, 8), -1, np.int8)
+    geno[0, :4] = [1, 0, 1, 0]
+    geno[1] = [1, 0, 1, 0, 0, 0, 0, 1]
+    geno[2, 4:] = [1, 1, 0, 0]
+    geno[3] = [0, 1, 1, 0, 1, 1, 0, 0]
+    names = np.asarray([f"h{i:02d}#1#c{i}" for i in range(4)])
+    np.savez(os.path.join(genodir, "chr1:0-1000.npz"), geno=geno,
+             names=names)
+    bed = os.path.join(tmp, "risk.bed")
+    with open(bed, "w") as fh:
+        fh.write("chr1\t0\t1000\n")
+    pa, pb = os.path.join(tmp, "A.txt"), os.path.join(tmp, "B.txt")
+    with open(pa, "w") as fh:
+        fh.write("h00\nh01\n")
+    with open(pb, "w") as fh:
+        fh.write("h02\nh03\n")
+    out = os.path.join(tmp, "risk.tsv")
+    if torch_main(["scan", "-b", bed, "-P", "", "--geno-dir", genodir,
+                   "--panel", pa, "--panel", pb, "-o", out,
+                   "--device", dev.type]) != 0:
+        raise SmokeError("seed-risk scan failed")
+    header, rows = read_table(out)
+    fstg = float(rows[0][header.index("FSTG_A_B")])
+    if abs(fstg - 1.0) > 1e-6:
+        raise SmokeError(f"exact FSTG {fstg}, want 1.0")
+    say("4", f"seed_risk window recomputed exactly: FSTG_A_B = {fstg}")
+
+
+# ------------------------------------------------------------------ driver
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "impop_tpu_torch")):
+        print("chip_smoke: impop_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 3
+
+    from impop_tpu_torch.device import resolve_device
+    from impop_tpu_torch.ops import _build
+    from impop_tpu_torch.ops.seedpeel import seed_peel
+    from impop_tpu_torch.ops.windowstat import window_stats
+
+    dev = resolve_device("cuda")
+    smi = nvidia_smi_line()
+    nvcc = _build.nvcc_path()
+    nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
+                              text=True).stdout.strip().splitlines()[-1]
+    say("0", f"device {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc_ver}; "
+        f"python {sys.version.split()[0]}; CUTLASS headers "
+        f"{'present' if os.path.isdir('/usr/local/cutlass/include') else 'absent'}")
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    say("1", f"built and loaded csrc/*.cu for sm_90a in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    src = "impop_tpu_torch/csrc/windowstat.cu"
+    report = {
+        "window_stats": {"name": "window_stats", "route": "cuda",
+                         "source": src,
+                         "replaces": "impop_tpu/ops/windowstat.py:407"},
+        "seed_peel": {"name": "seed_peel", "route": "cuda", "source": src,
+                      "replaces": "impop_tpu/ops/seedpeel.py:156"},
+    }
+    phase_kernels(dev, report)
+
+    # the main path: every launch count starts at 0 here, and only the two
+    # scans below (through the port's CLI entry point) may add to it
+    window_stats.launches = 0
+    seed_peel.launches = 0
+    tmp = tempfile.mkdtemp(prefix="impop_smoke_")
+    try:
+        phase_scan(dev, tmp)
+        phase_seed_risk(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"window_stats": window_stats.launches,
+                "seed_peel": seed_peel.launches}
+    for name, count in launches.items():
+        report[name]["launches"] = count
+        if count == 0:
+            raise SmokeError(f"{name} was never launched by the scan")
+    say("3-4", f"kernel launches during the scans: {launches}")
+
+    print(json.dumps({"kernels": list(report.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,531 @@
+"""Command-line driver of the port: the fused ``scan``.
+
+    python -m impop_tpu_torch.cli scan -b windows.bed --paf aln.paf \\
+        --fasta haps.fa --panel agc.AFR --panel agc.EUR ... --device cuda
+
+Same flags, table and journal as ``python -m impop_tpu.cli scan`` (unit
+weights), plus ``--device {cuda,cpu}``.  Per batch of windows the host
+extracts allele tiles, packs them into the shared 2-bit wire buffer, and
+one device step computes π and Tajima's D per panel and Hudson direct /
+grouped / 3-π Fst per pair (``scanstep.scan_step``); windows flagged
+``seed_risk`` re-run their grouped Fst exactly.
+
+Not ported yet (they raise): ``--ehh``, ``--afs``, ``--identity-mode
+columns``, ``--distributed`` and more than one local GPU — ROADMAP.md
+Queue 1 items 7, 2, 9 and 11.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import concurrent.futures as futures
+import functools
+import sys
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from impop_tpu_torch.hostio import (GenoSource, GfaDirSource, _capacity_for,
+                                    _out_stream, _panel_label,
+                                    _print_counters,
+                                    _resolve_fasta, _scan_buf_layout,
+                                    _write_window_log, expand_population,
+                                    open_extractor, pack_scan_batch,
+                                    read_bed, read_panel_file,
+                                    split_multiallelic)
+from impop_tpu_torch.runtime.journal import ResultJournal
+from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
+
+__all__ = ["build_parser", "cmd_scan", "main"]
+
+
+def _warn(msg: str) -> None:
+    print(msg, file=sys.stderr)
+
+
+def _refuse_unported(args) -> None:
+    """Options of the JAX scan this port does not run yet."""
+    todo = [
+        (args.ehh or args.ehh_focal, "--ehh",
+         "Queue 1 item 7 (the ops/ehhdeath.py kernel)"),
+        (args.afs, "--afs", "Queue 1 item 2 (panel_afs)"),
+        (args.identity_mode == "columns", "--identity-mode columns",
+         "Queue 1 item 9 (weighted column-mode identity)"),
+        (args.distributed, "--distributed", "Queue 1 item 11 (multi-host)"),
+    ]
+    for flag_set, flag, where in todo:
+        if flag_set:
+            raise SystemExit(f"error: {flag} is not ported to impop_tpu_torch "
+                             f"yet (ROADMAP.md {where}); use "
+                             "`python -m impop_tpu.cli scan` for it")
+
+
+def _open_device(name: str):
+    import torch
+
+    from impop_tpu_torch.device import resolve_device
+
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() > 1:
+        raise SystemExit(
+            f"error: {torch.cuda.device_count()} local GPUs visible; the "
+            "multi-GPU scan is not ported yet (ROADMAP.md Queue 1 item 11). "
+            "Pick one with --device cuda:K or CUDA_VISIBLE_DEVICES")
+    return dev
+
+
+def cmd_scan(args) -> int:
+    """Fused scan with a result journal for idempotent resume."""
+    import torch
+
+    from impop_tpu_torch.scanstep import (batch_to_device, row_layout,
+                                          scan_step, scan_step_fstg_exact)
+
+    _refuse_unported(args)
+    timers = StageTimers()
+    setup = timers.stage("setup")
+    setup.__enter__()
+
+    dev = _open_device(args.device)
+    if dev.type == "cuda":
+        from impop_tpu_torch.ops._build import load_library
+
+        with timers.stage("setup.build"):
+            load_library()
+
+    with timers.stage("setup.bed"):
+        regions = read_bed(args.bed)
+    geno_src = (GenoSource(args.geno_dir) if args.geno_dir
+                else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
+    with timers.stage("setup.open"):
+        fasta_store = _resolve_fasta(args)
+        extractor = (open_extractor(args.paf, fasta_store)
+                     if args.paf and fasta_store else None)
+    if geno_src is None and extractor is None:
+        raise SystemExit("error: provide --geno-dir, --gfa-dir, "
+                         "--paf + --fasta, or --paf + --agc")
+
+    with timers.stage("setup.panels"):
+        panel_files = sorted(args.panel or [])
+        panel_names = [_panel_label(p) for p in panel_files]
+        panel_lists = [read_panel_file(p) for p in panel_files]
+    p_count = max(1, len(panel_lists))
+    pair_list = [(i, j) for i in range(len(panel_lists))
+                 for j in range(i + 1, len(panel_lists))]
+    pair_key = tuple(pair_list)
+    with_pairs = bool(pair_list)
+    pair_a_np = np.asarray([i for i, _ in pair_list] or [0], np.int32)
+    pair_b_np = np.asarray([j for _, j in pair_list] or [0], np.int32)
+    thr = float(args.threshold)
+
+    with timers.stage("setup.journal"):
+        journal = ResultJournal(args.journal)
+
+    @functools.lru_cache(maxsize=64)
+    def masks_for_stems(stems_key: tuple) -> np.ndarray:
+        masks = np.zeros((p_count, len(stems_key)), dtype=bool)
+        for pi_idx, plist in enumerate(panel_lists):
+            matched, _ = expand_population(plist, list(stems_key))
+            for k, nm in enumerate(stems_key):
+                if nm in matched:
+                    masks[pi_idx, k] = True
+        return masks
+
+    def panel_masks_for(names_key: tuple) -> np.ndarray:
+        # panel prefixes never reach into the ":start-end" range suffix of
+        # extracted names, so one cache entry serves a contiguous scan
+        return masks_for_stems(tuple(n.split(":", 1)[0] for n in names_key))
+
+    header = ["REGION", "LENGTH", "SAMPLES", "SEGREGATING_SITES"]
+    if panel_lists:
+        for name in panel_names:
+            header += [f"PI_{name}", f"TAJD_{name}"]
+        for i, j in pair_list:
+            header += [f"FST_{panel_names[i]}_{panel_names[j]}",
+                       f"FSTG_{panel_names[i]}_{panel_names[j]}",
+                       f"FST3_{panel_names[i]}_{panel_names[j]}"]
+    else:
+        header += ["PI", "TAJIMAS_D"]
+    lay = row_layout(p_count, len(pair_list))
+
+    def disjoint_of(panels: np.ndarray) -> bool:
+        return with_pairs and not bool(
+            (panels[:, pair_a_np] & panels[:, pair_b_np]).any())
+
+    setup.__exit__(None, None, None)
+    out = _out_stream(args.output)
+    try:
+        print("\t".join(header), file=out)
+        pending: List[Tuple[object, str]] = []
+        for reg in regions:
+            rs = reg.region_string(args.prefix)
+            rec = journal.get(rs)
+            if rec is not None and "row" in rec:
+                print(rec["row"], file=out)
+                continue
+            pending.append((reg, rs))
+
+        batch_size = args.batch
+        cap_hint = [64, 128]  # [n, s] shape floors, grown per chunk
+
+        def load_chunk(chunk):
+            tiles, kept, failures = [], [], []
+            for reg, rs in chunk:
+                try:
+                    if geno_src is not None:
+                        g, names, keys = geno_src.load(rs)
+                        g, keys = split_multiallelic(
+                            np.asarray(g, np.int8), keys)
+                    else:
+                        wm = extractor.extract(rs.rsplit(":", 1)[0],
+                                               reg.start, reg.end)
+                        g, names, keys = wm.geno, wm.names, wm.site_keys
+                except Exception as e:  # per-window skip-and-record
+                    failures.append((rs, str(e)))
+                    continue
+                order = np.argsort(names)
+                tiles.append((np.asarray(g, np.int8)[order],
+                              [names[i] for i in order]))
+                kept.append((reg, rs))
+            return tiles, kept, failures
+
+        def extract_native(chunk):
+            """One C++ call per target-contiguous window group; returns open
+            native batch handles the build worker packs from."""
+            with timers.stage("extract"):
+                groups: List[Tuple[str, list]] = []
+                for reg, rs in chunk:
+                    tgt = rs.rsplit(":", 1)[0]
+                    if groups and groups[-1][0] == tgt:
+                        groups[-1][1].append((reg, rs))
+                    else:
+                        groups.append((tgt, [(reg, rs)]))
+                batches = [
+                    extractor.extract_batch_open(
+                        tgt, [(reg.start, reg.end) for reg, _ in items])
+                    for tgt, items in groups
+                ]
+            return groups, batches
+
+        def prepare_native(extracted, n_chunks):
+            """Wire-pack straight from the native batches' memory + H2D."""
+            groups, batches = extracted
+            with timers.stage("build"):
+                failures, kept, rows = [], [], []
+                for gi, ((_tgt, items), nb) in enumerate(zip(groups,
+                                                            batches)):
+                    for k, (reg, rs) in enumerate(items):
+                        if nb.errors[k]:
+                            failures.append((rs, nb.errors[k]))
+                        else:
+                            kept.append((reg, rs))
+                            rows.append((gi, k))
+                if not kept:
+                    for nb in batches:
+                        nb.close()
+                    return None, kept, failures, False, (0, 0)
+                n_max = max(max((n for n, _ in nb.dims), default=1)
+                            for nb in batches)
+                s_max = max(max((s for _, s in nb.dims), default=1)
+                            for nb in batches)
+                cap_n = _capacity_for([max(cap_hint[0], n_max)])
+                cap_s = ((max(cap_hint[1], s_max, 128) + 127) // 128) * 128
+                cap_hint[0] = max(cap_hint[0], cap_n)
+                cap_hint[1] = max(cap_hint[1], cap_s)
+                w = batch_size if n_chunks > 1 else len(kept)
+                blay = _scan_buf_layout(cap_n, cap_s, p_count, False)
+                flat = np.zeros((w, blay["total"]), np.uint8)
+                row_of = {key: wi for wi, key in enumerate(rows)}
+                with timers.stage("build.pack"):
+                    for gi, nb in enumerate(batches):
+                        nb.pack_into(
+                            flat, [row_of.get((gi, k), -1)
+                                   for k in range(nb.count)],
+                            cap_n, cap_s, blay["m"], blay["sm"], -1)
+                panels = np.zeros((w, p_count, cap_n), bool)
+                lengths = np.zeros(w, np.uint32)
+                lengths[:len(kept)] = [reg.length for reg, _ in kept]
+                mask_rows: dict = {}
+                mask_vals: dict = {}
+                for wi, (gi, k) in enumerate(rows):
+                    nm = batches[gi].names(k)
+                    key = id(nm)
+                    if key not in mask_vals:
+                        mask_vals[key] = (panel_masks_for(tuple(nm))
+                                          if panel_lists else len(nm))
+                    mask_rows.setdefault(key, []).append(wi)
+                for key, wis in mask_rows.items():
+                    m = mask_vals[key]
+                    if panel_lists:
+                        panels[np.asarray(wis), :, :m.shape[1]] = m
+                    else:
+                        panels[np.asarray(wis), 0, :m] = True
+                for nb in batches:
+                    nb.close()
+                flat[:, blay["p"]:blay["l"]] = np.packbits(
+                    panels, axis=-1, bitorder="little").reshape(w, -1)
+                flat[:, blay["l"]:blay["l"] + 4] = (
+                    lengths.astype("<u4").view(np.uint8).reshape(w, 4))
+                disjoint = disjoint_of(panels)
+            with timers.stage("h2d"):
+                dev_flat = batch_to_device(flat, dev)
+            return dev_flat, kept, failures, disjoint, (cap_n, cap_s)
+
+        def prepare_tiles(extracted, n_chunks):
+            """Pad + fused pack + H2D for tiles from --geno-dir/--gfa-dir or
+            the per-window extractor; padding windows are all-zero rows
+            (no members, length 0) and come out inert."""
+            tiles, kept, failures = extracted
+            if not tiles:
+                return None, kept, failures, False, (0, 0)
+            with timers.stage("build"):
+                cap_n = _capacity_for([t0.shape[0] for t0, _ in tiles])
+                cap_s = max(128, max(t0.shape[1] for t0, _ in tiles))
+                cap_s = ((cap_s + 127) // 128) * 128
+                w = batch_size if n_chunks > 1 else len(tiles)
+                geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
+                member = np.zeros((w, cap_n), bool)
+                smask = np.zeros((w, cap_s), bool)
+                panels = np.zeros((w, p_count, cap_n), bool)
+                lengths = np.zeros(w, np.float32)
+                for wi, ((g, names), (reg, _rs)) in enumerate(zip(tiles,
+                                                                  kept)):
+                    n, s = g.shape
+                    geno[wi, :n, :s] = g
+                    member[wi, :n] = True
+                    smask[wi, :s] = True
+                    lengths[wi] = reg.length
+                    if panel_lists:
+                        panels[wi, :, :n] = panel_masks_for(tuple(names))
+                    else:
+                        panels[wi, 0, :n] = True
+                disjoint = disjoint_of(panels)
+                flat = pack_scan_batch(geno, member, smask, panels, lengths,
+                                       None, False)
+            with timers.stage("h2d"):
+                dev_flat = batch_to_device(flat, dev)
+            return dev_flat, kept, failures, disjoint, (cap_n, cap_s)
+
+        native_path = (geno_src is None and extractor is not None
+                       and hasattr(extractor, "extract_batch_open"))
+
+        def extract_stage(chunk):
+            if native_path:
+                return extract_native(chunk)
+            with timers.stage("extract"):
+                return load_chunk(chunk)
+
+        def prepare_stage(fx, n_chunks):
+            prep = prepare_native if native_path else prepare_tiles
+            return prep(fx.result(), n_chunks)
+
+        # two-stage host pipeline: chunk k+1 extracts on one worker while
+        # chunk k packs + copies on the other and the device computes chunk
+        # k-1; at most two prepared batches are in flight
+        chunks = [pending[lo:lo + batch_size]
+                  for lo in range(0, len(pending), batch_size)]
+        pool_x = futures.ThreadPoolExecutor(max_workers=1)
+        pool_b = futures.ThreadPoolExecutor(max_workers=1)
+        inflight: collections.deque = collections.deque()
+        next_submit = 0
+
+        def top_up():
+            nonlocal next_submit
+            while next_submit < len(chunks) and len(inflight) < 2:
+                fx = pool_x.submit(extract_stage, chunks[next_submit])
+                inflight.append(pool_b.submit(prepare_stage, fx,
+                                              len(chunks)))
+                next_submit += 1
+
+        n_done = n_failed = 0
+
+        def emit_rows(packed, kept):
+            nonlocal n_done
+            timers.add_windows(len(kept))
+            for wi, (reg, rs) in enumerate(kept):
+                row_v = packed[wi]
+                n_v, s_v = int(row_v[lay["n"]]), int(row_v[lay["s"]])
+                cells = [rs, str(reg.length), str(n_v), str(s_v)]
+                for pi_idx in range(p_count):
+                    d_val = float(row_v[lay["d"] + pi_idx])
+                    cells += [f"{float(row_v[lay['pi'] + pi_idx]) / reg.length:.8f}",
+                              "NA" if np.isnan(d_val) else f"{d_val:.6f}"]
+                if panel_lists:
+                    for qi in range(len(pair_list)):
+                        f3_val = float(row_v[lay["f3"] + qi])
+                        cells += [
+                            f"{float(row_v[lay['fst'] + qi]):.8f}",
+                            f"{float(row_v[lay['fstg'] + qi]):.8f}",
+                            "NA" if np.isnan(f3_val) else f"{f3_val:.8f}",
+                        ]
+                row = "\t".join(cells)
+                if args.log_dir:
+                    payload = {"region": rs, "length": reg.length,
+                               "threshold": args.threshold, "n": n_v,
+                               "segregating_sites": s_v}
+                    for pi_idx, pname in enumerate(panel_names or ["ALL"]):
+                        payload[f"pi_{pname}"] = (
+                            float(row_v[lay["pi"] + pi_idx]) / reg.length)
+                        dv = float(row_v[lay["d"] + pi_idx])
+                        payload[f"tajd_{pname}"] = "NA" if np.isnan(dv) else dv
+                    for qi, (i, j) in enumerate(pair_list):
+                        tag = f"{panel_names[i]}_{panel_names[j]}"
+                        payload[f"fst_{tag}"] = float(row_v[lay["fst"] + qi])
+                        payload[f"fstg_{tag}"] = float(
+                            row_v[lay["fstg"] + qi])
+                        f3v = float(row_v[lay["f3"] + qi])
+                        payload[f"fst3_{tag}"] = ("NA" if np.isnan(f3v)
+                                                  else f3v)
+                    _write_window_log(args.log_dir, rs, "Fused Scan Window",
+                                      payload)
+                journal.record(rs, {"row": row})
+                print(row, file=out)
+                n_done += 1
+
+        def exact_fstg(packed, kept, dev_flat, caps):
+            """Windows flagged seed_risk re-run their grouped Fst through
+            the exact first-found-pair program; only their FSTG changes."""
+            if not with_pairs:
+                return packed
+            risk = np.nonzero(packed[:len(kept), lay["risk"]] > 0)[0]
+            if risk.size == 0:
+                return packed
+            with timers.stage("device.exact"):
+                exact = scan_step_fstg_exact(
+                    dev_flat, caps[0], caps[1], p_count, pair_key, thr,
+                    rows=[int(r) for r in risk]).cpu().numpy()
+            packed = packed.copy()
+            packed[risk, lay["fstg"]:lay["f3"]] = exact
+            return packed
+
+        def drain(cout, metas):
+            with timers.stage("fetch"):
+                packed_all = cout.cpu().numpy()   # the barrier
+            off = 0
+            for kept_b, dev_flat_b, caps_b in metas:
+                w_b = dev_flat_b.shape[0]
+                packed_b = exact_fstg(packed_all[off:off + w_b], kept_b,
+                                      dev_flat_b, caps_b)
+                with timers.stage("emit"):
+                    emit_rows(packed_b, kept_b)
+                off += w_b
+
+        # grouped drains: every drain_group outputs are concatenated on the
+        # device and fetched as one array, one group behind the dispatch
+        # front so the device computes while the host drains and emits
+        drain_group = max(1, int(args.drain_group or 4))
+        group: list = []        # [(out_dev, kept, dev_flat, caps)]
+        pending_out = None      # (cout, [(kept, dev_flat, caps)...])
+
+        def flush_group():
+            nonlocal pending_out, group
+            if not group:
+                return
+            cout = (group[0][0] if len(group) == 1
+                    else torch.cat([o for o, *_ in group], dim=0))
+            if pending_out is not None:
+                drain(*pending_out)
+            pending_out = (cout, [(k, d, c) for _, k, d, c in group])
+            group = []
+
+        trace = device_trace(args.profile_dir)
+        trace.__enter__()
+        try:
+            top_up()
+            while inflight:
+                with timers.stage("wait_input"):
+                    (dev_flat, kept, failures, disjoint,
+                     caps) = inflight.popleft().result()
+                top_up()
+                for rs, err in failures:
+                    _warn(f"Warning: {rs}: {err}; recording NA")
+                    journal.record_failure(rs, err)
+                    n_failed += 1
+                if dev_flat is None:
+                    continue
+                with timers.stage("device"):
+                    out_dev = scan_step(dev_flat, caps[0], caps[1], p_count,
+                                        pair_key, thr, disjoint)
+                group.append((out_dev, kept, dev_flat, caps))
+                if len(group) >= drain_group:
+                    flush_group()
+            flush_group()
+            if pending_out is not None:
+                drain(*pending_out)
+        finally:
+            pool_x.shutdown(wait=True, cancel_futures=True)
+            pool_b.shutdown(wait=True, cancel_futures=True)
+            trace.__exit__(None, None, None)
+        _print_counters(n_done, n_failed)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    if args.verbose_timing:
+        _warn(timers.report())
+    if args.timing_json:
+        import json
+
+        with open(args.timing_json, "w") as fh:
+            json.dump(timers.to_json(), fh)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="impop-tpu-torch",
+        description="impop scan on PyTorch (CUDA kernels on the GPU)")
+    sub = ap.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("scan", help="fused pi+Fst+TajD scan with resume")
+    p.add_argument("-b", "--bed", required=True)
+    p.add_argument("--geno-dir", help="directory of per-window .npz tiles")
+    p.add_argument("--gfa-dir", help="directory of per-window .gfa graphs")
+    p.add_argument("--paf")
+    p.add_argument("--fasta")
+    p.add_argument("--agc", help="AGC archive (one-time cached conversion "
+                                 "to a BGZF FASTA store)")
+    p.add_argument("--agc-bin", default="agc")
+    p.add_argument("--identity-mode", choices=["events", "columns"],
+                   default="events",
+                   help="identity deviation spec; only 'events' (unit "
+                        "weights) is ported")
+    p.add_argument("--afs", help="not ported yet")
+    p.add_argument("--afs-bins", type=int, default=512)
+    p.add_argument("--afs-unfolded", action="store_true")
+    p.add_argument("--ehh", action="store_true", help="not ported yet")
+    p.add_argument("--ehh-focal", help="not ported yet")
+    p.add_argument("--panel", action="append", default=[],
+                   help="panel list file (repeatable, e.g. metadata/agc.EUR)")
+    p.add_argument("-P", "--prefix", default="CHM13#0#")
+    p.add_argument("-t", "--threshold", type=float, default=0.999)
+    p.add_argument("-o", "--output")
+    p.add_argument("--journal", help="JSONL journal path for resume")
+    p.add_argument("--batch", type=int, default=320,
+                   help="windows per device step")
+    p.add_argument("--drain-group", type=int, default=4,
+                   help="device batches concatenated per result fetch")
+    p.add_argument("--distributed", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA), cuda:K or "
+                        "cpu (the plain PyTorch path)")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler Chrome trace to this "
+                        "directory")
+    p.add_argument("--verbose-timing", action="store_true",
+                   help="print per-stage wall times to stderr")
+    p.add_argument("--timing-json",
+                   help="write the per-stage timing breakdown to this JSON")
+    p.add_argument("-d", "--log-dir", default=None,
+                   help="directory for per-window debug logs")
+    p.set_defaults(func=cmd_scan)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,114 @@
+"""Greedy grouping (port of the scan's part of
+:mod:`impop_tpu.stats.grouping`).
+
+Greedy single-link, one hop (pica2 semantics with the deterministic sorted
+row order): rows are processed in ascending index; an unabsorbed row
+becomes a seed and absorbs every still-unabsorbed later row whose
+similarity to it exceeds the threshold (strict >).  Equivalently
+
+    seed(i)  ⟺  no seed j < i with link(j, i)
+    gid(i)   =   i if seed(i) else min{ seed j < i : link(j, i) }
+
+Seeds and gids are bit-identical to the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from impop_tpu_torch.ops.seedpeel import link_matrix, seed_peel
+
+__all__ = ["greedy_group_panels", "group_sizes", "first_pair_winner"]
+
+# bound on the [..., P, N, N] candidate mask of _gid_from_seeds per chunk
+_GID_CHUNK_ELEMS = 1 << 27
+
+
+def greedy_group_panels(sim: torch.Tensor, present: torch.Tensor,
+                        member: torch.Tensor, pmasks: torch.Tensor,
+                        threshold) -> torch.Tensor:
+    """Greedy groups for P masks sharing one window's matrix.
+
+    Args: sim/present [..., N, N], member [..., N], pmasks [..., P, N].
+    Returns gid [..., P, N] int32: the seed row of each mask member, N for
+    rows outside the mask.
+    """
+    n_cap = sim.shape[-1]
+    elink = link_matrix(sim, present, member, threshold)
+    pm = pmasks & member[..., None, :]
+    seed = seed_peel(sim, present, member, pmasks, threshold)
+    return _gid_from_seeds(seed, elink, pm, n_cap)
+
+
+def _gid_from_seeds(seed, elink, pm, n_cap):
+    """gid[..., p, i] = min{ seed j < i : elink[j, i] }; i if seed; N
+    outside the mask.  The first True along j of seed ∧ elink is the
+    smallest linked seed (argmax returns the first maximum)."""
+    lead = seed.shape[:-2]
+    p_count = seed.shape[-2]
+    b = math.prod(lead)
+    seed_b = seed.reshape(b, p_count, n_cap)
+    elink_b = elink.expand(*lead, n_cap, n_cap).reshape(b, n_cap, n_cap)
+    min_seed = torch.empty((b, p_count, n_cap), dtype=torch.int64,
+                           device=seed.device)
+    step = max(1, _GID_CHUNK_ELEMS // max(1, p_count * n_cap * n_cap))
+    for lo in range(0, b, step):
+        cand = seed_b[lo:lo + step, :, :, None] & elink_b[lo:lo + step, None]
+        first = cand.to(torch.uint8).argmax(dim=-2)
+        min_seed[lo:lo + step] = torch.where(cand.any(dim=-2), first, n_cap)
+    order = torch.arange(n_cap, device=seed.device)
+    gid = torch.where(seed, order, min_seed.reshape(*lead, p_count, n_cap))
+    return torch.where(pm, gid, n_cap).to(torch.int32)
+
+
+def group_sizes(gid: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
+    """sizes[..., s] = number of members whose group seed is row s."""
+    n_cap = gid.shape[-1]
+    counts = torch.zeros((*gid.shape[:-1], n_cap + 1), dtype=torch.int32,
+                         device=gid.device)
+    counts.scatter_add_(-1, gid.to(torch.int64), member.to(torch.int32))
+    return counts[..., :n_cap]
+
+
+def first_pair_winner(present: torch.Tensor, member_row: torch.Tensor,
+                      gid_row: torch.Tensor, gid_col: torch.Tensor,
+                      member_col: torch.Tensor | None = None,
+                      ordered: bool = False) -> torch.Tensor:
+    """hud.py's "first found" representative pair per group pair.
+
+    With rows in sorted-name order the winner of a group pair is the pair
+    (i, j) minimising (rank of i in its group, rank of j in its group)
+    among present pairs.  Leading axes broadcast.  ``ordered=False`` keeps
+    gid_row < gid_col (within-set use); ``True`` keeps gid_row != gid_col
+    (cross-population).  Returns winner [..., N, N] bool.
+    """
+    if member_col is None:
+        member_col = member_row
+    n_cap = member_row.shape[-1]
+    dev = present.device
+    order = torch.arange(n_cap, device=dev)
+    f32 = torch.float32
+
+    valid = present & member_row[..., :, None] & member_col[..., None, :]
+    if ordered:
+        valid = valid & (gid_row[..., :, None] != gid_col[..., None, :])
+    else:
+        valid = valid & (gid_row[..., :, None] < gid_col[..., None, :])
+    validf = valid.to(f32)
+    # any_valid[i, g]: row i has a valid partner in column-group g
+    oh_col = ((gid_col[..., :, None] == order) & member_col[..., :, None])
+    any_valid = (validf @ oh_col.to(f32)) > 0.5
+    earlier = order[:, None] < order[None, :]
+    # blocked_row[i, g]: an earlier same-group row also reaches g
+    er_f = ((gid_row[..., :, None] == gid_row[..., None, :]) & earlier
+            & member_row[..., :, None] & member_row[..., None, :]).to(f32)
+    blocked_row = (er_f.transpose(-1, -2) @ any_valid.to(f32)) > 0.5
+    row_first = any_valid & ~blocked_row
+    # col_first[i, j]: no earlier same-column-group j' valid for row i
+    ec_f = ((gid_col[..., :, None] == gid_col[..., None, :]) & earlier
+            & member_col[..., :, None] & member_col[..., None, :]).to(f32)
+    col_first = valid & ((validf @ ec_f) < 0.5)
+    idx = torch.clamp(gid_col, 0, n_cap - 1).to(torch.int64)
+    idx = idx[..., None, :].expand(*row_first.shape)
+    return col_first & torch.gather(row_first, -1, idx)
