@@ -11,12 +11,27 @@ Phases (one line each; any failure exits non-zero):
      (a) [512, 128] x 320 HPRC-shaped windows, 5 panels / 10 disjoint
          pairs, with kernel and plain per-window times (CUDA events);
      (b) cap 256 with overlapping panels; (c) a partial-coverage window
-     that sets seed_risk; (d) cap_s = 4096; (e) seed_peel
+     that sets seed_risk; (d) cap_s = 4096; (e) seed_peel;
+     (f) ehh_area: [512, 128] x 320 with the focal at the middle variant,
+         focals on the first and last active site, a window with no
+         active site, and [512, 1024] x 16 past 2^24 (all exactly equal);
+     (g) pairwise_identity_weighted: [512, 128] x 64 with integer weights
+         1-50 and a 100 000 bp column, and [512, 4096] x 4 (exactly equal);
+     (h) masked_pair_sums on the stacks the columns scan builds, disjoint
+         and overlapping pairs (rtol 1e-5)
   3  the port's ``scan`` end to end on a simulated 2 Mb, 466-haplotype
      pangenome (400 windows of 5 kb), then the first 20 windows again on
      the CPU, then a journal resume
   4  the seed_risk recompute through ``scan --geno-dir`` on a
      partial-coverage window
+  5  ``scan --ehh --afs`` on the same pangenome: GPU against CPU on 20
+     windows (EHH areas rtol 1e-5, carriers exact, spectrum files
+     identical), then a journal resume that reproduces table and spectrum
+  6  ``scan --identity-mode columns --ehh`` on the same pangenome, GPU
+     against CPU on 20 windows
+
+Each scan path (3-4, 5, 6) starts with every kernel launch count at 0 and
+fails unless each kernel of that path was launched during it.
 
 Before the last line it prints the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -172,6 +187,172 @@ def cuda_time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def mid_active_focals(smask):
+    """Per window, the middle active site (0 when the window has none)."""
+    import numpy as np
+
+    out = np.zeros(smask.shape[0], np.int32)
+    for wi, row in enumerate(smask):
+        idx = np.nonzero(row)[0]
+        out[wi] = idx[len(idx) // 2] if idx.size else 0
+    return out
+
+
+def ehh_case(dev, geno, member, smask, focal, tag):
+    """ehh_area against its plain version: sums and carriers exactly equal.
+    Returns (max abs err, the largest step sum, the device inputs)."""
+    import torch
+
+    from impop_tpu_torch.ops.ehhdeath import ehh_area, ehh_area_plain
+
+    args = to_dev(dev, geno, member, smask, focal)
+    got = ehh_area(*args)
+    want = ehh_area_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in (("sums", got[0], want[0]), ("carriers", got[1],
+                                                   want[1])):
+        if g.shape != w.shape or not torch.equal(g, w):
+            diff = (g.double() - w.double()).abs().max().item()
+            raise SmokeError(f"{tag}: ehh_area {name} differ from the plain "
+                             f"version (max abs {diff})")
+    return 0.0, int(got[0].max()), args
+
+
+def phase_ehh_kernel(dev, report):
+    import numpy as np
+
+    from impop_tpu_torch.ops.ehhdeath import ehh_area, ehh_area_plain
+
+    rng = np.random.default_rng(17)
+    geno, member, smask, _, _ = hprc_batch(rng, BATCH)
+    err, _, args = ehh_case(dev, geno, member, smask,
+                            mid_active_focals(smask), "2f")
+    k_ms = cuda_time_ms(lambda: ehh_area(*args), 10)
+    p_ms = cuda_time_ms(lambda: ehh_area_plain(*args), 3)
+    say("2f", f"ehh_area [{CAP_N},{CAP_S}]x{BATCH}, focal at the middle "
+        f"variant: sums and carriers exactly equal; kernel {k_ms:.4f} "
+        f"ms/batch = {k_ms / BATCH * 1e3:.3f} us/window; plain "
+        f"{p_ms:.4f} ms/batch = {p_ms / BATCH * 1e3:.3f} us/window")
+
+    # focal on the first / last active site; a window with no active site
+    geno, member, smask, _, _ = hprc_batch(rng, 6)
+    smask &= rng.random(smask.shape) < 0.8
+    smask[5] = False
+    focal = np.zeros(6, np.int32)
+    for wi in range(5):
+        idx = np.nonzero(smask[wi])[0]
+        focal[wi] = idx[0] if wi % 2 == 0 else idx[-1]
+    ehh_case(dev, geno, member, smask, focal, "2f edges")
+
+    # [512, 1024]: long identical runs, step sums past 2^24
+    geno, member, smask, _, _ = hprc_batch(rng, 16, cap_s=1024)
+    for wi in range(16):
+        classes = rng.integers(0, 2, size=(2, 1024)).astype(np.int8)
+        g = classes[rng.integers(0, 2, size=N_HAP)]
+        geno[wi, :N_HAP] = np.where(rng.random((N_HAP, 1024)) < 2e-4,
+                                    1 - g, g)
+    smask[:] = True
+    _, big, _ = ehh_case(dev, geno, member, smask, mid_active_focals(smask),
+                         "2f long")
+    if big <= 1 << 24:
+        raise SmokeError(f"2f long: largest step sum {big} does not pass "
+                         "2^24")
+    say("2f", f"ehh_area edges (first / last active focal, no active "
+        f"site) and [512,1024]x16 (largest sum {big} > 2^24): exactly "
+        "equal")
+    report["ehh_area"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def phase_weighted_kernels(dev, report):
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
+                                               masked_pair_sums_plain)
+    from impop_tpu_torch.ops.pairdiff import (
+        pairwise_identity_weighted, pairwise_identity_weighted_plain)
+    from impop_tpu_torch.stats.panelstats import (gdxy_rows,
+                                                  panel_mask_stack,
+                                                  panel_sums)
+
+    rng = np.random.default_rng(23)
+    w_cols = 64
+
+    def weighted(geno, member, smask, lengths, wts, tag):
+        args = to_dev(dev, geno, member, smask, lengths, wts)
+        sim, pres = pairwise_identity_weighted(*args)
+        sim_p, pres_p = pairwise_identity_weighted_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(pres, pres_p):
+            raise SmokeError(f"{tag}: weighted present differs")
+        if not torch.equal(sim, sim_p):
+            err = float((sim - sim_p).abs().max())
+            raise SmokeError(f"{tag}: weighted sim differs (max abs {err})")
+        return args, sim, pres
+
+    geno, member, smask, panels, lengths = hprc_batch(rng, w_cols)
+    wts = rng.integers(1, 51, size=(w_cols, CAP_S)).astype(np.float32)
+    wts[:, 7] = 100_000.0
+    args, sim, pres = weighted(geno, member, smask, lengths, wts, "2g")
+    k_ms = cuda_time_ms(lambda: pairwise_identity_weighted(*args), 10)
+    p_ms = cuda_time_ms(lambda: pairwise_identity_weighted_plain(*args), 5)
+    g4, m4, s4, _, l4 = hprc_batch(rng, 4, cap_s=4096)
+    g4[:, :N_HAP] = np.where(rng.random((4, N_HAP, 4096)) < 0.02, 1,
+                             0).astype(np.int8)
+    s4[:] = True
+    l4[:] = 200_000.0
+    w4 = rng.integers(1, 51, size=(4, 4096)).astype(np.float32)
+    weighted(g4, m4, s4, l4, w4, "2g long")
+    say("2g", f"pairwise_identity_weighted [{CAP_N},{CAP_S}]x{w_cols} "
+        f"(weights 1-50, one 100 000 bp column) and [512,4096]x4: sim and "
+        f"present exactly equal; kernel {k_ms:.4f} ms/batch = "
+        f"{k_ms / w_cols * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch = "
+        f"{p_ms / w_cols * 1e3:.3f} us/window")
+    report["pairwise_identity_weighted"].update(max_abs_err=0.0, ms=k_ms,
+                                                plain_ms=p_ms)
+
+    # the row stacks fused_panel_stats hands to the masked sums
+    m_dev = args[1]
+    p = panels.shape[1]
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    overlap = torch.from_numpy(rng.random((w_cols, p, CAP_N)) < 0.3).to(dev)
+    worst, timed = 0.0, None
+    for disjoint, pn in ((True, to_dev(dev, panels)[0]), (False, overlap)):
+        stack, ma, mb = panel_mask_stack(pn, m_dev, pa, pb, disjoint)
+        pq = p + len(pairs)
+        ia, ib = gdxy_rows(pa, pb, pq, disjoint)
+        seen = {}
+
+        def capture(*xs):
+            seen["args"] = xs
+            return masked_pair_sums_plain(*xs)
+
+        panel_sums(sim, pres, m_dev, stack, ma, mb, THRESHOLD, ia, ib, pq,
+                   pair_sums=capture)
+        got = masked_pair_sums(*seen["args"])
+        want = masked_pair_sums_plain(*seen["args"])
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+                raise SmokeError(f"2h: masked_pair_sums beyond rtol {RTOL} "
+                                 f"(disjoint={disjoint}, max abs {err})")
+        if disjoint:
+            timed = seen["args"]
+    k_ms = cuda_time_ms(lambda: masked_pair_sums(*timed), 10)
+    p_ms = cuda_time_ms(lambda: masked_pair_sums_plain(*timed), 5)
+    rows = (timed[2].shape[-2], timed[3].shape[-2])
+    say("2h", f"masked_pair_sums [{CAP_N},{CAP_N}]x{w_cols}, {rows[0]} + "
+        f"{rows[1]} rows, disjoint and overlapping pairs: within rtol "
+        f"{RTOL} (max_abs_err {worst:.3e}); kernel {k_ms:.4f} ms/batch = "
+        f"{k_ms / w_cols * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
+        f"= {p_ms / w_cols * 1e3:.3f} us/window")
+    report["masked_pair_sums"].update(max_abs_err=worst, ms=k_ms,
+                                      plain_ms=p_ms)
+
+
 def phase_kernels(dev, report):
     import numpy as np
     import torch
@@ -261,8 +442,8 @@ def read_table(path):
 
 
 def compare_tables(header, rows_a, rows_b, tag):
-    """Same regions; integer columns exact; π/D rtol 1e-5; Fst atol 2e-3;
-    NA in the same places."""
+    """Same regions; integer columns exact (EHH_FOCAL and EHH_CARR_* too);
+    π/D/EHH areas rtol 1e-5; Fst atol 2e-3; NA in the same places."""
     import numpy as np
 
     if len(rows_a) != len(rows_b):
@@ -275,19 +456,20 @@ def compare_tables(header, rows_a, rows_b, tag):
                 raise SmokeError(f"{tag}: NA mismatch in {col} at {ra[0]}")
             if va == "NA":
                 continue
-            a, b = float(va), float(vb)
-            if col.startswith("FST"):
-                ok = abs(a - b) <= 2e-3
+            if col == "EHH_FOCAL" or col.startswith("EHH_CARR"):
+                ok = va == vb
+            elif col.startswith("FST"):
+                ok = abs(float(va) - float(vb)) <= 2e-3
             else:
-                ok = bool(np.isclose(a, b, rtol=1e-5, atol=1e-6))
+                ok = bool(np.isclose(float(va), float(vb), rtol=1e-5,
+                                     atol=1e-6))
             if not ok:
                 raise SmokeError(f"{tag}: {col} at {ra[0]}: {va} vs {vb}")
 
 
-def phase_scan(dev, tmp):
-    import numpy as np
-
-    from impop_tpu_torch.cli import main as torch_main
+def simulate_pangenome(tmp):
+    """The HPRC-shaped 2 Mb pangenome every scan phase reads: the scan's
+    argv prefix, the 20-window BED and the window count."""
     from impop_tpu_torch.hostio import simulate
 
     ref_len = SCAN_BP
@@ -297,6 +479,10 @@ def phase_scan(dev, tmp):
     bed = os.path.join(tmp, "w.bed")
     with open(bed, "w") as fh:
         for lo in range(0, ref_len, WIN_BP):
+            fh.write(f"chr1\t{lo}\t{lo + WIN_BP}\n")
+    bed20 = os.path.join(tmp, "w20.bed")
+    with open(bed20, "w") as fh:
+        for lo in range(0, 20 * WIN_BP, WIN_BP):
             fh.write(f"chr1\t{lo}\t{lo + WIN_BP}\n")
     ents = [f"{h.name.split('#')[0]}_hap{h.name.split('#')[1]}"
             for h in sim.haplotypes]
@@ -310,61 +496,92 @@ def phase_scan(dev, tmp):
         panel_args += ["--panel", pfile]
     say("3", f"simulated {ref_len / 1e6:g} Mb x {N_HAP} haplotypes in "
         f"{time.perf_counter() - t0:.1f} s")
-
     base = ["scan", "-b", bed, "--paf", sim.paf_path, "--fasta",
             sim.fasta_path, "-P", "CHM13#0#", *panel_args]
-    out_gpu = os.path.join(tmp, "gpu.tsv")
-    journal = os.path.join(tmp, "scan.jsonl")
-    timing = os.path.join(tmp, "timing.json")
-    t0 = time.perf_counter()
-    rc = torch_main(base + ["--batch", "64", "--journal", journal, "-o",
-                            out_gpu, "--timing-json", timing,
-                            "--device", dev.type])
-    wall = time.perf_counter() - t0
+    return {"base": base, "bed20": bed20, "n_win": ref_len // WIN_BP}
+
+
+def run_scan(argv, what):
+    from impop_tpu_torch.cli import main as torch_main
+
+    rc = torch_main(argv)
     if rc != 0:
-        raise SmokeError(f"scan exited {rc}")
-    header, rows = read_table(out_gpu)
-    n_win = ref_len // WIN_BP
+        raise SmokeError(f"{what} exited {rc}")
+
+
+def same_file(path_a, path_b, what):
+    with open(path_a) as fa, open(path_b) as fb:
+        if fa.read() != fb.read():
+            raise SmokeError(what)
+
+
+def scan_path(dev, tmp, pg, tag, flags, afs=False, resume=True):
+    """``scan <flags>`` over the whole pangenome on the card; the first 20
+    windows again on the CPU (and, when it writes a spectrum, on the card,
+    so that both spectrum files cover the same windows); then a journal
+    resume that must reproduce the table and the spectrum."""
+    import numpy as np
+
+    def out(name):
+        return os.path.join(tmp, f"{tag}.{name}")
+
+    def afs_args(name):
+        return ["--afs", out(name)] if afs else []
+
+    base, n_win = pg["base"] + flags, pg["n_win"]
+    base20 = list(base)
+    base20[2] = pg["bed20"]
+    journal, timing = out("jsonl"), out("timing.json")
+    t0 = time.perf_counter()
+    run_scan(base + afs_args("gpu.afs") + [
+        "--batch", "64", "--journal", journal, "-o", out("gpu.tsv"),
+        "--timing-json", timing, "--device", dev.type], f"scan {flags}")
+    wall = time.perf_counter() - t0
+    header, rows = read_table(out("gpu.tsv"))
     if len(rows) != n_win:
-        raise SmokeError(f"scan table has {len(rows)} rows, want {n_win}")
-    pi_cols = [i for i, h in enumerate(header) if h.startswith("PI_")]
+        raise SmokeError(f"{tag}: scan table has {len(rows)} rows, want "
+                         f"{n_win}")
+    value_cols = [i for i, h in enumerate(header)
+                  if h.startswith("PI_") or h.startswith("EHH_AREA")]
     for r in rows:
-        for i in pi_cols:
+        for i in value_cols:
             if r[i] == "NA" or not np.isfinite(float(r[i])):
-                raise SmokeError(f"non-finite {header[i]} at {r[0]}")
+                raise SmokeError(f"{tag}: non-finite {header[i]} at {r[0]}")
     with open(timing) as fh:
         stages = json.load(fh)["stages"]
     brief = ", ".join(f"{k} {v['total_sec']:.3f}s"
                       for k, v in sorted(stages.items(),
                                          key=lambda kv: -kv[1]["total_sec"]))
-    say("3", f"scan {n_win} windows on {dev}: {wall:.2f} s wall, "
-        f"{n_win / wall:.2f} windows/s; stages: {brief}")
+    say(tag, f"scan {' '.join(flags)} {n_win} windows on {dev}: "
+        f"{wall:.2f} s wall, {n_win / wall:.2f} windows/s; stages: {brief}")
 
-    # the first 20 windows again, plain PyTorch on the CPU
-    bed20 = os.path.join(tmp, "w20.bed")
-    with open(bed20, "w") as fh:
-        for lo in range(0, 20 * WIN_BP, WIN_BP):
-            fh.write(f"chr1\t{lo}\t{lo + WIN_BP}\n")
-    out_cpu = os.path.join(tmp, "cpu20.tsv")
-    base20 = list(base)
-    base20[2] = bed20
-    if torch_main(base20 + ["--batch", "20", "-o", out_cpu,
-                            "--device", "cpu"]) != 0:
-        raise SmokeError("cpu scan failed")
-    _, rows_cpu = read_table(out_cpu)
-    compare_tables(header, rows[:20], rows_cpu, "3 gpu-vs-cpu")
-    say("3", "first 20 windows: GPU table equals the CPU table "
-        "(integers exact, pi/D rtol 1e-5, Fst atol 2e-3)")
+    run_scan(base20 + afs_args("cpu20.afs") + [
+        "--batch", "20", "-o", out("cpu20.tsv"), "--device", "cpu"],
+        "cpu scan")
+    _, rows_cpu = read_table(out("cpu20.tsv"))
+    compare_tables(header, rows[:20], rows_cpu, f"{tag} gpu-vs-cpu")
+    msg = ("first 20 windows: GPU table equals the CPU table (integers "
+           "exact, pi/D/EHH areas rtol 1e-5, Fst atol 2e-3)")
+    if afs:
+        run_scan(base20 + afs_args("gpu20.afs") + [
+            "--batch", "20", "-o", out("gpu20.tsv"), "--device", dev.type],
+            "gpu 20-window scan")
+        same_file(out("gpu20.afs"), out("cpu20.afs"),
+                  f"{tag}: GPU and CPU spectrum files differ")
+        msg += "; spectrum files identical"
+    say(tag, msg)
 
-    out_resume = os.path.join(tmp, "resume.tsv")
-    if torch_main(base + ["--journal", journal, "-o", out_resume,
-                          "--device", dev.type]) != 0:
-        raise SmokeError("resume scan failed")
-    with open(out_gpu) as fa, open(out_resume) as fb:
-        if fa.read() != fb.read():
-            raise SmokeError("journal resume changed the table")
-    say("3", f"journal resume: identical {n_win}-row table")
-    return n_win / wall
+    if resume:
+        run_scan(base + afs_args("resume.afs") + [
+            "--journal", journal, "-o", out("resume.tsv"),
+            "--device", dev.type], "resume scan")
+        same_file(out("gpu.tsv"), out("resume.tsv"),
+                  f"{tag}: journal resume changed the table")
+        if afs:
+            same_file(out("gpu.afs"), out("resume.afs"),
+                      f"{tag}: journal resume changed the spectrum")
+        say(tag, f"journal resume: identical {n_win}-row table"
+            + (" and spectrum" if afs else ""))
 
 
 def phase_seed_risk(dev, tmp):
@@ -422,6 +639,9 @@ def main() -> int:
 
     from impop_tpu_torch.device import resolve_device
     from impop_tpu_torch.ops import _build
+    from impop_tpu_torch.ops.ehhdeath import ehh_area
+    from impop_tpu_torch.ops.pairdiff import pairwise_identity_weighted
+    from impop_tpu_torch.ops.panelquad import masked_pair_sums
     from impop_tpu_torch.ops.seedpeel import seed_peel
     from impop_tpu_torch.ops.windowstat import window_stats
 
@@ -441,33 +661,58 @@ def main() -> int:
     say("1", f"built and loaded csrc/*.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    src = "impop_tpu_torch/csrc/windowstat.cu"
-    report = {
-        "window_stats": {"name": "window_stats", "route": "cuda",
-                         "source": src,
-                         "replaces": "impop_tpu/ops/windowstat.py:407"},
-        "seed_peel": {"name": "seed_peel", "route": "cuda", "source": src,
-                      "replaces": "impop_tpu/ops/seedpeel.py:156"},
+    kernels = {"window_stats": window_stats, "seed_peel": seed_peel,
+               "ehh_area": ehh_area,
+               "pairwise_identity_weighted": pairwise_identity_weighted,
+               "masked_pair_sums": masked_pair_sums}
+    sources = {
+        "window_stats": ("windowstat.cu", "impop_tpu/ops/windowstat.py:407"),
+        "seed_peel": ("windowstat.cu", "impop_tpu/ops/seedpeel.py:156"),
+        "ehh_area": ("ehhdeath.cu", "impop_tpu/ops/ehhdeath.py:173"),
+        "pairwise_identity_weighted": ("pairdiff.cu",
+                                       "impop_tpu/ops/pairdiff.py:486"),
+        "masked_pair_sums": ("panelquad.cu", "impop_tpu/ops/panelquad.py:77"),
     }
+    report = {name: {"name": name, "route": "cuda",
+                     "source": f"impop_tpu_torch/csrc/{src}",
+                     "replaces": replaces, "launches": 0}
+              for name, (src, replaces) in sources.items()}
     phase_kernels(dev, report)
+    phase_ehh_kernel(dev, report)
+    phase_weighted_kernels(dev, report)
 
-    # the main path: every launch count starts at 0 here, and only the two
-    # scans below (through the port's CLI entry point) may add to it
-    window_stats.launches = 0
-    seed_peel.launches = 0
+    # the main paths, each through the port's CLI entry point: every launch
+    # count is 0 just before a path and must be nonzero for each kernel of
+    # that path just after it
     tmp = tempfile.mkdtemp(prefix="impop_smoke_")
     try:
-        phase_scan(dev, tmp)
-        phase_seed_risk(dev, tmp)
+        pg = simulate_pangenome(tmp)
+        paths = [
+            ("3-4", lambda: (scan_path(dev, tmp, pg, "3", []),
+                             phase_seed_risk(dev, tmp)),
+             ("window_stats", "seed_peel")),
+            ("5", lambda: scan_path(dev, tmp, pg, "5", ["--ehh"], afs=True),
+             ("window_stats", "ehh_area")),
+            ("6", lambda: scan_path(dev, tmp, pg, "6",
+                                    ["--identity-mode", "columns", "--ehh"],
+                                    resume=False),
+             ("pairwise_identity_weighted", "masked_pair_sums", "seed_peel",
+              "ehh_area")),
+        ]
+        for tag, run, needed in paths:
+            for fn in kernels.values():
+                fn.launches = 0
+            run()
+            counts = {name: fn.launches for name, fn in kernels.items()}
+            for name in needed:
+                if counts[name] == 0:
+                    raise SmokeError(f"{name} was never launched by the "
+                                     f"scans of phase {tag}")
+            for name, count in counts.items():
+                report[name]["launches"] += count
+            say(tag, f"kernel launches during the scans: {counts}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = {"window_stats": window_stats.launches,
-                "seed_peel": seed_peel.launches}
-    for name, count in launches.items():
-        report[name]["launches"] = count
-        if count == 0:
-            raise SmokeError(f"{name} was never launched by the scan")
-    say("3-4", f"kernel launches during the scans: {launches}")
 
     print(json.dumps({"kernels": list(report.values())}))
     print(smi)

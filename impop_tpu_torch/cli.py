@@ -3,16 +3,17 @@
     python -m impop_tpu_torch.cli scan -b windows.bed --paf aln.paf \\
         --fasta haps.fa --panel agc.AFR --panel agc.EUR ... --device cuda
 
-Same flags, table and journal as ``python -m impop_tpu.cli scan`` (unit
-weights), plus ``--device {cuda,cpu}``.  Per batch of windows the host
+Same flags, table, journal and spectrum file as ``python -m impop_tpu.cli
+scan``, plus ``--device {cuda,cpu}``.  Per batch of windows the host
 extracts allele tiles, packs them into the shared 2-bit wire buffer, and
 one device step computes π and Tajima's D per panel and Hudson direct /
-grouped / 3-π Fst per pair (``scanstep.scan_step``); windows flagged
-``seed_risk`` re-run their grouped Fst exactly.
+grouped / 3-π Fst per pair (``scanstep.scan_step``), with ``--ehh`` the
+EHH decay areas at a focal variant, with ``--afs`` the per-panel allele
+frequency spectra, and with ``--identity-mode columns`` column-weighted
+identity; windows flagged ``seed_risk`` re-run their grouped Fst exactly.
 
-Not ported yet (they raise): ``--ehh``, ``--afs``, ``--identity-mode
-columns``, ``--distributed`` and more than one local GPU — ROADMAP.md
-Queue 1 items 7, 2, 9 and 11.
+Not ported yet (they raise): ``--distributed`` and more than one local GPU
+(ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import collections
 import concurrent.futures as futures
 import functools
 import sys
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +33,7 @@ from impop_tpu_torch.hostio import (GenoSource, GfaDirSource, _capacity_for,
                                     _write_window_log, expand_population,
                                     open_extractor, pack_scan_batch,
                                     read_bed, read_panel_file,
+                                    site_weights_from_keys,
                                     split_multiallelic)
 from impop_tpu_torch.runtime.journal import ResultJournal
 from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
@@ -45,19 +47,36 @@ def _warn(msg: str) -> None:
 
 def _refuse_unported(args) -> None:
     """Options of the JAX scan this port does not run yet."""
-    todo = [
-        (args.ehh or args.ehh_focal, "--ehh",
-         "Queue 1 item 7 (the ops/ehhdeath.py kernel)"),
-        (args.afs, "--afs", "Queue 1 item 2 (panel_afs)"),
-        (args.identity_mode == "columns", "--identity-mode columns",
-         "Queue 1 item 9 (weighted column-mode identity)"),
-        (args.distributed, "--distributed", "Queue 1 item 11 (multi-host)"),
-    ]
-    for flag_set, flag, where in todo:
-        if flag_set:
-            raise SystemExit(f"error: {flag} is not ported to impop_tpu_torch "
-                             f"yet (ROADMAP.md {where}); use "
-                             "`python -m impop_tpu.cli scan` for it")
+    if args.distributed:
+        raise SystemExit("error: --distributed is not ported to "
+                         "impop_tpu_torch yet (ROADMAP.md Queue 1 item 11, "
+                         "multi-host); use `python -m impop_tpu.cli scan` "
+                         "for it")
+
+
+def _read_ehh_targets(path: Optional[str]) -> Dict[str, list]:
+    """--ehh-focal: "chrom pos" lines (``#`` comments skipped)."""
+    targets: Dict[str, list] = {}
+    if path:
+        with open(path) as fh:
+            for ln in fh:
+                parts = ln.split()
+                if len(parts) >= 2 and not ln.startswith("#"):
+                    targets.setdefault(parts[0], []).append(int(parts[1]))
+    return targets
+
+
+def _write_afs(path: str, afs_total: np.ndarray, panel_names: List[str]
+               ) -> None:
+    """The genome-wide spectrum file of the JAX scan: one row per allele
+    count k >= 1 that any panel has, one column per panel."""
+    with open(path, "w") as fh:
+        fh.write("ALLELE_COUNT\t" + "\t".join(
+            f"SITES_{n}" for n in (panel_names or ["ALL"])) + "\n")
+        for k in range(1, afs_total.shape[1]):
+            if afs_total[:, k].any():
+                fh.write(f"{k}\t" + "\t".join(
+                    str(int(v)) for v in afs_total[:, k]) + "\n")
 
 
 def _open_device(name: str):
@@ -122,6 +141,33 @@ def cmd_scan(args) -> int:
     with timers.stage("setup.journal"):
         journal = ResultJournal(args.journal)
 
+    use_weights = args.identity_mode == "columns"
+    want_ehh = bool(args.ehh)
+    want_afs = bool(args.afs)
+    afs_bins = args.afs_bins
+    afs_folded = not args.afs_unfolded
+    afs_total = (np.zeros((p_count, afs_bins + 1), np.int64) if want_afs
+                 else None)
+    # a window holding an --ehh-focal position anchors its EHH focal there
+    # instead of at the midpoint
+    ehh_targets = _read_ehh_targets(args.ehh_focal if want_ehh else None)
+    ehh_focal_pos: Dict[str, int] = {}   # region -> genomic position used
+
+    def ehh_focal_index(reg, rs, pos_arr) -> int:
+        """Focal column = the variant nearest the target position; the
+        chosen position is recorded for the output row."""
+        if pos_arr is None or len(pos_arr) == 0:
+            return 0
+        target = (reg.start + reg.end) // 2
+        for pos in ehh_targets.get(reg.chrom, ()):
+            if reg.start <= pos < reg.end:
+                target = pos
+                break
+        pos_arr = np.asarray(pos_arr)
+        fi = int(np.argmin(np.abs(pos_arr - target)))
+        ehh_focal_pos[rs] = int(pos_arr[fi])
+        return fi
+
     @functools.lru_cache(maxsize=64)
     def masks_for_stems(stems_key: tuple) -> np.ndarray:
         masks = np.zeros((p_count, len(stems_key)), dtype=bool)
@@ -147,7 +193,10 @@ def cmd_scan(args) -> int:
                        f"FST3_{panel_names[i]}_{panel_names[j]}"]
     else:
         header += ["PI", "TAJIMAS_D"]
-    lay = row_layout(p_count, len(pair_list))
+    if want_ehh:
+        header += ["EHH_FOCAL", "EHH_AREA_REF", "EHH_CARR_REF",
+                   "EHH_AREA_ALT", "EHH_CARR_ALT"]
+    lay = row_layout(p_count, len(pair_list), want_ehh)
 
     def disjoint_of(panels: np.ndarray) -> bool:
         return with_pairs and not bool(
@@ -163,6 +212,15 @@ def cmd_scan(args) -> int:
             rec = journal.get(rs)
             if rec is not None and "row" in rec:
                 print(rec["row"], file=out)
+                if want_afs:
+                    sparse = rec.get("afs")
+                    if sparse is None:
+                        _warn(f"Warning: journal row for {rs} predates "
+                              "--afs; spectrum will miss it")
+                    else:
+                        for pk, c in sparse.items():
+                            pi_idx, k = map(int, pk.split(":"))
+                            afs_total[pi_idx, k] += int(c)
                 continue
             pending.append((reg, rs))
 
@@ -186,7 +244,7 @@ def cmd_scan(args) -> int:
                     continue
                 order = np.argsort(names)
                 tiles.append((np.asarray(g, np.int8)[order],
-                              [names[i] for i in order]))
+                              [names[i] for i in order], keys))
                 kept.append((reg, rs))
             return tiles, kept, failures
 
@@ -234,7 +292,8 @@ def cmd_scan(args) -> int:
                 cap_hint[0] = max(cap_hint[0], cap_n)
                 cap_hint[1] = max(cap_hint[1], cap_s)
                 w = batch_size if n_chunks > 1 else len(kept)
-                blay = _scan_buf_layout(cap_n, cap_s, p_count, False)
+                blay = _scan_buf_layout(cap_n, cap_s, p_count, use_weights,
+                                        want_ehh)
                 flat = np.zeros((w, blay["total"]), np.uint8)
                 row_of = {key: wi for wi, key in enumerate(rows)}
                 with timers.stage("build.pack"):
@@ -242,14 +301,19 @@ def cmd_scan(args) -> int:
                         nb.pack_into(
                             flat, [row_of.get((gi, k), -1)
                                    for k in range(nb.count)],
-                            cap_n, cap_s, blay["m"], blay["sm"], -1)
+                            cap_n, cap_s, blay["m"], blay["sm"],
+                            blay["w"] if use_weights else -1)
                 panels = np.zeros((w, p_count, cap_n), bool)
                 lengths = np.zeros(w, np.uint32)
                 lengths[:len(kept)] = [reg.length for reg, _ in kept]
+                focals = np.zeros(w, np.uint32)
                 mask_rows: dict = {}
                 mask_vals: dict = {}
-                for wi, (gi, k) in enumerate(rows):
+                for wi, ((gi, k), (reg, rs)) in enumerate(zip(rows, kept)):
                     nm = batches[gi].names(k)
+                    if want_ehh:
+                        focals[wi] = ehh_focal_index(
+                            reg, rs, batches[gi].site_pos(k))
                     key = id(nm)
                     if key not in mask_vals:
                         mask_vals[key] = (panel_masks_for(tuple(nm))
@@ -267,6 +331,9 @@ def cmd_scan(args) -> int:
                     panels, axis=-1, bitorder="little").reshape(w, -1)
                 flat[:, blay["l"]:blay["l"] + 4] = (
                     lengths.astype("<u4").view(np.uint8).reshape(w, 4))
+                if want_ehh:
+                    flat[:, blay["f"]:blay["f"] + 4] = (
+                        focals.astype("<u4").view(np.uint8).reshape(w, 4))
                 disjoint = disjoint_of(panels)
             with timers.stage("h2d"):
                 dev_flat = batch_to_device(flat, dev)
@@ -280,8 +347,8 @@ def cmd_scan(args) -> int:
             if not tiles:
                 return None, kept, failures, False, (0, 0)
             with timers.stage("build"):
-                cap_n = _capacity_for([t0.shape[0] for t0, _ in tiles])
-                cap_s = max(128, max(t0.shape[1] for t0, _ in tiles))
+                cap_n = _capacity_for([t0.shape[0] for t0, *_ in tiles])
+                cap_s = max(128, max(t0.shape[1] for t0, *_ in tiles))
                 cap_s = ((cap_s + 127) // 128) * 128
                 w = batch_size if n_chunks > 1 else len(tiles)
                 geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
@@ -289,20 +356,28 @@ def cmd_scan(args) -> int:
                 smask = np.zeros((w, cap_s), bool)
                 panels = np.zeros((w, p_count, cap_n), bool)
                 lengths = np.zeros(w, np.float32)
-                for wi, ((g, names), (reg, _rs)) in enumerate(zip(tiles,
-                                                                  kept)):
+                wts = np.ones((w, cap_s), np.float32)
+                focals = np.zeros(w, np.uint32) if want_ehh else None
+                for wi, ((g, names, keys), (reg, rs)) in enumerate(
+                        zip(tiles, kept)):
                     n, s = g.shape
                     geno[wi, :n, :s] = g
                     member[wi, :n] = True
                     smask[wi, :s] = True
                     lengths[wi] = reg.length
+                    if use_weights and keys is not None:
+                        wts[wi, :s] = site_weights_from_keys(keys)
+                    if want_ehh:
+                        pos = ([int(k.split(":", 1)[0]) for k in keys]
+                               if keys is not None else None)
+                        focals[wi] = ehh_focal_index(reg, rs, pos)
                     if panel_lists:
                         panels[wi, :, :n] = panel_masks_for(tuple(names))
                     else:
                         panels[wi, 0, :n] = True
                 disjoint = disjoint_of(panels)
                 flat = pack_scan_batch(geno, member, smask, panels, lengths,
-                                       None, False)
+                                       wts, use_weights, focals)
             with timers.stage("h2d"):
                 dev_flat = batch_to_device(flat, dev)
             return dev_flat, kept, failures, disjoint, (cap_n, cap_s)
@@ -359,6 +434,15 @@ def cmd_scan(args) -> int:
                             f"{float(row_v[lay['fstg'] + qi]):.8f}",
                             "NA" if np.isnan(f3_val) else f"{f3_val:.8f}",
                         ]
+                if want_ehh:
+                    # [area_ref, area_alt, carriers_ref, carriers_alt]
+                    e = lay["ehh"]
+                    fp = ehh_focal_pos.get(rs)
+                    cells += ["NA" if fp is None else str(fp),
+                              f"{float(row_v[e]):.6f}",
+                              str(int(row_v[e + 2])),
+                              f"{float(row_v[e + 1]):.6f}",
+                              str(int(row_v[e + 3]))]
                 row = "\t".join(cells)
                 if args.log_dir:
                     payload = {"region": rs, "length": reg.length,
@@ -379,7 +463,20 @@ def cmd_scan(args) -> int:
                                                   else f3v)
                     _write_window_log(args.log_dir, rs, "Fused Scan Window",
                                       payload)
-                journal.record(rs, {"row": row})
+                rec = {"row": row}
+                if want_afs:
+                    # the window's spectrum, sparse, so that a resumed scan
+                    # still merges it (allele count 0 is never meaningful)
+                    hist = row_v[lay["afs"]:].reshape(p_count, -1)
+                    sparse = {}
+                    for pi_idx in range(p_count):
+                        for k in np.nonzero(hist[pi_idx])[0]:
+                            if k == 0:
+                                continue
+                            sparse[f"{pi_idx}:{int(k)}"] = int(hist[pi_idx, k])
+                            afs_total[pi_idx, k] += int(hist[pi_idx, k])
+                    rec["afs"] = sparse
+                journal.record(rs, rec)
                 print(row, file=out)
                 n_done += 1
 
@@ -394,7 +491,8 @@ def cmd_scan(args) -> int:
             with timers.stage("device.exact"):
                 exact = scan_step_fstg_exact(
                     dev_flat, caps[0], caps[1], p_count, pair_key, thr,
-                    rows=[int(r) for r in risk]).cpu().numpy()
+                    rows=[int(r) for r in risk], use_weights=use_weights,
+                    use_ehh=want_ehh).cpu().numpy()
             packed = packed.copy()
             packed[risk, lay["fstg"]:lay["f3"]] = exact
             return packed
@@ -446,7 +544,9 @@ def cmd_scan(args) -> int:
                     continue
                 with timers.stage("device"):
                     out_dev = scan_step(dev_flat, caps[0], caps[1], p_count,
-                                        pair_key, thr, disjoint)
+                                        pair_key, thr, disjoint, use_weights,
+                                        want_ehh, want_afs, afs_bins,
+                                        afs_folded)
                 group.append((out_dev, kept, dev_flat, caps))
                 if len(group) >= drain_group:
                     flush_group()
@@ -461,6 +561,9 @@ def cmd_scan(args) -> int:
     finally:
         if out is not sys.stdout:
             out.close()
+    if want_afs:
+        _write_afs(args.afs, afs_total, panel_names)
+        _warn(f"wrote genome-wide spectrum -> {args.afs}")
     if args.verbose_timing:
         _warn(timers.report())
     if args.timing_json:
@@ -487,13 +590,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--agc-bin", default="agc")
     p.add_argument("--identity-mode", choices=["events", "columns"],
                    default="events",
-                   help="identity deviation spec; only 'events' (unit "
-                        "weights) is ported")
-    p.add_argument("--afs", help="not ported yet")
-    p.add_argument("--afs-bins", type=int, default=512)
-    p.add_argument("--afs-unfolded", action="store_true")
-    p.add_argument("--ehh", action="store_true", help="not ported yet")
-    p.add_argument("--ehh-focal", help="not ported yet")
+                   help="identity deviation spec: 'events' (one per "
+                        "variant) or 'columns' (an indel of k bases "
+                        "counts k)")
+    p.add_argument("--afs", help="write the genome-wide per-panel allele "
+                                 "frequency spectrum to this file")
+    p.add_argument("--afs-bins", type=int, default=512,
+                   help="largest allele count binned (--afs)")
+    p.add_argument("--afs-unfolded", action="store_true",
+                   help="alt-allele counts instead of folded minor counts")
+    p.add_argument("--ehh", action="store_true",
+                   help="add EHH decay areas and carrier counts for both "
+                        "alleles at a focal variant per window")
+    p.add_argument("--ehh-focal",
+                   help="'chrom pos' lines: a window holding one takes the "
+                        "nearest variant as its EHH focal (default: the "
+                        "variant nearest the midpoint)")
     p.add_argument("--panel", action="append", default=[],
                    help="panel list file (repeatable, e.g. metadata/agc.EUR)")
     p.add_argument("-P", "--prefix", default="CHM13#0#")

@@ -31,7 +31,8 @@
 //      mask_b] against the 0/1 mask, in full fp32 FMA (no TF32, no bf16:
 //      these values are not exact in a narrower type).  (1 - sim) comes
 //      from a per-window table indexed by the integer diff, rounded
-//      exactly as the reference rounds it.
+//      exactly as the reference rounds it.  The product loop is
+//      impop::group_products (kernels.cuh), shared with panelquad.cu.
 //   D  row-dots.  Every output is a dot of one Y row with one X row; the
 //      host passes the (Y row, X row, output column) triples as an int32
 //      array, so pair indices are data, not template constants.  Then
@@ -54,12 +55,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernels.cuh"
+
 namespace {
+
+using impop::group_products;
+using impop::kGroup;
+using impop::kTileI;
+using impop::set_smem;
+using impop::warp_sum;
+using impop::warp_sumf;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 16;      // X/Y rows per phase-C pass
-constexpr int kTileI = 128;     // X columns staged in shared memory per step
 constexpr int kTabMax = 4096;   // (1 - sim) table entries beyond d = 0
 
 struct WinParams {
@@ -83,18 +91,6 @@ struct WinParams {
   float* y;                // [W, rd + rp, N]
   float* out;              // [W, n_out]
 };
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_sumf(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Greedy seed walk of one mask row by one warp (phase B).
 //   todo: this warp's [nw] words, on entry the mask's member bits.
@@ -274,44 +270,16 @@ window_stats_kernel(WinParams p) {
   // ---- C: Y = X . div (rows [0, rd)) and Y = X . mask (rows [rd, rd+rp))
   for (int g0 = 0; g0 < xrows; g0 += kGroup) {
     const bool use_div = g0 < p.rd;
-    for (int j0 = 0; j0 < N; j0 += kThreads) {
-      const int j = j0 + tid;
-      const bool active = j < N;
-      float acc[kGroup];
-#pragma unroll
-      for (int rr = 0; rr < kGroup; ++rr) acc[rr] = 0.0f;
-      for (int i0 = 0; i0 < N; i0 += kTileI) {
-        const int iend = min(kTileI, N - i0);
-        __syncthreads();
-        for (int e = tid; e < kGroup * kTileI; e += kThreads) {
-          const int rr = e / kTileI, ii = e % kTileI;
-          xs[e] = ii < iend ? x[static_cast<size_t>(g0 + rr) * N + i0 + ii] : 0.0f;
-        }
-        __syncthreads();
-        if (!active) continue;
-        for (int ii = 0; ii < iend; ++ii) {
-          const int i = i0 + ii;
-          const uint32_t pword = pres[static_cast<size_t>(i) * NW + (j >> 5)];
-          const bool m = ((pword >> (j & 31)) & 1u) && i != j;
-          float v = 0.0f;
-          if (m) {
-            if (use_div) {
-              const int d = diff[static_cast<size_t>(i) * N + j];
-              v = d < tabn ? tab[d]
-                           : __fsub_rn(1.0f, __fsub_rn(1.0f, __fdiv_rn(static_cast<float>(d), len)));
-            } else {
-              v = 1.0f;
-            }
-          }
-#pragma unroll
-          for (int rr = 0; rr < kGroup; ++rr) acc[rr] = fmaf(xs[rr * kTileI + ii], v, acc[rr]);
-        }
-      }
-      if (active) {
-#pragma unroll
-        for (int rr = 0; rr < kGroup; ++rr) y[static_cast<size_t>(g0 + rr) * N + j] = acc[rr];
-      }
-    }
+    auto elem = [&](int i, int j) -> float {
+      const uint32_t pword = pres[static_cast<size_t>(i) * NW + (j >> 5)];
+      if (!(((pword >> (j & 31)) & 1u) && i != j)) return 0.0f;
+      if (!use_div) return 1.0f;
+      const int d = diff[static_cast<size_t>(i) * N + j];
+      return d < tabn ? tab[d]
+                      : __fsub_rn(1.0f, __fsub_rn(1.0f, __fdiv_rn(static_cast<float>(d), len)));
+    };
+    for (int j0 = 0; j0 < N; j0 += kThreads)
+      group_products<kThreads>(x, N, xrows, g0, j0, xs, y, elem);
   }
   __syncthreads();
 
@@ -369,12 +337,6 @@ seed_peel_kernel(const float* __restrict__ sim, const uint8_t* __restrict__ pres
     peel_row(link, NW, todo, n_r, nullptr, nullptr, sd + static_cast<size_t>(r) * n,
              nullptr, lane);
   }
-}
-
-int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
 }  // namespace

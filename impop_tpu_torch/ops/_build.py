@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, loaded with ctypes.  The library lands in
-``impop_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-flags, so a changed source rebuilds and an unchanged one loads at once.
+``csrc/*.cu`` are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes.  The library lands in
+``impop_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+the headers they share and the flags, so a changed source rebuilds and an
+unchanged one loads at once.
 Nothing here runs at import time; a missing ``nvcc`` or a failed build
 raises.  The build never uses ``--use_fast_math``: an approximate divide
 would move identity values across the grouping threshold.
@@ -19,14 +21,15 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["load_library", "nvcc_path", "NVCC_FLAGS"]
+__all__ = ["load_library", "nvcc_path", "check", "u8_mask",
+           "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -59,7 +62,8 @@ def _sources() -> list[str]:
 
 def _digest(sources: list[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for path in sources + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
@@ -74,6 +78,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.impop_window_stats.restype = _I
     lib.impop_seed_peel.argtypes = [_P] * 4 + [_F] + [_I] * 3 + [_P] * 3
     lib.impop_seed_peel.restype = _I
+    lib.impop_ehh_area.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 4
+    lib.impop_ehh_area.restype = _I
+    lib.impop_weighted_identity.argtypes = [_P] * 5 + [_I] * 3 + [_P] * 3
+    lib.impop_weighted_identity.restype = _I
+    lib.impop_masked_pair_sums.argtypes = [_P] * 4 + [_I] * 4 + [_P] * 3
+    lib.impop_masked_pair_sums.restype = _I
     lib.impop_error_string.argtypes = [_I]
     lib.impop_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,18 +101,36 @@ def load_library() -> ctypes.CDLL:
         target = os.path.join(_BUILD, f"impop_kernels-{_digest(sources)}.so")
         if not os.path.exists(target):
             os.makedirs(_BUILD, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-            os.close(fd)
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    "nvcc failed (" + " ".join(cmd) + "):\n"
-                    + proc.stdout + proc.stderr)
-            os.replace(tmp, target)
+            with tempfile.TemporaryDirectory(dir=_BUILD) as work:
+                _compile(sources, work, target)
         _lib = _bind(ctypes.CDLL(target))
         return _lib
+
+
+def _compile(sources: list[str], work: str, target: str) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link;
+    the library is renamed into place only when every step succeeded."""
+    nvcc = nvcc_path()
+    objs = [os.path.join(work, os.path.basename(src) + ".o")
+            for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    failed = []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = os.path.join(work, "lib.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc link failed (" + " ".join(cmd) + "):\n"
+                           + proc.stdout + proc.stderr)
+    os.replace(tmp, target)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -110,3 +138,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.impop_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")
+
+
+def u8_mask(t, what: str, name: str, shape: tuple):
+    """A bool/uint8 mask argument of kernel ``what`` as a contiguous uint8
+    tensor of exactly ``shape``; raises on anything else."""
+    import torch
+
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if t.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"{what}: {name} must be bool or uint8, got "
+                         f"{t.dtype}")
+    return t.contiguous().view(torch.uint8)

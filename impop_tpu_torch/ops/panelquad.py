@@ -1,22 +1,31 @@
-"""The masked panel reductions (plain twin of
-``impop_tpu.ops.panelquad.masked_pair_sums_xla``).
+"""The masked panel reductions for a batch of windows (port of
+``impop_tpu.ops.panelquad.masked_pair_sums_pallas``).
 
     Yd = Wd @ ((1 - sim) ⊙ mask),   Yp = Wp @ mask,   mask = present ∧ offdiag
 
-This is the reduction inside the plain version of the window kernel.  The
-scan never calls it on the card (the window kernel does this work there),
-so the CUDA port of the ``panelquad`` Pallas kernel comes later.
+- :func:`masked_pair_sums_plain`: the formula in PyTorch (the twin of
+  ``masked_pair_sums_xla``).  It is also the reduction inside the plain
+  version of the window kernel, which must never reach a kernel.
+- :func:`masked_pair_sums`: the wrapper.  CPU tensors take the plain
+  version; CUDA tensors launch ``masked_pair_sums_kernel`` of
+  ``csrc/panelquad.cu``, or raise.  The weighted scan calls it on the sim /
+  present of the weighted identity kernel.
+
+Both sums are value-carrying fp32 ((1 - sim) and group weights), so the
+kernel and the plain version agree to float32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["masked_pair_sums"]
+__all__ = ["masked_pair_sums", "masked_pair_sums_plain"]
 
 
-def masked_pair_sums(sim: torch.Tensor, present: torch.Tensor,
-                     wd: torch.Tensor, wp: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+def masked_pair_sums_plain(sim: torch.Tensor, present: torch.Tensor,
+                           wd: torch.Tensor, wp: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """(wd @ div, wp @ mask) for [..., R, N] row stacks and [..., N, N]
     matrices, in full float32 (``device.resolve_device`` turns TF32 off on
     CUDA: the (1 - sim) values are not exact in a narrower type)."""
@@ -25,3 +34,64 @@ def masked_pair_sums(sim: torch.Tensor, present: torch.Tensor,
     mask = present & ~eye
     div = torch.where(mask, 1.0 - sim, 0.0)
     return wd @ div, wp @ mask.to(torch.float32)
+
+
+def _masked_pair_sums_cuda(sim, present, wd, wp):
+    from impop_tpu_torch.ops._build import check, load_library
+
+    dev = sim.device
+    lead = tuple(sim.shape[:-2])
+    n = sim.shape[-1]
+    rd, rp = wd.shape[-2], wp.shape[-2]
+    if sim.shape[-2] != n or tuple(present.shape) != lead + (n, n):
+        raise ValueError("masked_pair_sums: sim and present must be "
+                         f"[..., N, N], got {tuple(sim.shape)} and "
+                         f"{tuple(present.shape)}")
+    if tuple(wd.shape) != lead + (rd, n) or tuple(wp.shape) != lead + (rp, n):
+        raise ValueError("masked_pair_sums: wd / wp must be [..., R, N], got "
+                         f"{tuple(wd.shape)} and {tuple(wp.shape)}")
+    if present.dtype not in (torch.bool, torch.uint8):
+        raise ValueError("masked_pair_sums: present must be bool or uint8, "
+                         f"got {present.dtype}")
+    for name, t in (("sim", sim), ("wd", wd), ("wp", wp)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"masked_pair_sums: {name} must be float32, got "
+                             f"{t.dtype}")
+    for name, t in (("present", present), ("wd", wd), ("wp", wp)):
+        if t.device != dev:
+            raise ValueError(f"masked_pair_sums: {name} on {t.device}, sim "
+                             f"on {dev}")
+    w = math.prod(lead)
+    if w > 65535:
+        raise ValueError(f"masked_pair_sums: {w} windows exceed the grid's "
+                         "65535")
+    simc = sim.contiguous()
+    presc = present.contiguous().view(torch.uint8)
+    wdc, wpc = wd.contiguous(), wp.contiguous()
+    yd = torch.empty(lead + (rd, n), dtype=torch.float32, device=dev)
+    yp = torch.empty(lead + (rp, n), dtype=torch.float32, device=dev)
+    if w > 0 and n > 0 and rd + rp > 0:
+        lib = load_library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.impop_masked_pair_sums(
+            simc.data_ptr(), presc.data_ptr(), wdc.data_ptr(),
+            wpc.data_ptr(), w, n, rd, rp, yd.data_ptr(), yp.data_ptr(),
+            stream)
+        check(lib, err, "masked_pair_sums_kernel")
+        masked_pair_sums.launches += 1
+    return yd, yp
+
+
+def masked_pair_sums(sim: torch.Tensor, present: torch.Tensor,
+                     wd: torch.Tensor, wp: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Yd [..., Rd, N], Yp [..., Rp, N]) f32 for sim [..., N, N] f32,
+    present [..., N, N] bool and row stacks wd / wp [..., R, N] f32."""
+    if sim.device.type == "cpu":
+        return masked_pair_sums_plain(sim, present, wd, wp)
+    if sim.device.type == "cuda":
+        return _masked_pair_sums_cuda(sim, present, wd, wp)
+    raise ValueError(f"masked_pair_sums: unsupported device {sim.device}")
+
+
+masked_pair_sums.launches = 0

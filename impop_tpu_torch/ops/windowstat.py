@@ -94,20 +94,10 @@ def window_stats_plain(geno, member, site_mask, pmasks_stack, mask_a,
     return out
 
 
-def _as_u8(t: torch.Tensor, name: str, shape: tuple) -> torch.Tensor:
-    if tuple(t.shape) != shape:
-        raise ValueError(f"window_stats: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
-    if t.dtype not in (torch.bool, torch.uint8):
-        raise ValueError(f"window_stats: {name} must be bool or uint8, "
-                         f"got {t.dtype}")
-    return t.contiguous().view(torch.uint8)
-
-
 def _window_stats_cuda(geno, member, site_mask, pmasks_stack, mask_a,
                        mask_b, threshold, length, pair_a, pair_b,
                        pairs_disjoint):
-    from impop_tpu_torch.ops._build import check, load_library
+    from impop_tpu_torch.ops._build import check, load_library, u8_mask
 
     dev = geno.device
     lead = tuple(geno.shape[:-2])
@@ -135,11 +125,12 @@ def _window_stats_cuda(geno, member, site_mask, pmasks_stack, mask_a,
             raise ValueError(f"window_stats: {name} on {t.device}, geno on "
                              f"{dev}")
     w = math.prod(lead)
-    mem = _as_u8(member, "member", lead + (n_cap,))
-    smk = _as_u8(site_mask, "site_mask", lead + (s_cap,))
-    pmk = _as_u8(pmasks_stack, "pmasks_stack", lead + (r_count, n_cap))
-    mak = _as_u8(mask_a, "mask_a", lead + (q, n_cap))
-    mbk = _as_u8(mask_b, "mask_b", lead + (q, n_cap))
+    mem = u8_mask(member, "window_stats", "member", lead + (n_cap,))
+    smk = u8_mask(site_mask, "window_stats", "site_mask", lead + (s_cap,))
+    pmk = u8_mask(pmasks_stack, "window_stats", "pmasks_stack",
+                  lead + (r_count, n_cap))
+    mak = u8_mask(mask_a, "window_stats", "mask_a", lead + (q, n_cap))
+    mbk = u8_mask(mask_b, "window_stats", "mask_b", lead + (q, n_cap))
     lens = length.to(torch.float32).expand(lead).contiguous()
     genc = geno.contiguous()
 

@@ -1,14 +1,17 @@
 """The scan's device step (twins of ``impop_tpu.cli._wire_unpacker``,
-``_scan_step`` and ``_scan_step_fstg_exact``), unit weights, no EHH, no AFS.
+``_scan_step`` and ``_scan_step_fstg_exact``).
 
 The step takes exactly the ``uint8 [W, K]`` buffer that
 ``impop_tpu.cli.pack_scan_batch`` writes and returns the same packed f32
 row per window as the JAX step:
 
     [π per panel (P) | Tajima's D (P) | FST (Q') | FSTG (Q') | FST3 (Q') |
-     S | n | seed_risk | AFS placeholder zeros (P)]
+     S | n | seed_risk | EHH (4, with --ehh) | AFS (P·(bins+1) with --afs,
+     else P zeros)]
 
-with Q' = max(1, number of pairs).
+with Q' = max(1, number of pairs) and the EHH block [area_ref, area_alt,
+carriers_ref, carriers_alt].  Unit weights run the whole-window kernel;
+column-mode weights run the weighted identity and masked-sum kernels.
 """
 from __future__ import annotations
 
@@ -16,9 +19,12 @@ import numpy as np
 import torch
 
 from impop_tpu_torch.hostio import _scan_buf_layout
-from impop_tpu_torch.stats.allele import identity_from_alleles
+from impop_tpu_torch.stats.allele import (identity_from_alleles, panel_afs,
+                                          segregating_sites)
+from impop_tpu_torch.stats.ehh import ehh_area_dynamic
 from impop_tpu_torch.stats.fst import hudson_fst_grouped_pairs
-from impop_tpu_torch.stats.panelstats import fused_window_stats
+from impop_tpu_torch.stats.panelstats import (fused_panel_stats,
+                                              fused_window_stats)
 from impop_tpu_torch.stats.tajima import tajimas_d
 
 __all__ = ["batch_to_device", "wire_unpack", "scan_step",
@@ -39,10 +45,12 @@ def _bits(seg: torch.Tensor, n: int) -> torch.Tensor:
     return b.reshape(*seg.shape[:-1], -1)[..., :n].bool()
 
 
-def wire_unpack(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int):
+def wire_unpack(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
+                use_weights: bool = False, use_ehh: bool = False):
     """[W, K] uint8 -> (geno [W, N, S] int8, member [W, N], site_mask
-    [W, S], panels [W, P, N] bool, length [W] f32)."""
-    lay = _scan_buf_layout(cap_n, cap_s, p_count, False)
+    [W, S], panels [W, P, N] bool, length [W] f32, site weights [W, S] f32
+    or None, focal column [W] int32 or None)."""
+    lay = _scan_buf_layout(cap_n, cap_s, p_count, use_weights, use_ehh)
     if flat.shape[-1] != lay["total"]:
         raise ValueError(f"wire row of {flat.shape[-1]} bytes, layout wants "
                          f"{lay['total']}")
@@ -58,10 +66,18 @@ def wire_unpack(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int):
     lb = flat[:, lay["l"]:lay["l"] + 4].to(torch.int64)
     length = (lb[:, 0] | (lb[:, 1] << 8) | (lb[:, 2] << 16)
               | (lb[:, 3] << 24)).to(torch.float32)
-    return geno, member, smask, panels, length
+    # little-endian f32 / uint32 segments: a byte view is the bit cast
+    # (the focal wraps to int32 as the JAX step's astype does)
+    wts = focal = None
+    if use_weights:
+        wts = flat[:, lay["w"]:lay["f"]].contiguous().view(torch.float32)
+    if use_ehh:
+        focal = flat[:, lay["f"]:lay["f"] + 4].contiguous().view(
+            torch.int32)[:, 0]
+    return geno, member, smask, panels, length, wts, focal
 
 
-def row_layout(p_count: int, n_pairs: int) -> dict:
+def row_layout(p_count: int, n_pairs: int, want_ehh: bool = False) -> dict:
     """Column offsets of the packed row."""
     q = max(1, n_pairs)
     lay = {"pi": 0, "d": p_count, "fst": 2 * p_count}
@@ -70,7 +86,8 @@ def row_layout(p_count: int, n_pairs: int) -> dict:
     lay["s"] = lay["f3"] + q
     lay["n"] = lay["s"] + 1
     lay["risk"] = lay["n"] + 1
-    lay["afs"] = lay["risk"] + 1
+    lay["ehh"] = lay["risk"] + 1
+    lay["afs"] = lay["ehh"] + (4 if want_ehh else 0)
     return lay
 
 
@@ -80,15 +97,24 @@ def _pairs(pair_key):
 
 
 def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
-              pair_key: tuple, threshold: float,
-              pairs_disjoint: bool) -> torch.Tensor:
-    """Wire batch on a device -> packed rows [W, 3P + 3Q' + 3] f32 on it."""
-    geno, member, smask, panels, length = wire_unpack(flat, cap_n, cap_s,
-                                                      p_count)
+              pair_key: tuple, threshold: float, pairs_disjoint: bool,
+              use_weights: bool = False, want_ehh: bool = False,
+              want_afs: bool = False, afs_bins: int = 512,
+              afs_folded: bool = True) -> torch.Tensor:
+    """Wire batch on a device -> packed rows [W, row width] f32 on it."""
+    geno, member, smask, panels, length, wts, focal = wire_unpack(
+        flat, cap_n, cap_s, p_count, use_weights, want_ehh)
     pair_a, pair_b = _pairs(pair_key)
-    s_count, res = fused_window_stats(geno, member, smask, length, panels,
-                                      pair_a, pair_b, threshold,
-                                      pairs_disjoint)
+    if use_weights:
+        sim, present = identity_from_alleles(geno, member, smask, length,
+                                             site_weights=wts)
+        s_count = segregating_sites(geno, member, smask).to(torch.float32)
+        res = fused_panel_stats(sim, present, member, panels, pair_a, pair_b,
+                                threshold, pairs_disjoint)
+    else:
+        s_count, res = fused_window_stats(geno, member, smask, length,
+                                          panels, pair_a, pair_b, threshold,
+                                          pairs_disjoint)
     pi_panel = res.pi[:, :p_count]
     pi_c = res.pi[:, p_count:]
     d = tajimas_d(res.n[:, :p_count], s_count[:, None],
@@ -100,28 +126,39 @@ def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
     f3 = torch.where(nz, (pi_c - pi_ab) / torch.where(nz, pi_c, 1.0),
                      torch.nan)
     n_all = member.sum(dim=1, dtype=torch.float32)
-    afs = torch.zeros((flat.shape[0], p_count), dtype=torch.float32,
-                      device=flat.device)
-    return torch.cat([pi_panel, d, fst, fstg, f3, s_count[:, None],
-                      n_all[:, None], res.seed_risk[:, None].float(), afs],
-                     dim=1)
+    cols = [pi_panel, d, fst, fstg, f3, s_count[:, None], n_all[:, None],
+            res.seed_risk[:, None].float()]
+    if want_ehh:
+        area, carr = ehh_area_dynamic(geno, member, smask, focal)
+        cols += [area, carr.to(torch.float32)]
+    if want_afs:
+        afs = panel_afs(geno, member, smask, panels, afs_bins, afs_folded)
+        cols.append(afs.reshape(flat.shape[0], -1).to(torch.float32))
+    else:
+        cols.append(torch.zeros((flat.shape[0], p_count),
+                                dtype=torch.float32, device=flat.device))
+    return torch.cat(cols, dim=1)
 
 
 def scan_step_fstg_exact(flat: torch.Tensor, cap_n: int, cap_s: int,
                          p_count: int, pair_key: tuple, threshold: float,
-                         rows=None) -> torch.Tensor:
+                         rows=None, use_weights: bool = False,
+                         use_ehh: bool = False) -> torch.Tensor:
     """Exact grouped Hudson Fst (first-found representative pairs) for the
     windows ``rows`` of a wire batch (default: all) -> [len(rows), Q] f32.
-    The scan re-runs windows flagged ``seed_risk`` through this."""
-    geno, member, smask, panels, length = wire_unpack(flat, cap_n, cap_s,
-                                                       p_count)
+    The scan re-runs windows flagged ``seed_risk`` through this; the wire
+    layout flags must be the scan's, and column-mode weights give the same
+    weighted identity as the step."""
+    geno, member, smask, panels, length, wts, _ = wire_unpack(
+        flat, cap_n, cap_s, p_count, use_weights, use_ehh)
     pair_a, pair_b = _pairs(pair_key)
     if rows is None:
         rows = range(flat.shape[0])
     out = []
     for wi in rows:
-        sim, present = identity_from_alleles(geno[wi], member[wi],
-                                             smask[wi], length[wi])
+        sim, present = identity_from_alleles(
+            geno[wi], member[wi], smask[wi], length[wi],
+            site_weights=None if wts is None else wts[wi])
         ma = panels[wi, list(pair_a)] & member[wi]
         mb = panels[wi, list(pair_b)] & member[wi]
         ov = ma & mb

@@ -1,5 +1,6 @@
-"""Identity and S straight from haplotype-by-site allele tiles (the unit-weight
-part of :mod:`impop_tpu.stats.allele`).
+"""Statistics straight from haplotype-by-site allele tiles (port of
+:mod:`impop_tpu.stats.allele`): identity (unit or column-mode weights), S
+and the allele-frequency spectrum.
 
 A window is an ``[N, S]`` int8 tile (1 alt, 0 ref, -1 missing or padding);
 every function here takes any number of leading window axes.
@@ -8,45 +9,108 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["identity_from_alleles", "segregating_sites"]
+__all__ = ["pairwise_diff", "pairwise_diff_biallelic", "identity_epilogue",
+           "identity_from_alleles", "segregating_sites",
+           "allele_frequency_spectrum", "panel_afs"]
 
 
 def _valid(geno, member, site_mask):
     return (geno >= 0) & member[..., :, None] & site_mask[..., None, :]
 
 
+def _gram(a, b):
+    return a @ b.transpose(-1, -2)
+
+
+def pairwise_diff_biallelic(geno: torch.Tensor, member: torch.Tensor,
+                            site_mask: torch.Tensor,
+                            site_weights: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(diff [..., N, N] f32, compared [..., N, N] f32) for 0/1 codes:
+    diff = X(V−X)ᵀ + (V−X)Xᵀ over mutually valid sites, each site scaled by
+    ``site_weights`` [..., S] when given (column-mode identity: an indel of
+    k bases weighs k); compared = V·Vᵀ stays unweighted.  Exact while the
+    weighted per-pair sums stay below 2^24 (float32, TF32 off on CUDA)."""
+    valid = _valid(geno, member, site_mask)
+    v = valid.to(torch.float32)
+    x = torch.where(valid, geno, 0).to(torch.float32)
+    xc = v - x
+    xw, xcw = x, xc
+    if site_weights is not None:
+        w = site_weights.to(torch.float32)[..., None, :]
+        xw, xcw = x * w, xc * w
+    return _gram(xw, xc) + _gram(xcw, x), _gram(v, v)
+
+
+def pairwise_diff(geno: torch.Tensor, member: torch.Tensor,
+                  site_mask: torch.Tensor, num_alleles: int = 2,
+                  site_weights: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Difference counts for allele codes 0..num_alleles-1: diff =
+    compared_w − Σ_a (X==a)_w (X==a)ᵀ; biallelic codes take
+    :func:`pairwise_diff_biallelic`."""
+    if num_alleles == 2:
+        return pairwise_diff_biallelic(geno, member, site_mask, site_weights)
+    valid = _valid(geno, member, site_mask)
+    v = valid.to(torch.float32)
+    compared = _gram(v, v)
+    w = (None if site_weights is None
+         else site_weights.to(torch.float32)[..., None, :])
+    compared_w = compared if w is None else _gram(v * w, v)
+    match = torch.zeros_like(compared)
+    for a in range(num_alleles):
+        xa = (torch.where(valid, geno, -1) == a).to(torch.float32)
+        match = match + _gram(xa if w is None else xa * w, xa)
+    return compared_w - match, compared
+
+
+def identity_epilogue(diff: torch.Tensor, compared: torch.Tensor,
+                      member: torch.Tensor, length
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's sim/present from difference and comparison counts:
+    present = compared > 0 ∧ both members, sim = 1 − diff / max(length, 1)
+    there (0 elsewhere), and the member diagonal forced to sim 1, present
+    (a member with no valid call still presents its self-pair)."""
+    present = (compared > 0) & member[..., :, None] & member[..., None, :]
+    length = torch.as_tensor(length, dtype=torch.float32, device=diff.device)
+    denom = torch.clamp(length, min=1.0)[..., None, None]
+    sim = torch.where(present, 1.0 - diff / denom, 0.0)
+    n_cap = diff.shape[-1]
+    diag = (torch.eye(n_cap, dtype=torch.bool, device=diff.device)
+            & member[..., :, None])
+    sim = torch.where(diag, 1.0, sim)
+    return sim, present | diag
+
+
 def identity_from_alleles(geno: torch.Tensor, member: torch.Tensor,
-                          site_mask: torch.Tensor, length
+                          site_mask: torch.Tensor, length,
+                          site_weights: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Identity matrix ``1 - diff / max(length, 1)`` and its presence mask.
 
-    z-Gram form: z = +1 alt / -1 ref / 0 invalid, v = |z|, so
-    ``diff = (v·vᵀ − z·zᵀ) / 2`` counts mutually valid sites that differ.
-    The operands are 0/±1 and the counts stay below 2^24, so the float32
-    products are exact in any summation order.  ``present`` covers pairs
-    with at least one mutually valid site, plus the member diagonal (a
-    member with no valid call still presents its self-pair).
+    Unit weights: the z-Gram form, z = +1 alt / -1 ref / 0 invalid, v =
+    |z|, so ``diff = (v·vᵀ − z·zᵀ) / 2`` counts mutually valid sites that
+    differ; the operands are 0/±1 and the counts stay below 2^24, so the
+    float32 products are exact in any summation order.  ``site_weights``
+    [..., S] selects column-mode identity through
+    ``ops.pairdiff.pairwise_identity_weighted`` (the weighted identity
+    kernel on CUDA tensors).
 
     Args:
       geno: [..., N, S] int8; member: [..., N] bool; site_mask: [..., S]
         bool; length: scalar or [...] window length in bp.
     Returns: (sim [..., N, N] f32, present [..., N, N] bool).
     """
+    if site_weights is not None:
+        from impop_tpu_torch.ops.pairdiff import pairwise_identity_weighted
+
+        return pairwise_identity_weighted(geno, member, site_mask, length,
+                                          site_weights)
     valid = _valid(geno, member, site_mask)
     v = valid.to(torch.float32)
     z = torch.where(valid, torch.where(geno > 0, 1.0, -1.0), 0.0)
-    zz = z @ z.transpose(-1, -2)
-    vv = v @ v.transpose(-1, -2)
-    diff = (vv - zz) * 0.5
-    present = (vv > 0) & member[..., :, None] & member[..., None, :]
-    length = torch.as_tensor(length, dtype=torch.float32, device=geno.device)
-    denom = torch.clamp(length, min=1.0)[..., None, None]
-    sim = torch.where(present, 1.0 - diff / denom, 0.0)
-    n_cap = geno.shape[-2]
-    diag = (torch.eye(n_cap, dtype=torch.bool, device=geno.device)
-            & member[..., :, None])
-    sim = torch.where(diag, 1.0, sim)
-    return sim, present | diag
+    vv = _gram(v, v)
+    return identity_epilogue((vv - _gram(z, z)) * 0.5, vv, member, length)
 
 
 def segregating_sites(geno: torch.Tensor, member: torch.Tensor,
@@ -56,3 +120,31 @@ def segregating_sites(geno: torch.Tensor, member: torch.Tensor,
     any_alt = (valid & (geno > 0)).any(dim=-2)
     any_ref = (valid & (geno == 0)).any(dim=-2)
     return (any_alt & any_ref).sum(dim=-1, dtype=torch.int32)
+
+
+def allele_frequency_spectrum(geno: torch.Tensor, member: torch.Tensor,
+                              site_mask: torch.Tensor, max_n: int,
+                              folded: bool = True) -> torch.Tensor:
+    """counts[..., k] = number of polymorphic sites whose alt (folded:
+    minor) allele count is k, k in [0, max_n] ([..., max_n + 1] int32)."""
+    valid = _valid(geno, member, site_mask)
+    ones = torch.where(valid, geno, 0).to(torch.int32).sum(dim=-2,
+                                                           dtype=torch.int32)
+    total = valid.sum(dim=-2, dtype=torch.int32)
+    poly = (ones > 0) & (ones < total)
+    count = torch.minimum(ones, total - ones) if folded else ones
+    count = torch.where(poly, count, 0).clamp(0, max_n)
+    hist = torch.zeros((*count.shape[:-1], max_n + 1), dtype=torch.int32,
+                       device=geno.device)
+    return hist.scatter_add_(-1, count.to(torch.int64),
+                             poly.to(torch.int32))
+
+
+def panel_afs(geno: torch.Tensor, member: torch.Tensor,
+              site_mask: torch.Tensor, panels: torch.Tensor, max_n: int,
+              folded: bool = True) -> torch.Tensor:
+    """Per-panel spectra [..., P, max_n + 1] int32; panel masks [..., P, N]
+    are ANDed with ``member``."""
+    return allele_frequency_spectrum(
+        geno[..., None, :, :], panels & member[..., None, :],
+        site_mask[..., None, :], max_n, folded)

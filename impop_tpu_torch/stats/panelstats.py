@@ -16,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from impop_tpu_torch.ops.panelquad import masked_pair_sums
+from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
+                                            masked_pair_sums_plain)
 from impop_tpu_torch.stats.fst import FstResult, _assemble
 from impop_tpu_torch.stats.grouping import greedy_group_panels, group_sizes
 
@@ -63,12 +64,16 @@ def gdxy_rows(pair_a, pair_b, pq: int, pairs_disjoint: bool):
 
 
 def panel_sums(sim, present, member, all_masks, mask_a, mask_b, threshold,
-               ia, ib, pq: int) -> dict:
+               ia, ib, pq: int, pair_sums=masked_pair_sums_plain) -> dict:
     """The raw row-dots of one window's panel statistics from sim/present —
     the dict ``window_stats`` returns (without ``s``):
 
       quad [R], n [R], num_groups [R], pairs_used2 [PQ],
       sum/cnt aa, bb, ab [Q] (unscaled), gdxy [Q], seed_risk (0/1 f32).
+
+    ``pair_sums`` computes the two masked reductions: the plain version by
+    default (the window kernel's plain version must reach no kernel), the
+    dispatching ``ops.panelquad.masked_pair_sums`` for the weighted scan.
     """
     f32 = torch.float32
     r_count = all_masks.shape[-2]
@@ -84,7 +89,7 @@ def panel_sums(sim, present, member, all_masks, mask_a, mask_b, threshold,
     seed_f = seeds[..., :pq, :].to(f32)
     wd = torch.cat([w_all, a_f, b_f], dim=-2)
     wp = torch.cat([seed_f, a_f, b_f], dim=-2)
-    yd, yp = masked_pair_sums(sim, present, wd, wp)
+    yd, yp = pair_sums(sim, present, wd, wp)
 
     def rowdot(x, y):
         return (x * y).sum(dim=-1)
@@ -155,14 +160,15 @@ def fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
     Args: sim/present [..., N, N], member [..., N], pmasks [..., P, N];
     pair_a/pair_b host tuples of panel indices; pairs_disjoint a host
     promise that no haplotype is in both panels of any pair (the stripped
-    sides then reuse the panel groupings).
+    sides then reuse the panel groupings).  On CUDA tensors the masked
+    reductions run in the ``masked_pair_sums`` kernel.
     """
     all_masks, mask_a, mask_b = panel_mask_stack(
         pmasks, member, pair_a, pair_b, pairs_disjoint)
     pq = pmasks.shape[-2] + len(pair_a)
     ia, ib = gdxy_rows(pair_a, pair_b, pq, pairs_disjoint)
     out = panel_sums(sim, present, member, all_masks, mask_a, mask_b,
-                     threshold, ia, ib, pq)
+                     threshold, ia, ib, pq, pair_sums=masked_pair_sums)
     return _assemble_from_kernel(out, pq, len(pair_a), pair_a, pair_b,
                                  pairs_disjoint)
 

@@ -1,9 +1,11 @@
 """impop_tpu_torch.stats.allele against impop_tpu.stats.allele (JAX on the
-CPU backend): identity, presence and S from the same numpy tiles.
+CPU backend): identity, presence, S and the allele-frequency spectra from
+the same numpy tiles.
 
 Identity counts are exact integers in float32 on both sides and
 ``1 - diff / length`` is the same IEEE float32 expression, so sim, present
-and S must be equal, not merely close."""
+and S must be equal, not merely close; spectra are integer histograms and
+equal too."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -11,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from impop_tpu.stats.allele import allele_frequency_spectrum as j_afs
 from impop_tpu.stats.allele import identity_from_alleles as j_identity
+from impop_tpu.stats.allele import panel_afs as j_panel_afs
 from impop_tpu.stats.allele import segregating_sites as j_sites
-from impop_tpu_torch.stats.allele import (identity_from_alleles,
+from impop_tpu_torch.stats.allele import (allele_frequency_spectrum,
+                                          identity_from_alleles, panel_afs,
                                           segregating_sites)
 
 torch.set_num_threads(1)
@@ -75,3 +80,33 @@ def test_segregating_sites_matches_jax(frac_missing):
                                 torch.from_numpy(member),
                                 torch.from_numpy(smask)))
     assert got == want
+
+
+@pytest.mark.parametrize("folded,max_n", [(True, 512), (False, 512),
+                                          (True, 20), (False, 40)])
+def test_allele_frequency_spectrum_matches_jax(folded, max_n):
+    """Folded and unfolded, with counts past ``max_n`` clipped into the
+    last bin."""
+    geno, member, smask = tile(13, 128, 256, 0.1)
+    want = np.asarray(j_afs(jnp.asarray(geno), jnp.asarray(member),
+                            jnp.asarray(smask), max_n, folded))
+    got = allele_frequency_spectrum(torch.from_numpy(geno),
+                                    torch.from_numpy(member),
+                                    torch.from_numpy(smask), max_n, folded)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("folded", [True, False])
+def test_panel_afs_matches_jax(folded):
+    """Per-panel spectra of a batch of windows, overlapping panels."""
+    rng = np.random.default_rng(5)
+    tiles = [tile(20 + k, 64, 128, 0.05) for k in range(3)]
+    panels = rng.random((3, 4, 64)) < 0.4
+    got = panel_afs(*(torch.from_numpy(np.stack([t[i] for t in tiles]))
+                      for i in range(3)), torch.from_numpy(panels), 64,
+                    folded).numpy()
+    for k, (geno, member, smask) in enumerate(tiles):
+        want = np.asarray(j_panel_afs(
+            jnp.asarray(geno), jnp.asarray(member), jnp.asarray(smask),
+            jnp.asarray(panels[k]), 64, folded))
+        np.testing.assert_array_equal(got[k], want)

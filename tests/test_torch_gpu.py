@@ -6,8 +6,9 @@ of JAX, so it also runs where JAX is absent:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Tolerances: integer outputs exact (S, n, num_groups, pairs_used2, cnt_*,
-seed_risk, seeds); quad, sum_* and gdxy rtol 1e-5 (float32 sums in
-another order).
+seed_risk, seeds, EHH step sums and carriers); weighted sim / present
+exact (integer weights keep every sum exact in float32); quad, sum_*,
+gdxy and the masked panel sums rtol 1e-5 (float32 sums in another order).
 """
 from __future__ import annotations
 
@@ -15,10 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from impop_tpu_torch.ops.ehhdeath import ehh_area, ehh_area_plain
+from impop_tpu_torch.ops.pairdiff import (pairwise_identity_weighted,
+                                          pairwise_identity_weighted_plain)
+from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
+                                           masked_pair_sums_plain)
 from impop_tpu_torch.ops.seedpeel import seed_peel, seed_peel_plain
 from impop_tpu_torch.ops.windowstat import window_stats, window_stats_plain
 from impop_tpu_torch.stats.allele import identity_from_alleles
-from impop_tpu_torch.stats.panelstats import panel_mask_stack
+from impop_tpu_torch.stats.panelstats import (gdxy_rows, panel_mask_stack,
+                                              panel_sums)
 
 THR, LEN = 0.999, 5000.0
 INT_KEYS = ("n", "num_groups", "pairs_used2", "cnt_aa", "cnt_bb", "cnt_ab",
@@ -119,3 +126,102 @@ def test_wrappers_raise_on_bad_input(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         window_stats(g, m.cpu(), sm, stack, ma, mb, THR, length, (0,), (1,),
                      True)
+
+
+def ehh_inputs(seed, w, n, s, noise=0.003, n_classes=6):
+    rng = np.random.default_rng(seed)
+    geno = np.zeros((w, n, s), np.int8)
+    for wi in range(w):
+        base = rng.integers(0, 2, size=(n_classes, s)).astype(np.int8)
+        g = base[rng.integers(0, n_classes, size=n)]
+        geno[wi] = np.where(rng.random((n, s)) < noise, 1 - g, g)
+    geno[rng.random(geno.shape) < noise] = -1  # missing: allele 0
+    member = np.zeros((w, n), bool)
+    member[:, :n - 46] = True
+    smask = rng.random((w, s)) < 0.85
+    smask[-1] = False                      # a window with no active site
+    focal = np.zeros(w, np.int32)
+    for wi in range(w - 1):
+        act = np.nonzero(smask[wi])[0]
+        focal[wi] = (act[0], act[len(act) // 2], act[-1])[wi % 3]
+    return geno, member, smask, focal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,s,noise,n_classes", [
+    (12, 512, 128, 0.003, 6), (4, 512, 1024, 2e-4, 1), (5, 96, 200, 0.01, 3)])
+def test_ehh_area_kernel_matches_plain(cuda_device, w, n, s, noise,
+                                       n_classes):
+    arrays = ehh_inputs(47, w, n, s, noise, n_classes)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    before = ehh_area.launches
+    got = ehh_area(*args)
+    torch.cuda.synchronize()
+    assert ehh_area.launches == before + 1
+    want = ehh_area_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if s == 1024:
+        assert int(got[0].max()) > 1 << 24
+
+
+def weighted_inputs(seed, w, n, s):
+    geno, member, smask, _ = batch(seed, w, n, s, 2, True, False)
+    rng = np.random.default_rng(seed)
+    wts = rng.integers(1, 51, size=(w, s)).astype(np.float32)
+    wts[:, s // 5] = 100_000.0
+    return geno, member, smask, wts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,s", [(8, 512, 128), (2, 512, 4096),
+                                   (3, 100, 77)])
+def test_weighted_identity_kernel_matches_plain(cuda_device, w, n, s):
+    geno, member, smask, wts = weighted_inputs(48, w, n, s)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (geno, member, smask)]
+    length = torch.full((w,), LEN, device=cuda_device)
+    weights = torch.from_numpy(wts).to(cuda_device)
+    before = pairwise_identity_weighted.launches
+    sim, pres = pairwise_identity_weighted(*args, length, weights)
+    torch.cuda.synchronize()
+    assert pairwise_identity_weighted.launches == before + 1
+    sim_p, pres_p = pairwise_identity_weighted_plain(*args, length, weights)
+    assert torch.equal(pres, pres_p)
+    assert torch.equal(sim, sim_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("disjoint", [True, False])
+def test_masked_pair_sums_kernel_matches_plain(cuda_device, disjoint):
+    """On the row stacks the weighted scan hands to the masked sums."""
+    w, n, p = 6, 512, 5
+    geno, member, smask, wts = weighted_inputs(49, w, n, 128)
+    g, m, sm, wt = (torch.from_numpy(a).to(cuda_device)
+                    for a in (geno, member, smask, wts))
+    sim, pres = pairwise_identity_weighted(
+        g, m, sm, torch.full((w,), LEN, device=cuda_device), wt)
+    if disjoint:
+        pm = batch(50, w, n, 8, p, True, False)[3]
+    else:
+        pm = np.random.default_rng(50).random((w, p, n)) < 0.3
+    pm = torch.from_numpy(pm).to(cuda_device)
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    stack, ma, mb = panel_mask_stack(pm, m, pa, pb, disjoint)
+    pq = p + len(pairs)
+    ia, ib = gdxy_rows(pa, pb, pq, disjoint)
+    seen = {}
+
+    def capture(*xs):
+        seen["args"] = xs
+        return masked_pair_sums_plain(*xs)
+
+    panel_sums(sim, pres, m, stack, ma, mb, THR, ia, ib, pq,
+               pair_sums=capture)
+    before = masked_pair_sums.launches
+    got = masked_pair_sums(*seen["args"])
+    torch.cuda.synchronize()
+    assert masked_pair_sums.launches == before + 1
+    want = masked_pair_sums_plain(*seen["args"])
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-6)
