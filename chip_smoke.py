@@ -18,7 +18,14 @@ Phases (one line each; any failure exits non-zero):
      (g) pairwise_identity_weighted: [512, 128] x 64 with integer weights
          1-50 and a 100 000 bp column, and [512, 4096] x 4 (exactly equal);
      (h) masked_pair_sums on the stacks the columns scan builds, disjoint
-         and overlapping pairs (rtol 1e-5)
+         and overlapping pairs (rtol 1e-5);
+     (i) pairwise_identity (unit weights): [512, 2048] x 64 and
+         [512, 8192] x 8 with kernel and plain times, [1024, 2048] x 4,
+         and codes up to 3 with a member without calls and length 0
+         (sim and present exactly equal);
+     (j) identity_group: [512, 128] x 320 with R = 15 and kernel and plain
+         times, cap 256 with overlapping panels (sim, present, gid, S
+         exactly equal)
   3  the port's ``scan`` end to end on a simulated 2 Mb, 466-haplotype
      pangenome (400 windows of 5 kb), then the first 20 windows again on
      the CPU, then a journal resume
@@ -29,9 +36,17 @@ Phases (one line each; any failure exits non-zero):
      identical), then a journal resume that reproduces table and spectrum
   6  ``scan --identity-mode columns --ehh`` on the same pangenome, GPU
      against CPU on 20 windows
+  7  ``tajd``: ten 200 kb windows of the same pangenome as .npz tiles
+     (native extractor), on the card and again on the CPU (integer columns
+     exact, PI and D rtol 1e-5), with ``-s`` on one panel, then the whole
+     2 Mb as one window, batched and streamed (``--stream-npy
+     --chunk-sites 4096``): the two rows equal
+  8  ``fused_window_stats(return_matrices=True)`` against
+     ``return_matrices=False`` at [512, 128] x 320 (S and integers exact,
+     floats rtol 1e-5, Fst atol 2e-3)
 
-Each scan path (3-4, 5, 6) starts with every kernel launch count at 0 and
-fails unless each kernel of that path was launched during it.
+Each main path (3-4, 5, 6, 7, 8) starts with every kernel launch count at 0
+and fails unless each kernel of that path was launched during it.
 
 Before the last line it prints the kernel table as one JSON object and the
 card's name and power limit; the last line is
@@ -432,6 +447,113 @@ def phase_kernels(dev, report):
     report["seed_peel"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
 
 
+def long_batch(rng, w, cap_n=CAP_N, cap_s=2048, n_hap=N_HAP, bp=200_000.0):
+    """Long windows: class-structured haplotypes over every site (about
+    the density of a 200 kb window of the simulated pangenome)."""
+    import numpy as np
+
+    geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
+    for wi in range(w):
+        classes = rng.integers(0, 2, size=(8, cap_s)).astype(np.int8)
+        g = classes[rng.integers(0, 8, size=n_hap)]
+        geno[wi, :n_hap] = np.where(rng.random((n_hap, cap_s)) < 0.002,
+                                    1 - g, g)
+    geno[:, :n_hap][rng.random((w, n_hap, cap_s)) < 0.01] = -1
+    member = np.zeros((w, cap_n), bool)
+    member[:, :n_hap] = True
+    smask = np.ones((w, cap_s), bool)
+    smask[:, cap_s - 37:] = False
+    return geno, member, smask, np.full(w, bp, np.float32)
+
+
+def phase_identity_kernel(dev, report):
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
+                                              pairwise_identity_plain)
+
+    rng = np.random.default_rng(29)
+
+    def case(arrays, tag):
+        args = to_dev(dev, *arrays)
+        sim, pres = pairwise_identity(*args)
+        sim_p, pres_p = pairwise_identity_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(pres, pres_p):
+            raise SmokeError(f"{tag}: unit-weight present differs")
+        if not torch.equal(sim, sim_p):
+            err = float((sim - sim_p).abs().max())
+            raise SmokeError(f"{tag}: unit-weight sim differs (max abs "
+                             f"{err})")
+        return args
+
+    times = []
+    for w, s in ((64, 2048), (8, 8192)):
+        args = case(long_batch(rng, w, cap_s=s), f"2i [512,{s}]")
+        k_ms = cuda_time_ms(lambda: pairwise_identity(*args), 10)
+        p_ms = cuda_time_ms(lambda: pairwise_identity_plain(*args), 5)
+        times.append((w, s, k_ms, p_ms))
+        del args
+    case(long_batch(rng, 4, cap_n=1024, n_hap=1000), "2i [1024,2048]")
+    geno, member, smask, lengths = long_batch(rng, 4, cap_s=256)
+    geno = np.where(geno > 0, rng.integers(1, 4, size=geno.shape),
+                    geno).astype(np.int8)
+    geno[:, 3] = -1
+    lengths[:] = 0.0
+    case((geno, member, smask, lengths), "2i codes")
+    say("2i", "pairwise_identity at [512,2048]x64, [512,8192]x8, "
+        "[1024,2048]x4 and codes up to 3 (a member without calls, length "
+        "0): sim and present exactly equal; " + "; ".join(
+            f"[512,{s}]x{w}: kernel {k:.4f} ms/batch = {k / w * 1e3:.3f} "
+            f"us/window, plain {p:.4f} ms/batch = {p / w * 1e3:.3f} "
+            f"us/window" for w, s, k, p in times))
+    w, s, k_ms, p_ms = times[0]
+    report["pairwise_identity"].update(max_abs_err=0.0, ms=k_ms,
+                                       plain_ms=p_ms)
+
+
+def phase_idgroup_kernel(dev, report):
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.ops.idgroup import (identity_group,
+                                             identity_group_plain)
+    from impop_tpu_torch.stats.panelstats import panel_mask_stack
+
+    rng = np.random.default_rng(31)
+
+    def case(geno, member, smask, panels, lengths, disjoint, tag):
+        p = panels.shape[1]
+        pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+        g, m, sm, pn, ln = to_dev(dev, geno, member, smask, panels, lengths)
+        stack = panel_mask_stack(pn, m, tuple(a for a, _ in pairs),
+                                 tuple(b for _, b in pairs), disjoint)[0]
+        args = (g, m, sm, stack, THRESHOLD, ln)
+        got = identity_group(*args)
+        want = identity_group_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("sim", "present", "gid", "S"), got, want):
+            if not torch.equal(a, b):
+                raise SmokeError(f"{tag}: identity_group {name} differs from "
+                                 "the plain version")
+        return args, stack.shape[-2]
+
+    args, r = case(*hprc_batch(rng, BATCH), True, "2j")
+    k_ms = cuda_time_ms(lambda: identity_group(*args), 10)
+    p_ms = cuda_time_ms(lambda: identity_group_plain(*args), 3)
+    geno, member, smask, _, lengths = hprc_batch(rng, 64, cap_n=256,
+                                                 n_hap=230)
+    _, r_b = case(geno, member, smask, rng.random((64, 4, 256)) < 0.4,
+                  lengths, False, "2j overlap")
+    say("2j", f"identity_group [{CAP_N},{CAP_S}]x{BATCH} R = {r} and "
+        f"[256,128]x64 overlapping panels R = {r_b}: sim, present, gid and "
+        f"S exactly equal; kernel {k_ms:.4f} ms/batch = "
+        f"{k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch = "
+        f"{p_ms / BATCH * 1e3:.3f} us/window")
+    report["identity_group"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -498,7 +620,9 @@ def simulate_pangenome(tmp):
         f"{time.perf_counter() - t0:.1f} s")
     base = ["scan", "-b", bed, "--paf", sim.paf_path, "--fasta",
             sim.fasta_path, "-P", "CHM13#0#", *panel_args]
-    return {"base": base, "bed20": bed20, "n_win": ref_len // WIN_BP}
+    return {"base": base, "bed20": bed20, "n_win": ref_len // WIN_BP,
+            "paf": sim.paf_path, "fasta": sim.fasta_path,
+            "panels": panel_args[1::2]}
 
 
 def run_scan(argv, what):
@@ -621,6 +745,237 @@ def phase_seed_risk(dev, tmp):
     say("4", f"seed_risk window recomputed exactly: FSTG_A_B = {fstg}")
 
 
+def compare_tajd(path_a, path_b, tag):
+    """REGION .. SEGREGATING_SITES exact, PI and TAJIMAS_D rtol 1e-5."""
+    import numpy as np
+
+    header, rows_a = read_table(path_a)
+    _, rows_b = read_table(path_b)
+    if len(rows_a) != len(rows_b) or not rows_a:
+        raise SmokeError(f"{tag}: {len(rows_a)} vs {len(rows_b)} rows")
+    for ra, rb in zip(rows_a, rows_b):
+        if ra[:4] != rb[:4]:
+            raise SmokeError(f"{tag}: {ra[:4]} vs {rb[:4]}")
+        for col, va, vb in zip(header[4:], ra[4:], rb[4:]):
+            if (va == "NA") != (vb == "NA") or (va != "NA" and not np.isclose(
+                    float(va), float(vb), rtol=1e-5, atol=1e-8)):
+                raise SmokeError(f"{tag}: {col} at {ra[0]}: {va} vs {vb}")
+    return rows_a
+
+
+def phase_tajd(dev, tmp, pg, step):
+    """``tajd`` on allele tiles of the simulated pangenome: ten 200 kb
+    windows batched (S >= 2048 per window), then the whole 2 Mb as one
+    window, batched and streamed.  ``step`` receives the padded batch of
+    the ten windows for :func:`time_tajd_step`."""
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.cli import main as torch_main
+    from impop_tpu_torch.hostio import _capacity_for, open_extractor
+
+    def run(argv, what):
+        t0 = time.perf_counter()
+        if torch_main(argv) != 0:
+            raise SmokeError(f"{what} failed")
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ex = open_extractor(pg["paf"], pg["fasta"])
+    if type(ex).__name__ != "NativeExtractor":
+        raise SmokeError(f"tajd: extractor is {type(ex).__name__}, not the "
+                         "native one")
+    tiles, whole = os.path.join(tmp, "tajd200k"), os.path.join(tmp, "tajd2m")
+    os.makedirs(tiles)
+    os.makedirs(whole)
+    win = 200_000
+    spans = [(lo, lo + win) for lo in range(0, SCAN_BP, win)]
+    bed, bed1 = os.path.join(tmp, "t200k.bed"), os.path.join(tmp, "t2m.bed")
+    with open(bed, "w") as fh:
+        fh.writelines(f"chr1\t{lo}\t{hi}\n" for lo, hi in spans)
+    with open(bed1, "w") as fh:
+        fh.write(f"chr1\t0\t{SCAN_BP}\n")
+    sites = []
+    for (lo, hi), d in [(sp, tiles) for sp in spans] + [((0, SCAN_BP),
+                                                          whole)]:
+        wm = ex.extract("CHM13#0#chr1", lo, hi)
+        np.savez(os.path.join(d, f"CHM13#0#chr1:{lo}-{hi}.npz"),
+                 geno=wm.geno, names=np.asarray(wm.names),
+                 site_keys=np.asarray(wm.site_keys))
+        sites.append(wm.geno.shape[1])
+        if d == whole:
+            big, big_names = wm.geno, wm.names
+    t_extract = time.perf_counter() - t0
+    if min(sites[:-1]) < 2048:
+        raise SmokeError(f"tajd: a 200 kb window has {min(sites[:-1])} "
+                         "sites, below the long-window regime (2048)")
+    say("7", f"extracted {len(spans)} windows of 200 kb ({min(sites[:-1])}-"
+        f"{max(sites[:-1])} sites x {big.shape[0]} rows) and the whole "
+        f"{SCAN_BP / 1e6:g} Mb ({sites[-1]} sites) with the native "
+        f"extractor in {t_extract:.2f} s")
+
+    def out(name):
+        return os.path.join(tmp, f"tajd.{name}.tsv")
+
+    base = ["tajd", "-b", bed, "-P", "CHM13#0#", "--geno-dir", tiles]
+    wall_g = run(base + ["-o", out("gpu"), "--device", dev.type],
+                 "tajd on the card")
+    wall_c = run(base + ["-o", out("cpu"), "--device", "cpu"], "tajd --cpu")
+    rows = compare_tajd(out("gpu"), out("cpu"), "7 gpu-vs-cpu")
+    for r in rows:
+        if not np.isfinite(float(r[4])) or r[5] == "NA" or int(r[3]) < 2048:
+            raise SmokeError(f"7: implausible row {r}")
+    afr = pg["panels"][0]
+    run(base + ["-s", afr, "-o", out("gpu_s"), "--device", dev.type],
+        "tajd -s on the card")
+    run(base + ["-s", afr, "-o", out("cpu_s"), "--device", "cpu"],
+        "tajd -s --cpu")
+    rows_s = compare_tajd(out("gpu_s"), out("cpu_s"), "7 -s gpu-vs-cpu")
+    n_afr = {int(r[2]) for r in rows_s}
+    say("7", f"tajd --geno-dir {len(spans)} x 200 kb on {dev}: "
+        f"{wall_g:.2f} s wall; on the CPU {wall_c:.2f} s; tables equal "
+        f"(integers exact, PI and D rtol 1e-5); -s {os.path.basename(afr)} "
+        f"(SAMPLES {sorted(n_afr)}): equal")
+
+    g_list = []
+    for lo, hi in spans:
+        data = np.load(os.path.join(tiles, f"CHM13#0#chr1:{lo}-{hi}.npz"))
+        g_list.append(data["geno"][np.argsort(data["names"])])
+    cap_n = _capacity_for([g.shape[0] for g in g_list])
+    cap_s = ((max(g.shape[1] for g in g_list) + 127) // 128) * 128
+    w = len(g_list)
+    geno = np.full((w, cap_n, cap_s), -1, np.int8)
+    member = np.zeros((w, cap_n), bool)
+    smask = np.zeros((w, cap_s), bool)
+    for wi, g in enumerate(g_list):
+        geno[wi, :g.shape[0], :g.shape[1]] = g
+        member[wi, :g.shape[0]] = True
+        smask[wi, :g.shape[1]] = True
+    step["batch"] = (geno, member, smask, member[:, None, :].copy(),
+                     np.full(w, float(win), np.float32))
+
+    # the whole 2 Mb: batched, then streamed in 4096-site chunks
+    npy = os.path.join(tmp, "whole.npy")
+    np.save(npy, big)
+    names = os.path.join(tmp, "whole.names")
+    with open(names, "w") as fh:
+        fh.write("\n".join(big_names) + "\n")
+    base1 = ["tajd", "-b", bed1, "-P", "CHM13#0#"]
+    wall_b = run(base1 + ["--geno-dir", whole, "-o", out("whole_b"),
+                          "--device", dev.type], "tajd whole, batched")
+    wall_s = run(base1 + ["--stream-npy", npy, "--stream-names", names,
+                          "--chunk-sites", "4096", "-o", out("whole_s"),
+                          "--device", dev.type], "tajd whole, streamed")
+    with open(out("whole_b")) as fb, open(out("whole_s")) as fs:
+        row_b, row_s = fb.read(), fs.read()
+    if row_b != row_s:
+        raise SmokeError(f"7: streamed row differs from the batched one:\n"
+                         f"{row_b}{row_s}")
+    say("7", f"whole {SCAN_BP / 1e6:g} Mb as one window ({sites[-1]} "
+        f"sites): batched {wall_b:.2f} s, streamed in "
+        f"{-(-sites[-1] // 4096)} chunks of 4096 {wall_s:.2f} s; rows "
+        f"identical: {row_s.splitlines()[1]}")
+
+
+def time_tajd_step(dev, step):
+    """The tajd device step alone on the ten-window batch of phase 7, and
+    its identity kernel (CUDA events, outside the counted path)."""
+    from impop_tpu_torch.ops.pairdiff import pairwise_identity
+    from impop_tpu_torch.parallel.scan import batch_tajd_from_alleles
+
+    args = to_dev(dev, *step["batch"])
+    w, cap_n, cap_s = args[0].shape
+    step_ms = cuda_time_ms(
+        lambda: batch_tajd_from_alleles(*args, THRESHOLD), 5)
+    id_ms = cuda_time_ms(lambda: pairwise_identity(*args[:3], args[4]), 5)
+    say("7", f"tajd device step [{cap_n},{cap_s}]x{w}: {step_ms:.4f} ms, "
+        f"of which pairwise_identity {id_ms:.4f} ms")
+    say("7", "tajd device step by op (torch.profiler, device time of one "
+        "step): " + profile_ops(
+            lambda: batch_tajd_from_alleles(*args, THRESHOLD)))
+
+
+def profile_ops(fn, top: int = 8) -> str:
+    """The largest device-time ops of one call of fn (after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    if not rows:
+        return "no device time recorded"
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return f"{total / 1e3:.4f} ms in all; " + ", ".join(
+        f"{key[:60]} {us / 1e3:.4f} ms x{n}" for us, key, n in rows[:top])
+
+
+def phase_matrices(dev):
+    """fused_window_stats with and without its matrices on one batch."""
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.stats.panelstats import fused_window_stats
+
+    rng = np.random.default_rng(37)
+    geno, member, smask, panels, lengths = hprc_batch(rng, BATCH)
+    p = panels.shape[1]
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    g, m, sm, pn, ln = to_dev(dev, geno, member, smask, panels, lengths)
+    sim, pres, s_m, res_m = fused_window_stats(g, m, sm, ln, pn, pa, pb,
+                                               THRESHOLD, True)
+    _, _, s_w, res_w = fused_window_stats(g, m, sm, ln, pn, pa, pb,
+                                          THRESHOLD, True,
+                                          return_matrices=False)
+    torch.cuda.synchronize()
+    if tuple(sim.shape) != (BATCH, CAP_N, CAP_N) or pres.dtype != torch.bool:
+        raise SmokeError(f"8: matrices of shape {tuple(sim.shape)}")
+    if not torch.equal(s_m, s_w):
+        raise SmokeError("8: S differs with and without matrices")
+    if not bool(torch.isfinite(res_m.pi).all()):
+        raise SmokeError("8: non-finite pi")
+    worst = 0.0
+
+    def check(name, a, b):
+        nonlocal worst
+        if name in ("n", "num_groups", "pairs_used", "pairs_missing",
+                    "seed_risk"):
+            if not torch.equal(a, b):
+                raise SmokeError(f"8: {name} differs")
+            return
+        diff = torch.nan_to_num((a - b).abs(), nan=0.0)
+        worst = max(worst, float(diff.max()))
+        if name.endswith((".fst", ".da")):
+            ok = (diff <= 2e-3) & (a.isnan() == b.isnan())
+        else:
+            ok = torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+        if not bool(ok.all()):
+            raise SmokeError(f"8: {name} beyond tolerance")
+
+    for f, a, b in zip(res_m._fields, res_m, res_w):
+        if isinstance(a, tuple):
+            for f2, a2, b2 in zip(a._fields, a, b):
+                check(f"{f}.{f2}", a2, b2)
+        else:
+            check(f, a, b)
+    say("8", f"fused_window_stats(return_matrices=True) [{CAP_N},{CAP_S}]x"
+        f"{BATCH}: sim [{CAP_N},{CAP_N}] per window; S and integer fields "
+        f"exact, floats within rtol {RTOL} (Fst atol 2e-3) of "
+        f"return_matrices=False (max abs {worst:.3e})")
+
+
 # ------------------------------------------------------------------ driver
 
 
@@ -640,7 +995,9 @@ def main() -> int:
     from impop_tpu_torch.device import resolve_device
     from impop_tpu_torch.ops import _build
     from impop_tpu_torch.ops.ehhdeath import ehh_area
-    from impop_tpu_torch.ops.pairdiff import pairwise_identity_weighted
+    from impop_tpu_torch.ops.idgroup import identity_group
+    from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
+                                              pairwise_identity_weighted)
     from impop_tpu_torch.ops.panelquad import masked_pair_sums
     from impop_tpu_torch.ops.seedpeel import seed_peel
     from impop_tpu_torch.ops.windowstat import window_stats
@@ -664,7 +1021,9 @@ def main() -> int:
     kernels = {"window_stats": window_stats, "seed_peel": seed_peel,
                "ehh_area": ehh_area,
                "pairwise_identity_weighted": pairwise_identity_weighted,
-               "masked_pair_sums": masked_pair_sums}
+               "masked_pair_sums": masked_pair_sums,
+               "pairwise_identity": pairwise_identity,
+               "identity_group": identity_group}
     sources = {
         "window_stats": ("windowstat.cu", "impop_tpu/ops/windowstat.py:407"),
         "seed_peel": ("windowstat.cu", "impop_tpu/ops/seedpeel.py:156"),
@@ -672,6 +1031,9 @@ def main() -> int:
         "pairwise_identity_weighted": ("pairdiff.cu",
                                        "impop_tpu/ops/pairdiff.py:486"),
         "masked_pair_sums": ("panelquad.cu", "impop_tpu/ops/panelquad.py:77"),
+        "pairwise_identity": ("pairdiff.cu",
+                              "impop_tpu/ops/pairdiff.py:403,460,281"),
+        "identity_group": ("idgroup.cu", "impop_tpu/ops/idgroup.py:211"),
     }
     report = {name: {"name": name, "route": "cuda",
                      "source": f"impop_tpu_torch/csrc/{src}",
@@ -680,6 +1042,8 @@ def main() -> int:
     phase_kernels(dev, report)
     phase_ehh_kernel(dev, report)
     phase_weighted_kernels(dev, report)
+    phase_identity_kernel(dev, report)
+    phase_idgroup_kernel(dev, report)
 
     # the main paths, each through the port's CLI entry point: every launch
     # count is 0 just before a path and must be nonzero for each kernel of
@@ -687,10 +1051,11 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="impop_smoke_")
     try:
         pg = simulate_pangenome(tmp)
+        step = {}
         paths = [
             ("3-4", lambda: (scan_path(dev, tmp, pg, "3", []),
                              phase_seed_risk(dev, tmp)),
-             ("window_stats", "seed_peel")),
+             ("window_stats", "seed_peel", "pairwise_identity")),
             ("5", lambda: scan_path(dev, tmp, pg, "5", ["--ehh"], afs=True),
              ("window_stats", "ehh_area")),
             ("6", lambda: scan_path(dev, tmp, pg, "6",
@@ -698,6 +1063,10 @@ def main() -> int:
                                     resume=False),
              ("pairwise_identity_weighted", "masked_pair_sums", "seed_peel",
               "ehh_area")),
+            ("7", lambda: phase_tajd(dev, tmp, pg, step),
+             ("pairwise_identity", "seed_peel")),
+            ("8", lambda: phase_matrices(dev),
+             ("identity_group", "masked_pair_sums")),
         ]
         for tag, run, needed in paths:
             for fn in kernels.values():
@@ -710,7 +1079,8 @@ def main() -> int:
                                      f"scans of phase {tag}")
             for name, count in counts.items():
                 report[name]["launches"] += count
-            say(tag, f"kernel launches during the scans: {counts}")
+            say(tag, f"kernel launches during the path: {counts}")
+        time_tajd_step(dev, step)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

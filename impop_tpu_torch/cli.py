@@ -1,7 +1,9 @@
-"""Command-line driver of the port: the fused ``scan``.
+"""Command-line entry point of the port: the fused ``scan`` and ``tajd``.
 
     python -m impop_tpu_torch.cli scan -b windows.bed --paf aln.paf \\
         --fasta haps.fa --panel agc.AFR --panel agc.EUR ... --device cuda
+    python -m impop_tpu_torch.cli tajd -b windows.bed --geno-dir tiles/ \\
+        [-s samples.txt] [-l LEN] --device cuda
 
 Same flags, table, journal and spectrum file as ``python -m impop_tpu.cli
 scan``, plus ``--device {cuda,cpu}``.  Per batch of windows the host
@@ -11,6 +13,12 @@ grouped / 3-π Fst per pair (``scanstep.scan_step``), with ``--ehh`` the
 EHH decay areas at a focal variant, with ``--afs`` the per-panel allele
 frequency spectra, and with ``--identity-mode columns`` column-weighted
 identity; windows flagged ``seed_risk`` re-run their grouped Fst exactly.
+
+``tajd`` takes the JAX ``tajd`` flags and writes the same table and window
+logs: S, pica2-grouped π per site and Tajima's D per window, from allele
+tiles (``--geno-dir`` / ``--gfa-dir``, all windows padded into one batch)
+or from one memory-mapped ``[N, S]`` matrix streamed through the device in
+site chunks (``--stream-npy``).
 
 Not ported yet (they raise): ``--distributed`` and more than one local GPU
 (ROADMAP.md Queue 1 item 11).
@@ -26,19 +34,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from impop_tpu_torch.hostio import (GenoSource, GfaDirSource, _capacity_for,
-                                    _out_stream, _panel_label,
+from impop_tpu_torch.hostio import (GenoSource, GfaDirSource, WindowError,
+                                    _capacity_for, _out_stream, _panel_label,
                                     _print_counters,
                                     _resolve_fasta, _scan_buf_layout,
                                     _write_window_log, expand_population,
                                     open_extractor, pack_scan_batch,
                                     read_bed, read_panel_file,
                                     site_weights_from_keys,
-                                    split_multiallelic)
+                                    split_multiallelic, tables)
 from impop_tpu_torch.runtime.journal import ResultJournal
 from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
 
-__all__ = ["build_parser", "cmd_scan", "main"]
+__all__ = ["build_parser", "cmd_scan", "cmd_tajd", "main"]
 
 
 def _warn(msg: str) -> None:
@@ -574,6 +582,157 @@ def cmd_scan(args) -> int:
     return 0
 
 
+def _tajd_log(args, rs, length, n_val, s_val, pi_val, d_val, **extra):
+    _write_window_log(args.log_dir, rs, "Tajima's D Calculation",
+                      {"region": rs, "length": int(length),
+                       "threshold": args.threshold, "n": n_val,
+                       "segregating_sites": s_val, "pi_per_site": pi_val,
+                       "tajimas_d": "NA" if np.isnan(d_val) else d_val,
+                       **extra})
+
+
+def _tajd_streamed(args, regions, dev) -> int:
+    """One window of any length: a memory-mapped [N, S] int8 .npy streamed
+    through the device in site chunks (runtime/sitestream.py).  Rows are
+    padded to the batched path's capacity, so both paths reduce the same
+    shapes and print the same row."""
+    from impop_tpu_torch.runtime.sitestream import SiteStreamAccumulator
+
+    if len(regions) != 1:
+        raise SystemExit("error: --stream-npy processes exactly one window "
+                         f"(BED has {len(regions)} rows)")
+    reg = regions[0]
+    rs = reg.region_string(args.prefix)
+    geno = np.load(args.stream_npy, mmap_mode="r")
+    if geno.ndim != 2:
+        raise SystemExit("error: --stream-npy must be a 2-D [N, S] matrix")
+    n_rows, s_total = geno.shape
+
+    names = None
+    if args.stream_names:
+        names = read_panel_file(args.stream_names)
+        if len(names) != n_rows:
+            raise SystemExit(f"error: {len(names)} names for {n_rows} rows")
+    # deterministic seed order = sorted sequence-name row order
+    order = np.argsort(names) if names is not None else np.arange(n_rows)
+    # S and the counts cover ALL rows (run_tajd.sh:148); -s restricts only
+    # the grouped-π membership, as the batched path's panel mask does
+    cap_n = _capacity_for([n_rows])
+    member = np.zeros(cap_n, bool)
+    member[:n_rows] = True
+    pi_member = None
+    if args.samples:
+        if names is None:
+            raise SystemExit("error: -s filtering needs --stream-names")
+        sorted_names = [names[i] for i in order]
+        matched, _ = expand_population(read_panel_file(args.samples),
+                                       sorted_names)
+        pi_member = np.zeros(cap_n, bool)
+        pi_member[:n_rows] = [nm in matched for nm in sorted_names]
+
+    length = args.length or reg.length
+    chunk = max(128, args.chunk_sites)
+    acc = SiteStreamAccumulator(member, chunk_s=chunk, device=dev)
+    tile = np.full((cap_n, chunk), -1, np.int8)
+    for lo in range(0, s_total, chunk):
+        part = geno[order, lo:lo + chunk]
+        tile[:n_rows, :part.shape[1]] = part
+        acc.update(tile[:, :part.shape[1]])
+    st = acc.finalize(float(length), args.threshold, pi_member=pi_member)
+
+    n_val, s_val = int(st.n), int(st.s)
+    pi_val, d_val = float(st.pi_site), float(st.d)
+    out = _out_stream(args.output)
+    try:
+        print(tables.TAJD_HEADER, file=out)
+        print(tables.tajd_row(rs, int(length), n_val, s_val, pi_val, d_val),
+              file=out)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    if args.log_dir:
+        _tajd_log(args, rs, length, n_val, s_val, pi_val, d_val,
+                  site_chunks=(s_total + chunk - 1) // chunk)
+    return 0
+
+
+def cmd_tajd(args) -> int:
+    """Segregating sites, grouped π and Tajima's D per window."""
+    import torch
+
+    from impop_tpu_torch.parallel.scan import batch_tajd_from_alleles
+
+    dev = _open_device(args.device)
+    regions = read_bed(args.bed)
+    if args.stream_npy:
+        return _tajd_streamed(args, regions, dev)
+    if not args.geno_dir and not args.gfa_dir:
+        raise SystemExit("error: provide --geno-dir or --gfa-dir")
+    geno_src = (GenoSource(args.geno_dir) if args.geno_dir
+                else GfaDirSource(args.gfa_dir))
+    sample_list = read_panel_file(args.samples) if args.samples else None
+
+    kept, tiles, region_strings = [], [], []
+    n_err = 0
+    for reg in regions:
+        rs = reg.region_string(args.prefix)
+        try:
+            tiles.append(geno_src.load(rs))
+        except WindowError as e:
+            _warn(f"Warning: {e}; skipping window")
+            n_err += 1
+            continue
+        kept.append(reg)
+        region_strings.append(rs)
+    _print_counters(len(kept), n_err)
+
+    out = _out_stream(args.output)
+    try:
+        print(tables.TAJD_HEADER, file=out)
+        if not kept:
+            return 0
+        cap_n = _capacity_for([t[0].shape[0] for t in tiles])
+        cap_s = max(8, max(t[0].shape[1] for t in tiles))
+        cap_s = ((cap_s + 127) // 128) * 128
+        w = len(tiles)
+        geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
+        member = np.zeros((w, cap_n), dtype=bool)
+        site_mask = np.zeros((w, cap_s), dtype=bool)
+        panels = np.zeros((w, 1, cap_n), dtype=bool)
+        lengths = np.zeros((w,), dtype=np.float32)
+        for wi, ((g, names, _keys), reg) in enumerate(zip(tiles, kept)):
+            order = np.argsort(names)
+            names = [names[i] for i in order]
+            n, s = g.shape
+            geno[wi, :n, :s] = g[order]
+            member[wi, :n] = True
+            site_mask[wi, :s] = True
+            lengths[wi] = args.length or reg.length
+            if sample_list is None:
+                panels[wi, 0, :n] = True
+            else:
+                matched, _ = expand_population(sample_list, names)
+                panels[wi, 0, :n] = [nm in matched for nm in names]
+        res = batch_tajd_from_alleles(
+            *(torch.from_numpy(a).to(dev)
+              for a in (geno, member, site_mask, panels, lengths)),
+            args.threshold)
+        n_h, s_h, pi_h, d_h = (t.cpu().numpy()
+                               for t in (res.n, res.s, res.pi, res.d))
+        for wi, rs in enumerate(region_strings):
+            n_val, s_val = int(n_h[wi, 0]), int(s_h[wi])
+            pi_val, d_val = float(pi_h[wi, 0]), float(d_h[wi, 0])
+            print(tables.tajd_row(rs, int(lengths[wi]), n_val, s_val,
+                                  pi_val, d_val), file=out)
+            if args.log_dir:
+                _tajd_log(args, rs, lengths[wi], n_val, s_val, pi_val,
+                          d_val)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="impop-tpu-torch",
@@ -631,6 +790,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-d", "--log-dir", default=None,
                    help="directory for per-window debug logs")
     p.set_defaults(func=cmd_scan)
+
+    p = sub.add_parser("tajd", help="segregating sites + pi + Tajima's D")
+    p.add_argument("-b", "--bed", required=True)
+    p.add_argument("-P", "--prefix", default="CHM13#0#")
+    p.add_argument("-t", "--threshold", type=float, default=0.999)
+    p.add_argument("-o", "--output")
+    p.add_argument("-r", "--round", type=int, default=None,
+                   help="accepted as by the JAX tajd, which does not round")
+    p.add_argument("-d", "--log-dir", default=None,
+                   help="directory for per-window debug logs")
+    p.add_argument("--geno-dir",
+                   help="directory of per-window allele tiles (.npz)")
+    p.add_argument("--gfa-dir",
+                   help="directory of per-window variation graphs (.gfa)")
+    p.add_argument("-l", "--length", type=int)
+    p.add_argument("-s", "--samples", help="sample list file")
+    p.add_argument("--stream-npy",
+                   help="one window of any length: memory-mapped [N, S] "
+                        "int8 .npy allele matrix streamed through the "
+                        "device in site chunks (the BED must have exactly "
+                        "one row)")
+    p.add_argument("--stream-names",
+                   help="sequence names for --stream-npy rows (one per "
+                        "line, required with -s)")
+    p.add_argument("--chunk-sites", type=int, default=4096,
+                   help="site-chunk width for --stream-npy (default 4096)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA), cuda:K or "
+                        "cpu (the plain PyTorch path)")
+    p.set_defaults(func=cmd_tajd)
     return ap
 
 

@@ -62,6 +62,10 @@ namespace {
 using impop::group_products;
 using impop::kGroup;
 using impop::kTileI;
+using impop::load_mask_row;
+using impop::pack_bits;
+using impop::pair_loop;
+using impop::peel_row;
 using impop::set_smem;
 using impop::warp_sum;
 using impop::warp_sumf;
@@ -91,61 +95,6 @@ struct WinParams {
   float* y;                // [W, rd + rp, N]
   float* out;              // [W, n_out]
 };
-
-// Greedy seed walk of one mask row by one warp (phase B).
-//   todo: this warp's [nw] words, on entry the mask's member bits.
-// For each seed i: wrow[i] = size / max(n_r, 1) (if wrow), seedrow[i] = 1
-// (if seedrow), seed_out[i] = 1 (if seed_out), and bit i of any_bits (if
-// any_bits).  Returns the number of seeds.
-__device__ int peel_row(const uint32_t* __restrict__ link, int nw,
-                        uint32_t* todo, int n_r, float* wrow, float* seedrow,
-                        uint8_t* seed_out, uint32_t* any_bits, int lane) {
-  const float denom = fmaxf(static_cast<float>(n_r), 1.0f);
-  int groups = 0;
-  for (int k = 0; k < nw; ++k) {
-    while (true) {
-      const uint32_t cand = todo[k];
-      __syncwarp();
-      if (cand == 0u) break;
-      const int b = __ffs(cand) - 1;
-      const int i = 32 * k + b;
-      int absorbed = 0;
-      // link row i holds bits j > i only: words before k are empty
-      for (int k2 = k + lane; k2 < nw; k2 += 32) {
-        uint32_t t = todo[k2];
-        if (k2 == k) t &= ~(1u << b);
-        const uint32_t lk = link[static_cast<size_t>(i) * nw + k2];
-        absorbed += __popc(lk & t);
-        todo[k2] = t & ~lk;
-      }
-      absorbed = warp_sum(absorbed);
-      if (lane == 0) {
-        if (wrow) wrow[i] = __fdiv_rn(static_cast<float>(absorbed + 1), denom);
-        if (seedrow) seedrow[i] = 1.0f;
-        if (seed_out) seed_out[i] = 1;
-        if (any_bits) atomicOr(&any_bits[k], 1u << b);
-      }
-      ++groups;
-      __syncwarp();
-    }
-  }
-  return groups;
-}
-
-// Loads mask row `row` (& member) into todo; returns its member count.
-__device__ int load_mask_row(const uint8_t* __restrict__ row,
-                             const uint8_t* __restrict__ mem, int nw,
-                             uint32_t* todo, int lane) {
-  int n_r = 0;
-  for (int k = 0; k < nw; ++k) {
-    const int i = 32 * k + lane;
-    const uint32_t word = __ballot_sync(0xffffffffu, row[i] && mem[i]);
-    if (lane == 0) todo[k] = word;
-    n_r += __popc(word);
-  }
-  __syncwarp();
-  return n_r;
-}
 
 __global__ void __launch_bounds__(kThreads)
 window_stats_kernel(WinParams p) {
@@ -203,20 +152,7 @@ window_stats_kernel(WinParams p) {
   __syncthreads();
 
   // ---- A0: bit-pack alt / valid words and the column bitmaps
-  for (int item = warp; item < N * SW; item += kWarps) {
-    const int i = item / SW, k = item % SW;
-    const int site = 32 * k + lane;
-    const int8_t g = geno[static_cast<size_t>(i) * S + site];
-    const bool valid = g >= 0 && smask[site] && mem[i];
-    const uint32_t av = __ballot_sync(0xffffffffu, valid && g > 0);
-    const uint32_t vv = __ballot_sync(0xffffffffu, valid);
-    if (lane == 0) {
-      abits[static_cast<size_t>(k) * N + i] = av;
-      vbits[static_cast<size_t>(k) * N + i] = vv;
-      atomicOr(&col_alt[k], av);
-      atomicOr(&col_ref[k], vv & ~av);
-    }
-  }
+  pack_bits(geno, smask, mem, N, S, abits, vbits, col_alt, col_ref, warp, kWarps, lane);
   __syncthreads();
   if (warp == 0) {
     int cnt = 0;
@@ -226,31 +162,16 @@ window_stats_kernel(WinParams p) {
   }
 
   // ---- A1: diff, present and link for every pair (i, j); lanes = 32 j's
-  for (int item = warp; item < N * NW; item += kWarps) {
-    const int i = item / NW, jw = item % NW;
-    const int j = 32 * jw + lane;
-    int both_n = 0, diff_n = 0;
-    for (int k = 0; k < SW; ++k) {
-      const size_t ko = static_cast<size_t>(k) * N;
-      const uint32_t both = vbits[ko + i] & vbits[ko + j];
-      both_n += __popc(both);
-      diff_n += __popc(both & (abits[ko + i] ^ abits[ko + j]));
-    }
-    const bool mi = mem[i] != 0, mj = mem[j] != 0;
-    const bool present = (i == j) ? mi : (both_n > 0 && mi && mj);
-    bool lk = false;
-    if (present && j > i) {
-      const float sim = __fsub_rn(1.0f, __fdiv_rn(static_cast<float>(diff_n), len));
-      lk = sim > p.thr;
-    }
-    diff[static_cast<size_t>(i) * N + j] = static_cast<uint16_t>(diff_n);
-    const uint32_t pw = __ballot_sync(0xffffffffu, present);
-    const uint32_t lw = __ballot_sync(0xffffffffu, lk);
-    if (lane == 0) {
-      pres[static_cast<size_t>(i) * NW + jw] = pw;
-      link[static_cast<size_t>(i) * NW + jw] = lw;
-    }
-  }
+  pair_loop(abits, vbits, mem, N, S, len, p.thr, warp, kWarps, lane,
+            [&](int i, int j, int jw, int diff_n, bool present, float, bool lk) {
+              diff[static_cast<size_t>(i) * N + j] = static_cast<uint16_t>(diff_n);
+              const uint32_t pw = __ballot_sync(0xffffffffu, present);
+              const uint32_t lw = __ballot_sync(0xffffffffu, lk);
+              if (lane == 0) {
+                pres[static_cast<size_t>(i) * NW + jw] = pw;
+                link[static_cast<size_t>(i) * NW + jw] = lw;
+              }
+            });
   __syncthreads();
 
   // ---- B: one warp per grouping row
@@ -259,7 +180,7 @@ window_stats_kernel(WinParams p) {
     const int n_r = load_mask_row(pm + static_cast<size_t>(r) * N, mem, NW, todo, lane);
     float* seedrow = r < p.pq ? x + static_cast<size_t>(p.rd + r) * N : nullptr;
     const int groups = peel_row(link, NW, todo, n_r, x + static_cast<size_t>(r) * N,
-                                seedrow, nullptr, seeds_any, lane);
+                                seedrow, nullptr, seeds_any, nullptr, lane);
     if (lane == 0) {
       out[p.r + r] = static_cast<float>(n_r);
       out[2 * p.r + r] = static_cast<float>(groups);
@@ -335,7 +256,7 @@ seed_peel_kernel(const float* __restrict__ sim, const uint8_t* __restrict__ pres
   for (int r = warp; r < p_count; r += kWarps) {
     const int n_r = load_mask_row(pm + static_cast<size_t>(r) * n, mem, NW, todo, lane);
     peel_row(link, NW, todo, n_r, nullptr, nullptr, sd + static_cast<size_t>(r) * n,
-             nullptr, lane);
+             nullptr, nullptr, lane);
   }
 }
 

@@ -2,7 +2,7 @@
 every panel and pair reduction and ``seed_risk`` for a batch of windows
 (port of ``impop_tpu.ops.windowstat.window_stats_pallas``).
 
-- :func:`window_stats_plain`: ``identity_from_alleles`` + the panel
+- :func:`window_stats_plain`: ``pairwise_identity_plain`` + the panel
   reduction of ``fused_panel_stats``, returning the raw row-dots.
 - :func:`window_stats`: the wrapper.  CPU tensors take the plain version;
   CUDA tensors launch ``window_stats_kernel`` of ``csrc/windowstat.cu``
@@ -19,8 +19,8 @@ import math
 
 import torch
 
-from impop_tpu_torch.stats.allele import (identity_from_alleles,
-                                          segregating_sites)
+from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
+from impop_tpu_torch.stats.allele import segregating_sites
 from impop_tpu_torch.stats.panelstats import gdxy_rows, panel_sums
 
 __all__ = ["window_stats", "window_stats_plain", "out_layout"]
@@ -87,7 +87,7 @@ def window_stats_plain(geno, member, site_mask, pmasks_stack, mask_a,
     q = mask_a.shape[-2]
     pq = r_count - (0 if pairs_disjoint else 2 * q)
     ia, ib = gdxy_rows(pair_a, pair_b, pq, pairs_disjoint)
-    sim, present = identity_from_alleles(geno, member, site_mask, length)
+    sim, present = pairwise_identity_plain(geno, member, site_mask, length)
     out = panel_sums(sim, present, member, pmasks_stack, mask_a, mask_b,
                      threshold, ia, ib, pq)
     out["s"] = segregating_sites(geno, member, site_mask).to(torch.float32)

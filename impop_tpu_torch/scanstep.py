@@ -112,9 +112,9 @@ def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
         res = fused_panel_stats(sim, present, member, panels, pair_a, pair_b,
                                 threshold, pairs_disjoint)
     else:
-        s_count, res = fused_window_stats(geno, member, smask, length,
-                                          panels, pair_a, pair_b, threshold,
-                                          pairs_disjoint)
+        _, _, s_count, res = fused_window_stats(
+            geno, member, smask, length, panels, pair_a, pair_b, threshold,
+            pairs_disjoint, return_matrices=False)
     pi_panel = res.pi[:, :p_count]
     pi_c = res.pi[:, p_count:]
     d = tajimas_d(res.n[:, :p_count], s_count[:, None],

@@ -84,42 +84,48 @@ def identity_epilogue(diff: torch.Tensor, compared: torch.Tensor,
 
 def identity_from_alleles(geno: torch.Tensor, member: torch.Tensor,
                           site_mask: torch.Tensor, length,
+                          num_alleles: int = 2,
                           site_weights: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Identity matrix ``1 - diff / max(length, 1)`` and its presence mask.
 
-    Unit weights: the z-Gram form, z = +1 alt / -1 ref / 0 invalid, v =
-    |z|, so ``diff = (v·vᵀ − z·zᵀ) / 2`` counts mutually valid sites that
-    differ; the operands are 0/±1 and the counts stay below 2^24, so the
-    float32 products are exact in any summation order.  ``site_weights``
-    [..., S] selects column-mode identity through
-    ``ops.pairdiff.pairwise_identity_weighted`` (the weighted identity
-    kernel on CUDA tensors).
+    - Unit weights, ``num_alleles == 2``: ``ops.pairdiff.pairwise_identity``
+      (the unit-weight identity kernel on CUDA tensors, every S), the
+      z-Gram ``diff = (v·vᵀ − z·zᵀ) / 2`` with z = 2·max(g, 0) − v.
+    - ``site_weights`` [..., S], ``num_alleles == 2``: column-mode identity
+      through ``ops.pairdiff.pairwise_identity_weighted``.
+    - ``num_alleles > 2``: :func:`pairwise_diff` in plain PyTorch (the JAX
+      package leaves this branch to XLA too).
 
     Args:
       geno: [..., N, S] int8; member: [..., N] bool; site_mask: [..., S]
         bool; length: scalar or [...] window length in bp.
     Returns: (sim [..., N, N] f32, present [..., N, N] bool).
     """
+    if num_alleles != 2:
+        diff, compared = pairwise_diff(geno, member, site_mask, num_alleles,
+                                       site_weights)
+        return identity_epilogue(diff, compared, member, length)
     if site_weights is not None:
         from impop_tpu_torch.ops.pairdiff import pairwise_identity_weighted
 
         return pairwise_identity_weighted(geno, member, site_mask, length,
                                           site_weights)
-    valid = _valid(geno, member, site_mask)
-    v = valid.to(torch.float32)
-    z = torch.where(valid, torch.where(geno > 0, 1.0, -1.0), 0.0)
-    vv = _gram(v, v)
-    return identity_epilogue((vv - _gram(z, z)) * 0.5, vv, member, length)
+    from impop_tpu_torch.ops.pairdiff import pairwise_identity
+
+    return pairwise_identity(geno, member, site_mask, length)
 
 
 def segregating_sites(geno: torch.Tensor, member: torch.Tensor,
                       site_mask: torch.Tensor) -> torch.Tensor:
-    """S = number of columns with a valid 0 and a valid 1 ([...] int32)."""
+    """S = number of columns whose largest valid code exceeds the smallest
+    (>= 2 distinct valid alleles), [...] int32."""
     valid = _valid(geno, member, site_mask)
-    any_alt = (valid & (geno > 0)).any(dim=-2)
-    any_ref = (valid & (geno == 0)).any(dim=-2)
-    return (any_alt & any_ref).sum(dim=-1, dtype=torch.int32)
+    g = geno.to(torch.int32)
+    big = torch.iinfo(torch.int32).max
+    col_min = torch.where(valid, g, big).amin(dim=-2)
+    col_max = torch.where(valid, g, -1).amax(dim=-2)
+    return (col_max > col_min).sum(dim=-1, dtype=torch.int32)
 
 
 def allele_frequency_spectrum(geno: torch.Tensor, member: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Greedy grouping (port of the scan's part of
-:mod:`impop_tpu.stats.grouping`).
+"""Greedy grouping (port of :mod:`impop_tpu.stats.grouping` without
+``label_components``).
 
 Greedy single-link, one hop (pica2 semantics with the deterministic sorted
 row order): rows are processed in ascending index; an unabsorbed row
@@ -19,25 +19,38 @@ import torch
 
 from impop_tpu_torch.ops.seedpeel import link_matrix, seed_peel
 
-__all__ = ["greedy_group_panels", "group_sizes", "first_pair_winner"]
+__all__ = ["greedy_group", "greedy_group_panels", "group_sizes",
+           "rep_weights", "first_pair_winner"]
 
 # bound on the [..., P, N, N] candidate mask of _gid_from_seeds per chunk
 _GID_CHUNK_ELEMS = 1 << 27
 
 
+def greedy_group(sim: torch.Tensor, present: torch.Tensor,
+                 member: torch.Tensor, threshold) -> torch.Tensor:
+    """Greedy groups of the members of one matrix: gid [..., N] int32, the
+    seed row of each member, N for padding rows (``greedy_group_panels``
+    with the member mask as the one panel)."""
+    return greedy_group_panels(sim, present, member, member[..., None, :],
+                               threshold)[..., 0, :]
+
+
 def greedy_group_panels(sim: torch.Tensor, present: torch.Tensor,
                         member: torch.Tensor, pmasks: torch.Tensor,
-                        threshold) -> torch.Tensor:
+                        threshold, peel=seed_peel) -> torch.Tensor:
     """Greedy groups for P masks sharing one window's matrix.
 
-    Args: sim/present [..., N, N], member [..., N], pmasks [..., P, N].
+    Args: sim/present [..., N, N], member [..., N], pmasks [..., P, N];
+    ``peel`` finds the seeds: the dispatching ``ops.seedpeel.seed_peel``
+    (the seed-peel kernel on CUDA tensors) by default, ``seed_peel_plain``
+    for a plain composition.
     Returns gid [..., P, N] int32: the seed row of each mask member, N for
     rows outside the mask.
     """
     n_cap = sim.shape[-1]
     elink = link_matrix(sim, present, member, threshold)
     pm = pmasks & member[..., None, :]
-    seed = seed_peel(sim, present, member, pmasks, threshold)
+    seed = peel(sim, present, member, pmasks, threshold)
     return _gid_from_seeds(seed, elink, pm, n_cap)
 
 
@@ -69,6 +82,17 @@ def group_sizes(gid: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
                          device=gid.device)
     counts.scatter_add_(-1, gid.to(torch.int64), member.to(torch.int32))
     return counts[..., :n_cap]
+
+
+def rep_weights(gid: torch.Tensor, member: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w [..., N] f32, n [...] f32): w[s] = |group(s)| / n at each seed row
+    s, 0 elsewhere, n the member count."""
+    sizes = group_sizes(gid, member)
+    n = member.sum(dim=-1, dtype=torch.float32)
+    w = torch.where(sizes > 0, sizes.to(torch.float32)
+                    / torch.clamp(n, min=1.0)[..., None], 0.0)
+    return w, n
 
 
 def first_pair_winner(present: torch.Tensor, member_row: torch.Tensor,

@@ -1,5 +1,5 @@
 """Fused per-window panel statistics (port of
-:mod:`impop_tpu.stats.panelstats`, ``return_matrices=False`` only).
+:mod:`impop_tpu.stats.panelstats`).
 
 One window's identity matrix serves every estimator of the scan: grouped π
 for each panel and each pair union, Hudson direct Fst for each pair, grouped
@@ -64,7 +64,8 @@ def gdxy_rows(pair_a, pair_b, pq: int, pairs_disjoint: bool):
 
 
 def panel_sums(sim, present, member, all_masks, mask_a, mask_b, threshold,
-               ia, ib, pq: int, pair_sums=masked_pair_sums_plain) -> dict:
+               ia, ib, pq: int, pair_sums=masked_pair_sums_plain,
+               gid=None) -> dict:
     """The raw row-dots of one window's panel statistics from sim/present —
     the dict ``window_stats`` returns (without ``s``):
 
@@ -74,11 +75,15 @@ def panel_sums(sim, present, member, all_masks, mask_a, mask_b, threshold,
     ``pair_sums`` computes the two masked reductions: the plain version by
     default (the window kernel's plain version must reach no kernel), the
     dispatching ``ops.panelquad.masked_pair_sums`` for the weighted scan.
+    ``gid`` [..., R, N], when given, is the grouping of ``all_masks``
+    already computed (``ops.idgroup.identity_group``); the grouping pass is
+    skipped.
     """
     f32 = torch.float32
     r_count = all_masks.shape[-2]
     q = mask_a.shape[-2]
-    gid = greedy_group_panels(sim, present, member, all_masks, threshold)
+    if gid is None:
+        gid = greedy_group_panels(sim, present, member, all_masks, threshold)
     pm = all_masks & member[..., None, :]
     n_all = pm.sum(dim=-1, dtype=f32)
     sizes = group_sizes(gid, pm)
@@ -154,35 +159,58 @@ def _assemble_from_kernel(out: dict, pq: int, q: int, pair_a, pair_b,
 
 
 def fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
-                      threshold, pairs_disjoint: bool = False) -> PanelStats:
+                      threshold, pairs_disjoint: bool = False,
+                      gid=None) -> PanelStats:
     """All panel/pair statistics of a window from its sim/present.
 
     Args: sim/present [..., N, N], member [..., N], pmasks [..., P, N];
     pair_a/pair_b host tuples of panel indices; pairs_disjoint a host
     promise that no haplotype is in both panels of any pair (the stripped
-    sides then reuse the panel groupings).  On CUDA tensors the masked
-    reductions run in the ``masked_pair_sums`` kernel.
+    sides then reuse the panel groupings); gid an optional [..., R, N]
+    grouping over ``panel_mask_stack``'s masks, which skips the grouping
+    pass.  On CUDA tensors the masked reductions run in the
+    ``masked_pair_sums`` kernel.
     """
     all_masks, mask_a, mask_b = panel_mask_stack(
         pmasks, member, pair_a, pair_b, pairs_disjoint)
     pq = pmasks.shape[-2] + len(pair_a)
     ia, ib = gdxy_rows(pair_a, pair_b, pq, pairs_disjoint)
     out = panel_sums(sim, present, member, all_masks, mask_a, mask_b,
-                     threshold, ia, ib, pq, pair_sums=masked_pair_sums)
+                     threshold, ia, ib, pq, pair_sums=masked_pair_sums,
+                     gid=gid)
     return _assemble_from_kernel(out, pq, len(pair_a), pair_a, pair_b,
                                  pairs_disjoint)
 
 
 def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
-                       pair_b, threshold, pairs_disjoint: bool = False
-                       ) -> tuple[torch.Tensor, PanelStats]:
-    """Allele tiles in, every panel statistic out: the whole-window kernel
-    on CUDA tensors, its plain version on CPU tensors.
+                       pair_b, threshold, pairs_disjoint: bool = False,
+                       return_matrices: bool = True) -> tuple:
+    """Allele tiles in, every panel statistic out.
 
-    Args: geno [..., N, S] int8, member [..., N], site_mask [..., S],
-    length [...], pmasks [..., P, N]; pairs as host tuples.
-    Returns (S as f32 [...], PanelStats).
+    - ``return_matrices=False`` (the scan): the whole-window kernel on CUDA
+      tensors, its plain version on CPU tensors; nothing of shape [N, N]
+      is returned.
+    - ``return_matrices=True`` (the JAX default): ``identity_group`` (the
+      fused identity + grouping kernel on CUDA tensors) writes sim,
+      present, the grouping and S, then :func:`fused_panel_stats` runs on
+      that grouping.
+
+    Args: geno [..., N, S] int8 (biallelic), member [..., N], site_mask
+    [..., S], length [...], pmasks [..., P, N]; pairs as host tuples.
+    Returns (sim [..., N, N] f32 or None, present [..., N, N] bool or None,
+    S as f32 [...], PanelStats).
     """
+    if return_matrices:
+        from impop_tpu_torch.ops.idgroup import identity_group
+
+        all_masks, _, _ = panel_mask_stack(pmasks, member, pair_a, pair_b,
+                                           pairs_disjoint)
+        sim, present, gid, s_count = identity_group(
+            geno, member, site_mask, all_masks, threshold, length)
+        res = fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
+                                threshold, pairs_disjoint, gid=gid)
+        return sim, present, s_count, res
+
     from impop_tpu_torch.ops.windowstat import window_stats
 
     all_masks, mask_a, mask_b = panel_mask_stack(
@@ -192,4 +220,4 @@ def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
                        threshold, length, pair_a, pair_b, pairs_disjoint)
     res = _assemble_from_kernel(out, pq, len(pair_a), pair_a, pair_b,
                                 pairs_disjoint)
-    return out["s"], res
+    return None, None, out["s"], res

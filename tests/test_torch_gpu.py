@@ -6,9 +6,10 @@ of JAX, so it also runs where JAX is absent:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Tolerances: integer outputs exact (S, n, num_groups, pairs_used2, cnt_*,
-seed_risk, seeds, EHH step sums and carriers); weighted sim / present
-exact (integer weights keep every sum exact in float32); quad, sum_*,
-gdxy and the masked panel sums rtol 1e-5 (float32 sums in another order).
+seed_risk, seeds, gid, EHH step sums and carriers); unit and weighted
+sim / present exact (integer counts, integer weights: every sum is exact
+in float32); quad, sum_*, gdxy and the masked panel sums rtol 1e-5
+(float32 sums in another order).
 """
 from __future__ import annotations
 
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 from impop_tpu_torch.ops.ehhdeath import ehh_area, ehh_area_plain
-from impop_tpu_torch.ops.pairdiff import (pairwise_identity_weighted,
+from impop_tpu_torch.ops.idgroup import identity_group, identity_group_plain
+from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
+                                          pairwise_identity_plain,
+                                          pairwise_identity_weighted,
                                           pairwise_identity_weighted_plain)
 from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
                                            masked_pair_sums_plain)
@@ -225,3 +229,50 @@ def test_masked_pair_sums_kernel_matches_plain(cuda_device, disjoint):
     want = masked_pair_sums_plain(*seen["args"])
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,s,max_code,length", [
+    (8, 512, 2048, 1, 200_000.0), (2, 1024, 256, 1, LEN),
+    (3, 100, 77, 3, LEN), (2, 64, 96, 1, 0.0)])
+def test_pairwise_identity_kernel_matches_plain(cuda_device, w, n, s,
+                                                max_code, length):
+    geno, member, smask, _ = batch(51, w, n, s, 2, True, False)
+    rng = np.random.default_rng(51)
+    if max_code > 1:
+        geno = np.where(geno > 0, rng.integers(1, max_code + 1,
+                                               size=geno.shape),
+                        geno).astype(np.int8)
+    member[:, 3] = True
+    geno[:, 3] = -1                  # a member with no valid call
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (geno, member, smask)]
+    lens = torch.full((w,), length, device=cuda_device)
+    before = pairwise_identity.launches
+    sim, pres = pairwise_identity(*args, lens)
+    torch.cuda.synchronize()
+    assert pairwise_identity.launches == before + 1
+    sim_p, pres_p = pairwise_identity_plain(*args, lens)
+    assert torch.equal(pres, pres_p)
+    assert torch.equal(sim, sim_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,s,p,disjoint", [(6, 512, 128, 5, True),
+                                              (4, 256, 128, 4, False)])
+def test_identity_group_kernel_matches_plain(cuda_device, w, n, s, p,
+                                             disjoint):
+    geno, member, smask, pmasks = batch(52, w, n, s, p, disjoint, False)
+    g, m, sm, pm = (torch.from_numpy(a).to(cuda_device)
+                    for a in (geno, member, smask, pmasks))
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    stack = panel_mask_stack(pm, m, tuple(a for a, _ in pairs),
+                             tuple(b for _, b in pairs), disjoint)[0]
+    lens = torch.full((w,), LEN, device=cuda_device)
+    before = identity_group.launches
+    got = identity_group(g, m, sm, stack, THR, lens)
+    torch.cuda.synchronize()
+    assert identity_group.launches == before + 1
+    want = identity_group_plain(g, m, sm, stack, THR, lens)
+    for name, a, b in zip(("sim", "present", "gid", "s"), got, want):
+        assert torch.equal(a, b), name
