@@ -44,8 +44,19 @@ Phases (one line each; any failure exits non-zero):
   8  ``fused_window_stats(return_matrices=True)`` against
      ``return_matrices=False`` at [512, 128] x 320 (S and integers exact,
      floats rtol 1e-5, Fst atol 2e-3)
+  9  the per-statistic commands on 200 consecutive 5 kb windows of the same
+     pangenome as .npz tiles, on the card (two device batches of 128 and
+     72 windows): ``pi -u agc.EUR``, ``hfst``, ``hud -m grouped`` and
+     ``fst3pi`` on EUR / AFR, and ``panels-tajd`` (5 panels) on a metadata
+     directory; on the first 20 windows ``pi -u agc.EUR -r 5`` and
+     ``panels-hfst`` (10 pairs); then 20 windows as similarity TSVs through
+     ``pi --sim-dir`` and ``hud -m direct --sim-dir``, and ``afs --input``
+     on one of them.  Each command runs again on the first 20 windows on
+     the CPU (integer columns exact, pi / Dxy rtol 1e-5, Fst / Da atol
+     2e-3, NA in the same places; afs files identical); then the device
+     steps alone, timed and profiled
 
-Each main path (3-4, 5, 6, 7, 8) starts with every kernel launch count at 0
+Each main path (3-4, 5, 6, 7, 8, 9) starts with every kernel launch count at 0
 and fails unless each kernel of that path was launched during it.
 
 Before the last line it prints the kernel table as one JSON object and the
@@ -763,48 +774,68 @@ def compare_tajd(path_a, path_b, tag):
     return rows_a
 
 
+def run_cli(argv, what) -> float:
+    """One ``impop_tpu_torch.cli`` command; its wall seconds."""
+    from impop_tpu_torch.cli import main as torch_main
+
+    t0 = time.perf_counter()
+    if torch_main(argv) != 0:
+        raise SmokeError(f"{what} failed")
+    return time.perf_counter() - t0
+
+
+def native_extractor(pg):
+    from impop_tpu_torch.hostio import open_extractor
+
+    ex = open_extractor(pg["paf"], pg["fasta"])
+    if type(ex).__name__ != "NativeExtractor":
+        raise SmokeError(f"extractor is {type(ex).__name__}, not the native "
+                         "one")
+    return ex
+
+
+def write_tiles(ex, spans, directory):
+    """Each (lo, hi) of chr1, extracted with the native extractor, as
+    ``<directory>/CHM13#0#chr1:lo-hi.npz``; returns the window matrices."""
+    import numpy as np
+
+    os.makedirs(directory, exist_ok=True)
+    out = []
+    for lo, hi in spans:
+        wm = ex.extract("CHM13#0#chr1", lo, hi)
+        np.savez(os.path.join(directory, f"CHM13#0#chr1:{lo}-{hi}.npz"),
+                 geno=wm.geno, names=np.asarray(wm.names),
+                 site_keys=np.asarray(wm.site_keys))
+        out.append(wm)
+    return out
+
+
+def write_bed(path, spans):
+    with open(path, "w") as fh:
+        fh.writelines(f"chr1\t{lo}\t{hi}\n" for lo, hi in spans)
+
+
 def phase_tajd(dev, tmp, pg, step):
     """``tajd`` on allele tiles of the simulated pangenome: ten 200 kb
     windows batched (S >= 2048 per window), then the whole 2 Mb as one
     window, batched and streamed.  ``step`` receives the padded batch of
     the ten windows for :func:`time_tajd_step`."""
     import numpy as np
-    import torch
 
-    from impop_tpu_torch.cli import main as torch_main
-    from impop_tpu_torch.hostio import _capacity_for, open_extractor
-
-    def run(argv, what):
-        t0 = time.perf_counter()
-        if torch_main(argv) != 0:
-            raise SmokeError(f"{what} failed")
-        return time.perf_counter() - t0
+    from impop_tpu_torch.hostio import _capacity_for
 
     t0 = time.perf_counter()
-    ex = open_extractor(pg["paf"], pg["fasta"])
-    if type(ex).__name__ != "NativeExtractor":
-        raise SmokeError(f"tajd: extractor is {type(ex).__name__}, not the "
-                         "native one")
+    ex = native_extractor(pg)
     tiles, whole = os.path.join(tmp, "tajd200k"), os.path.join(tmp, "tajd2m")
-    os.makedirs(tiles)
-    os.makedirs(whole)
     win = 200_000
     spans = [(lo, lo + win) for lo in range(0, SCAN_BP, win)]
     bed, bed1 = os.path.join(tmp, "t200k.bed"), os.path.join(tmp, "t2m.bed")
-    with open(bed, "w") as fh:
-        fh.writelines(f"chr1\t{lo}\t{hi}\n" for lo, hi in spans)
-    with open(bed1, "w") as fh:
-        fh.write(f"chr1\t0\t{SCAN_BP}\n")
-    sites = []
-    for (lo, hi), d in [(sp, tiles) for sp in spans] + [((0, SCAN_BP),
-                                                          whole)]:
-        wm = ex.extract("CHM13#0#chr1", lo, hi)
-        np.savez(os.path.join(d, f"CHM13#0#chr1:{lo}-{hi}.npz"),
-                 geno=wm.geno, names=np.asarray(wm.names),
-                 site_keys=np.asarray(wm.site_keys))
-        sites.append(wm.geno.shape[1])
-        if d == whole:
-            big, big_names = wm.geno, wm.names
+    write_bed(bed, spans)
+    write_bed(bed1, [(0, SCAN_BP)])
+    wms = write_tiles(ex, spans, tiles) + write_tiles(ex, [(0, SCAN_BP)],
+                                                      whole)
+    sites = [wm.geno.shape[1] for wm in wms]
+    big, big_names = wms[-1].geno, wms[-1].names
     t_extract = time.perf_counter() - t0
     if min(sites[:-1]) < 2048:
         raise SmokeError(f"tajd: a 200 kb window has {min(sites[:-1])} "
@@ -818,17 +849,18 @@ def phase_tajd(dev, tmp, pg, step):
         return os.path.join(tmp, f"tajd.{name}.tsv")
 
     base = ["tajd", "-b", bed, "-P", "CHM13#0#", "--geno-dir", tiles]
-    wall_g = run(base + ["-o", out("gpu"), "--device", dev.type],
+    wall_g = run_cli(base + ["-o", out("gpu"), "--device", dev.type],
                  "tajd on the card")
-    wall_c = run(base + ["-o", out("cpu"), "--device", "cpu"], "tajd --cpu")
+    wall_c = run_cli(base + ["-o", out("cpu"), "--device", "cpu"],
+                     "tajd --cpu")
     rows = compare_tajd(out("gpu"), out("cpu"), "7 gpu-vs-cpu")
     for r in rows:
         if not np.isfinite(float(r[4])) or r[5] == "NA" or int(r[3]) < 2048:
             raise SmokeError(f"7: implausible row {r}")
     afr = pg["panels"][0]
-    run(base + ["-s", afr, "-o", out("gpu_s"), "--device", dev.type],
+    run_cli(base + ["-s", afr, "-o", out("gpu_s"), "--device", dev.type],
         "tajd -s on the card")
-    run(base + ["-s", afr, "-o", out("cpu_s"), "--device", "cpu"],
+    run_cli(base + ["-s", afr, "-o", out("cpu_s"), "--device", "cpu"],
         "tajd -s --cpu")
     rows_s = compare_tajd(out("gpu_s"), out("cpu_s"), "7 -s gpu-vs-cpu")
     n_afr = {int(r[2]) for r in rows_s}
@@ -861,9 +893,9 @@ def phase_tajd(dev, tmp, pg, step):
     with open(names, "w") as fh:
         fh.write("\n".join(big_names) + "\n")
     base1 = ["tajd", "-b", bed1, "-P", "CHM13#0#"]
-    wall_b = run(base1 + ["--geno-dir", whole, "-o", out("whole_b"),
+    wall_b = run_cli(base1 + ["--geno-dir", whole, "-o", out("whole_b"),
                           "--device", dev.type], "tajd whole, batched")
-    wall_s = run(base1 + ["--stream-npy", npy, "--stream-names", names,
+    wall_s = run_cli(base1 + ["--stream-npy", npy, "--stream-names", names,
                           "--chunk-sites", "4096", "-o", out("whole_s"),
                           "--device", dev.type], "tajd whole, streamed")
     with open(out("whole_b")) as fb, open(out("whole_s")) as fs:
@@ -890,13 +922,16 @@ def time_tajd_step(dev, step):
     id_ms = cuda_time_ms(lambda: pairwise_identity(*args[:3], args[4]), 5)
     say("7", f"tajd device step [{cap_n},{cap_s}]x{w}: {step_ms:.4f} ms, "
         f"of which pairwise_identity {id_ms:.4f} ms")
-    say("7", "tajd device step by op (torch.profiler, device time of one "
-        "step): " + profile_ops(
-            lambda: batch_tajd_from_alleles(*args, THRESHOLD)))
+    say("7", "tajd device step by kernel (torch.profiler, one step): "
+        + profile_ops(
+            lambda: batch_tajd_from_alleles(*args, THRESHOLD), step_ms))
 
 
-def profile_ops(fn, top: int = 8) -> str:
-    """The largest device-time ops of one call of fn (after a warm-up)."""
+def profile_ops(fn, step_ms: float, top: int = 8) -> str:
+    """Device time of one call of fn (after a warm-up) by kernel: only the
+    events the profiler traced on the card count (an operator's row
+    repeats the time of the kernels it launched), and their sum against
+    ``step_ms`` gives the card's idle share of the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -908,6 +943,8 @@ def profile_ops(fn, top: int = 8) -> str:
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -916,9 +953,12 @@ def profile_ops(fn, top: int = 8) -> str:
     if not rows:
         return "no device time recorded"
     rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    return f"{total / 1e3:.4f} ms in all; " + ", ".join(
-        f"{key[:60]} {us / 1e3:.4f} ms x{n}" for us, key, n in rows[:top])
+    busy = sum(r[0] for r in rows) / 1e3
+    idle = 100.0 * (1.0 - busy / step_ms)
+    return (f"kernels and copies {busy:.4f} ms, {idle:.1f}% idle of "
+            f"{step_ms:.4f} ms; " + ", ".join(
+                f"{key[:60]} {us / 1e3:.4f} ms x{n}"
+                for us, key, n in rows[:top]))
 
 
 def phase_matrices(dev):
@@ -974,6 +1014,195 @@ def phase_matrices(dev):
         f"{BATCH}: sim [{CAP_N},{CAP_N}] per window; S and integer fields "
         f"exact, floats within rtol {RTOL} (Fst atol 2e-3) of "
         f"return_matrices=False (max abs {worst:.3e})")
+
+
+# ------------------------------------------------------------------ phase 9
+
+STAT_FLOATS = ("PI", "PI_A", "PI_B", "PI_C", "PI_XY", "PI_AB_AVG", "DXY",
+               "PICA_OUTPUT", "TAJIMAS_D")
+STAT_WINDOWS = 200
+
+
+def compare_stat_tables(path_a, path_b, tag, rows=20):
+    """A per-statistic table on the card (its first ``rows`` rows) against
+    the CPU's: integer and text columns exact; π, PI_*, DXY, PICA_OUTPUT
+    and TAJIMAS_D rtol 1e-5; FST and DA atol 2e-3; NA at the same places.
+    Returns the card's rows."""
+    import numpy as np
+
+    header, rows_a = read_table(path_a)
+    header_b, rows_b = read_table(path_b)
+    if header != header_b or len(rows_a[:rows]) != len(rows_b) or not rows_b:
+        raise SmokeError(f"{tag}: tables differ in shape")
+    for ra, rb in zip(rows_a[:rows], rows_b):
+        for col, va, vb in zip(header, ra, rb):
+            if (va == "NA") != (vb == "NA"):
+                raise SmokeError(f"{tag}: NA mismatch in {col} at {ra[0]}")
+            if va == "NA":
+                continue
+            if col == "PICA_OUTPUT":
+                (va, sa), (vb, sb) = va.split(" ", 1), vb.split(" ", 1)
+                if sa != sb:
+                    raise SmokeError(f"{tag}: {col} at {ra[0]}: {sa} vs {sb}")
+            if col in ("FST", "DA"):
+                ok = abs(float(va) - float(vb)) <= 2e-3
+            elif col in STAT_FLOATS:
+                ok = bool(np.isclose(float(va), float(vb), rtol=1e-5,
+                                     atol=1e-8))
+            else:
+                ok = va == vb
+            if not ok:
+                raise SmokeError(f"{tag}: {col} at {ra[0]}: {va} vs {vb}")
+    return rows_a
+
+
+def phase_stats(dev, tmp, pg, step):
+    """The per-statistic commands on 200 consecutive 5 kb windows of the
+    simulated pangenome as allele tiles, on the card; each again on the
+    first 20 windows on the CPU.  ``step`` receives the card's EUR / AFR
+    batch of the 200 windows for :func:`time_stats_step`."""
+    import numpy as np
+
+    from impop_tpu_torch.cli import GenoSimSource
+    from impop_tpu_torch.hostio import (_capacity_for, read_panel_file,
+                                        write_similarity_tsv)
+    from impop_tpu_torch.runtime.batcher import PanelSet, build_window_batch
+
+    t0 = time.perf_counter()
+    spans = [(lo, lo + WIN_BP)
+             for lo in range(0, STAT_WINDOWS * WIN_BP, WIN_BP)]
+    tiles = os.path.join(tmp, "stat_tiles")
+    wms = write_tiles(native_extractor(pg), spans, tiles)
+    bed, bed20 = os.path.join(tmp, "s200.bed"), pg["bed20"]
+    write_bed(bed, spans)
+    meta = os.path.join(tmp, "metadata")
+    os.makedirs(meta)
+    for path in pg["panels"]:
+        shutil.copy(path, meta)
+    sites = [wm.geno.shape[1] for wm in wms]
+    say("9", f"extracted {STAT_WINDOWS} windows of {WIN_BP} bp "
+        f"({min(sites)}-{max(sites)} sites, mean {np.mean(sites):.1f}, x "
+        f"{wms[0].geno.shape[0]} rows) in {time.perf_counter() - t0:.2f} s")
+
+    def panel(name):
+        return os.path.join(meta, f"agc.{name}")
+
+    pair = ["-A", panel("EUR"), "-B", panel("AFR")]
+    tile_src = ["--geno-dir", tiles]
+
+    def check(tag, argv, on_card_bed=bed, outputs=None):
+        """argv over ``on_card_bed`` on the card and over the first 20
+        windows on the CPU; tables compared, walls reported.  ``outputs``:
+        the tables a panels command writes into its working directory."""
+        walls, tables = {}, {}
+        for where, dev_name, bed_path in (("gpu", dev.type, on_card_bed),
+                                          ("cpu", "cpu", bed20)):
+            out = os.path.join(tmp, f"stat.{tag}.{where}")
+            args = [argv[0], "-b", bed_path] + argv[1:] + [
+                "--device", dev_name]
+            if outputs is None:
+                tables[where] = [out + ".tsv"]
+                walls[where] = run_cli(args + ["-o", out + ".tsv"], tag)
+                continue
+            tables[where] = [os.path.join(out, name) for name in outputs]
+            os.makedirs(out)
+            cwd = os.getcwd()
+            os.chdir(out)
+            try:
+                walls[where] = run_cli(args, tag)
+            finally:
+                os.chdir(cwd)
+        for a, b in zip(tables["gpu"], tables["cpu"]):
+            rows = compare_stat_tables(a, b, f"9 {tag} "
+                                       f"{os.path.basename(a)}")
+        say("9", f"{tag}: {len(rows)} windows x {len(tables['gpu'])} "
+            f"table(s) on {dev} in {walls['gpu']:.2f} s wall; the first 20 "
+            f"on the CPU {walls['cpu']:.2f} s; tables agree (integers "
+            "exact, pi/Dxy rtol 1e-5, Fst/Da atol 2e-3, NA in the same "
+            "places)")
+        return rows
+
+    rows = check("pi", ["pi", *tile_src, "-u", panel("EUR")])
+    pis = [float(r[-1].split()[0]) for r in rows]
+    if len(rows) != STAT_WINDOWS or not all(np.isfinite(pis)) \
+            or max(pis) <= 0:
+        raise SmokeError(f"9 pi: implausible table ({len(rows)} rows)")
+    # -r rounds on the host and launches nothing: 20 windows are enough
+    check("pi -r 5", ["pi", *tile_src, "-u", panel("EUR"), "-r", "5"],
+          on_card_bed=bed20)
+    check("hfst", ["hfst", *tile_src, *pair])
+    check("hud grouped", ["hud", *tile_src, "-m", "grouped", *pair])
+    rows = check("fst3pi", ["fst3pi", *tile_src, *pair])
+    if all(r[-1] == "NA" for r in rows):
+        raise SmokeError("9 fst3pi: every FST is NA")
+    pairs = [f"{a.lower()}.{b.lower()}.fst" for a, b in (
+        ("EUR", "AFR"), ("EAS", "AFR"), ("SAS", "AFR"), ("AMR", "AFR"),
+        ("EAS", "EUR"), ("SAS", "EUR"), ("AMR", "EUR"), ("EAS", "SAS"),
+        ("AMR", "SAS"), ("AMR", "EAS"))]
+    # ten hfst runs, each reloading its windows: 20 of them on the card
+    check("panels-hfst", ["panels-hfst", *tile_src, "--metadata-dir", meta],
+          on_card_bed=bed20, outputs=pairs)
+    check("panels-tajd", ["panels-tajd", *tile_src, "--metadata-dir", meta],
+          outputs=["eur.tj", "afr.tj", "eas.tj", "sas.tj", "amr.tj"])
+
+    # the --sim-dir path: 20 windows as similarity TSVs
+    t0 = time.perf_counter()
+    simdir = os.path.join(tmp, "stat_sims")
+    os.makedirs(simdir)
+    src = GenoSimSource(None, geno_dir=tiles, device="cpu")
+    for lo, hi in spans[:20]:
+        region = f"CHM13#0#chr1:{lo}-{hi}"
+        write_similarity_tsv(src.load(region),
+                             os.path.join(simdir, f"{region}.sim"))
+    say("9", f"wrote 20 similarity TSVs in {time.perf_counter() - t0:.2f} s")
+    check("pi --sim-dir", ["pi", "--sim-dir", simdir], on_card_bed=bed20)
+    check("hud direct --sim-dir", ["hud", "--sim-dir", simdir, "-m",
+                                   "direct", *pair], on_card_bed=bed20)
+    one = os.path.join(simdir, "CHM13#0#chr1:0-5000.sim")
+    walls = {}
+    for where, dev_name in (("gpu", dev.type), ("cpu", "cpu")):
+        walls[where] = run_cli(
+            ["afs", "--input", one, "--output",
+             os.path.join(tmp, f"afs.{where}.tsv"), "--details",
+             os.path.join(tmp, f"afs.{where}.details"), "--device",
+             dev_name], f"afs on {dev_name}")
+    for ext in ("tsv", "details"):
+        same_file(os.path.join(tmp, f"afs.gpu.{ext}"),
+                  os.path.join(tmp, f"afs.cpu.{ext}"),
+                  f"9 afs: the {ext} files differ")
+    _, clusters = read_table(os.path.join(tmp, "afs.gpu.tsv"))
+    say("9", f"afs --input (one window): {len(clusters)} allele classes on "
+        f"{dev} in {walls['gpu']:.2f} s, on the CPU {walls['cpu']:.2f} s; "
+        "table and details identical")
+
+    mats = [GenoSimSource(None, geno_dir=tiles, device=dev).load(
+        f"CHM13#0#chr1:{lo}-{hi}") for lo, hi in spans]
+    panels = PanelSet.from_dict({"A": read_panel_file(panel("EUR")),
+                                 "B": read_panel_file(panel("AFR"))})
+    step["stats"] = build_window_batch(
+        mats, panels, _capacity_for([m.n for m in mats]), device=dev)[0]
+
+
+def time_stats_step(dev, step):
+    """The per-statistic device steps alone on the 200-window EUR / AFR
+    batch of phase 9 (CUDA events and torch.profiler, outside the counted
+    path)."""
+    from impop_tpu_torch.parallel.scan import batch_hudson, batch_pi_panels
+
+    b = step["stats"]
+    w, n = b.sim.shape[0], b.sim.shape[-1]
+    steps = {
+        "batch_pi_panels": lambda: batch_pi_panels(*b, THRESHOLD),
+        "batch_hudson direct": lambda: batch_hudson(
+            *b, (0,), (1,), THRESHOLD, with_grouped=False),
+        "batch_hudson grouped": lambda: batch_hudson(*b, (0,), (1,),
+                                                     THRESHOLD),
+    }
+    for name, fn in steps.items():
+        ms = cuda_time_ms(fn, 5)
+        say("9", f"{name} [{n},{n}]x{w}, panels EUR / AFR: {ms:.4f} ms "
+            f"(CUDA events, median of 5); by kernel (torch.profiler): "
+            + profile_ops(fn, ms))
 
 
 # ------------------------------------------------------------------ driver
@@ -1067,6 +1296,8 @@ def main() -> int:
              ("pairwise_identity", "seed_peel")),
             ("8", lambda: phase_matrices(dev),
              ("identity_group", "masked_pair_sums")),
+            ("9", lambda: phase_stats(dev, tmp, pg, step),
+             ("seed_peel", "masked_pair_sums")),
         ]
         for tag, run, needed in paths:
             for fn in kernels.values():
@@ -1081,6 +1312,7 @@ def main() -> int:
                 report[name]["launches"] += count
             say(tag, f"kernel launches during the path: {counts}")
         time_tajd_step(dev, step)
+        time_stats_step(dev, step)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,27 +1,38 @@
-"""Command-line entry point of the port: the fused ``scan`` and ``tajd``.
+"""Command-line entry point of the port.
 
     python -m impop_tpu_torch.cli scan -b windows.bed --paf aln.paf \\
         --fasta haps.fa --panel agc.AFR --panel agc.EUR ... --device cuda
     python -m impop_tpu_torch.cli tajd -b windows.bed --geno-dir tiles/ \\
         [-s samples.txt] [-l LEN] --device cuda
+    python -m impop_tpu_torch.cli pi -b windows.bed --sim-dir sims/ \\
+        [-u agc.EUR] [-r 5] --device cuda
 
-Same flags, table, journal and spectrum file as ``python -m impop_tpu.cli
-scan``, plus ``--device {cuda,cpu}``.  Per batch of windows the host
-extracts allele tiles, packs them into the shared 2-bit wire buffer, and
-one device step computes π and Tajima's D per panel and Hudson direct /
-grouped / 3-π Fst per pair (``scanstep.scan_step``), with ``--ehh`` the
-EHH decay areas at a focal variant, with ``--afs`` the per-panel allele
-frequency spectra, and with ``--identity-mode columns`` column-weighted
-identity; windows flagged ``seed_risk`` re-run their grouped Fst exactly.
+Every subcommand takes the flags of the same subcommand of
+``python -m impop_tpu.cli``, plus ``--device {cuda,cpu}``, and writes the
+same table, window logs and counters.
 
-``tajd`` takes the JAX ``tajd`` flags and writes the same table and window
-logs: S, pica2-grouped π per site and Tajima's D per window, from allele
+``scan``: per batch of windows the host extracts allele tiles, packs them
+into the shared 2-bit wire buffer, and one device step computes π and
+Tajima's D per panel and Hudson direct / grouped / 3-π Fst per pair
+(``scanstep.scan_step``), with ``--ehh`` the EHH decay areas at a focal
+variant, with ``--afs`` the per-panel allele frequency spectra, and with
+``--identity-mode columns`` column-weighted identity; windows flagged
+``seed_risk`` re-run their grouped Fst exactly.
+
+``tajd``: S, pica2-grouped π per site and Tajima's D per window, from allele
 tiles (``--geno-dir`` / ``--gfa-dir``, all windows padded into one batch)
 or from one memory-mapped ``[N, S]`` matrix streamed through the device in
 site chunks (``--stream-npy``).
 
-Not ported yet (they raise): ``--distributed`` and more than one local GPU
-(ROADMAP.md Queue 1 item 11).
+The per-statistic commands ``pi``, ``hfst``, ``hud -m direct|grouped``,
+``fst3pi``, ``panels-hfst`` and ``panels-tajd`` read one similarity matrix
+per window (``--sim-dir`` TSVs, allele tiles through ``GenoSimSource``, or
+``impg`` with ``--use-impg``) and compute the windows of the BED in device
+batches of ``_WINDOW_CHUNK_ELEMS`` sim elements (128 windows at N = 512);
+``afs`` clusters one similarity TSV into allele classes.
+
+Not ported yet (they raise): ``scan --distributed``, ``--pair-shard on``
+and more than one local GPU (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -29,24 +40,31 @@ import argparse
 import collections
 import concurrent.futures as futures
 import functools
+import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from impop_tpu_torch.hostio import (GenoSource, GfaDirSource, WindowError,
-                                    _capacity_for, _out_stream, _panel_label,
-                                    _print_counters,
-                                    _resolve_fasta, _scan_buf_layout,
-                                    _write_window_log, expand_population,
-                                    open_extractor, pack_scan_batch,
-                                    read_bed, read_panel_file,
-                                    site_weights_from_keys,
+from impop_tpu_torch.hostio import (DirSimSource, GenoSource, GfaDirSource,
+                                    ImpgSimSource, SimilarityMatrix,
+                                    SimSource, WindowError, _add_common,
+                                    _add_sim_args, _capacity_for,
+                                    _load_windows, _open_extractor,
+                                    _out_stream, _panel_label,
+                                    _print_counters, _resolve_fasta,
+                                    _scan_buf_layout, _write_window_log,
+                                    expand_population, open_extractor,
+                                    pack_scan_batch, parse_region, read_bed,
+                                    read_panel_file, read_similarity_tsv,
+                                    round_half_even, site_weights_from_keys,
                                     split_multiallelic, tables)
 from impop_tpu_torch.runtime.journal import ResultJournal
 from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
 
-__all__ = ["build_parser", "cmd_scan", "cmd_tajd", "main"]
+__all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
+           "cmd_hud", "cmd_fst3pi", "cmd_afs", "cmd_panels_hfst",
+           "cmd_panels_tajd", "GenoSimSource", "main"]
 
 
 def _warn(msg: str) -> None:
@@ -664,13 +682,16 @@ def cmd_tajd(args) -> int:
 
     dev = _open_device(args.device)
     regions = read_bed(args.bed)
-    if args.stream_npy:
+    # panels-tajd passes a namespace without the streaming flags
+    if getattr(args, "stream_npy", None):
         return _tajd_streamed(args, regions, dev)
-    if not args.geno_dir and not args.gfa_dir:
+    gfa_dir = getattr(args, "gfa_dir", None)
+    if not args.geno_dir and not gfa_dir:
         raise SystemExit("error: provide --geno-dir or --gfa-dir")
     geno_src = (GenoSource(args.geno_dir) if args.geno_dir
-                else GfaDirSource(args.gfa_dir))
-    sample_list = read_panel_file(args.samples) if args.samples else None
+                else GfaDirSource(gfa_dir))
+    samples = getattr(args, "samples", None)
+    sample_list = read_panel_file(samples) if samples else None
 
     kept, tiles, region_strings = [], [], []
     n_err = 0
@@ -733,10 +754,429 @@ def cmd_tajd(args) -> int:
     return 0
 
 
+# ------------------------------------------------------------ sim sources
+
+
+class GenoSimSource(SimSource):
+    """Identity matrices from allele tiles (``.npz`` windows, ``.gfa``
+    graphs or native PAF + FASTA extraction), with the arguments of
+    ``impop_tpu.cli.GenoSimSource`` plus ``device``.
+
+    The integer difference and comparison counts are computed on
+    ``device`` by ``stats.allele.pairwise_diff`` (fp32 ``torch.matmul``
+    with TF32 off, as the JAX package leaves these counts to XLA); the
+    host divides ``1 − diff / length`` in float64 and
+    rounds half to even (``-r``), exactly as the JAX package does, so
+    rounded similarities match digit for digit.  ``identity_mode``
+    "columns" weighs an indel of k bases as k differences.
+    """
+
+    def __init__(self, round_digits: Optional[int],
+                 geno_dir: Optional[str] = None,
+                 paf: Optional[str] = None, fasta: Optional[str] = None,
+                 use_native: bool = True, gfa_dir: Optional[str] = None,
+                 identity_mode: str = "events", device="cpu"):
+        import torch
+
+        self.round_digits = round_digits
+        self.identity_mode = identity_mode
+        self.device = torch.device(device)
+        self.geno_src = (GenoSource(geno_dir) if geno_dir
+                         else GfaDirSource(gfa_dir) if gfa_dir else None)
+        self.extractor = None
+        if paf and fasta:
+            self.extractor = (open_extractor(paf, fasta) if use_native
+                              else _open_extractor(paf, fasta, False))
+
+    def load(self, region: str) -> SimilarityMatrix:
+        import torch
+
+        from impop_tpu_torch.stats.allele import pairwise_diff
+
+        reg = parse_region(region)
+        if self.geno_src is not None:
+            geno, names, site_keys = self.geno_src.load(region)
+        elif self.extractor is not None:
+            wm = self.extractor.extract(reg.chrom, reg.start, reg.end)
+            geno, names, site_keys = wm.geno, wm.names, wm.site_keys
+        else:
+            raise WindowError(f"no allele source for region {region}")
+        order = np.argsort(names)
+        geno = np.asarray(geno, dtype=np.int8)[order]
+        names = [names[i] for i in order]
+        n, s = geno.shape
+        length = max(reg.length, 1)
+
+        weights = None
+        if self.identity_mode == "columns":
+            if site_keys is None:
+                _warn(f"Warning: no site keys for {region}; "
+                      "columns identity falls back to events")
+            else:
+                weights = site_weights_from_keys(site_keys)
+
+        cap_n = _capacity_for([n])
+        cap_s = max(8, ((s + 127) // 128) * 128)
+        g = np.full((cap_n, cap_s), -1, dtype=np.int8)
+        g[:n, :s] = geno
+        member = np.zeros(cap_n, bool)
+        member[:n] = True
+        smask = np.zeros(cap_s, bool)
+        smask[:s] = True
+        w = None
+        if weights is not None:
+            w = np.zeros(cap_s, np.float32)
+            w[:s] = weights
+        num_alleles = int(geno.max(initial=1)) + 1
+        dev = self.device
+        diff_d, compared_d = pairwise_diff(
+            *(torch.from_numpy(a).to(dev) for a in (g, member, smask)),
+            num_alleles, None if w is None else torch.from_numpy(w).to(dev))
+        diff = diff_d.cpu().numpy().astype(np.float64)[:n, :n]
+        compared = compared_d.cpu().numpy().astype(np.float64)[:n, :n]
+        sim = 1.0 - diff / length
+        present = compared > 0
+        np.fill_diagonal(present, True)
+        sim = np.where(present, sim, 0.0)
+        np.fill_diagonal(sim, 1.0)
+        if self.round_digits is not None:
+            sim = round_half_even(sim, self.round_digits)
+        return SimilarityMatrix(names=names, sim=sim, present=present,
+                                pair_count=n * (n - 1) // 2)
+
+
+def _make_sim_source(args, dev) -> SimSource:
+    mode = getattr(args, "identity_mode", "events")
+    if getattr(args, "sim_dir", None):
+        return DirSimSource(args.sim_dir, args.round)
+    if getattr(args, "geno_dir", None):
+        return GenoSimSource(args.round, geno_dir=args.geno_dir,
+                             identity_mode=mode, device=dev)
+    if getattr(args, "gfa_dir", None):
+        return GenoSimSource(args.round, gfa_dir=args.gfa_dir,
+                             identity_mode=mode, device=dev)
+    if getattr(args, "paf", None):
+        if getattr(args, "agc", None) and getattr(args, "use_impg", False):
+            return ImpgSimSource(args.paf, args.agc, args.round,
+                                 getattr(args, "subset", None))
+        fasta = _resolve_fasta(args)
+        if fasta:
+            return GenoSimSource(args.round, paf=args.paf, fasta=fasta,
+                                 identity_mode=mode, device=dev)
+    raise SystemExit(
+        "error: provide --sim-dir (per-window TSVs), --geno-dir (allele "
+        "tiles), --paf + --fasta / --paf + --agc (native extraction), or "
+        "--paf + --agc --use-impg (external impg compat)")
+
+
+# ------------------------------------------------------------ batches
+
+# sim elements per device batch of the per-statistic commands: bounds the
+# [w, N, N] sim / present tiles and the grouping temporaries of a batch
+_WINDOW_CHUNK_ELEMS = 1 << 25
+
+
+def _batched(mats, panels, dev, run, exact=False) -> List[np.ndarray]:
+    """``run(batch)`` over the windows in device batches of at most
+    ``_WINDOW_CHUNK_ELEMS`` sim elements, all padded to the capacity of the
+    largest window; each output's column 0 for every window, on the host."""
+    from impop_tpu_torch.runtime.batcher import build_window_batch
+
+    cap = _capacity_for([m.n for m in mats])
+    step = max(1, _WINDOW_CHUNK_ELEMS // (cap * cap))
+    parts = []
+    for lo in range(0, len(mats), step):
+        batch, _ = build_window_batch(mats[lo:lo + step], panels,
+                                      capacity=cap, exact_names=exact,
+                                      device=dev)
+        parts.append([t[:, 0].cpu().numpy() for t in run(batch)])
+    return [np.concatenate(f) for f in zip(*parts)]
+
+
+# ------------------------------------------------------------ pi
+
+
+def cmd_pi(args) -> int:
+    """run_pica2_impg.sh: pica2 π per window, optionally of one panel."""
+    from impop_tpu_torch.parallel.scan import batch_pi_panels
+    from impop_tpu_torch.runtime.batcher import PanelSet
+
+    dev = _open_device(args.device)
+    regions = read_bed(args.bed)
+    src = _make_sim_source(args, dev)
+    kept, mats, region_strings = _load_windows(regions, src, args.prefix)
+    if not kept:
+        _warn("Warning: no windows could be processed")
+
+    subset_label = os.path.basename(args.subset) if args.subset else None
+    panels = (PanelSet.from_dict({"S": tuple(read_panel_file(args.subset))})
+              if args.subset else None)
+
+    out = _out_stream(args.output)
+    try:
+        print(tables.pi_table_header(subset_label is not None), file=out)
+        if not kept:
+            return 0
+        pi, n_v, groups_v, used_v, miss_v = _batched(
+            mats, panels, dev, lambda b: batch_pi_panels(
+                b.sim, b.present, b.member, b.panels, args.threshold))
+        for wi, reg in enumerate(kept):
+            length = args.length or reg.length
+            pica = tables.format_pica_output(
+                float(pi[wi]), float(pi[wi]) / length, length)
+            print(tables.pi_row(region_strings[wi], subset_label, length,
+                                args.threshold, args.round, pica), file=out)
+            if args.log_dir:
+                _write_window_log(
+                    args.log_dir, region_strings[wi],
+                    "Nucleotide Diversity Analysis Log",
+                    {"region": region_strings[wi],
+                     "threshold": args.threshold,
+                     "round_digits": args.round,
+                     "n": int(n_v[wi]),
+                     "groups": int(groups_v[wi]),
+                     "group_pairs_with_data": int(used_v[wi]),
+                     "group_pairs_missing": int(miss_v[wi]),
+                     "pi": float(pi[wi]),
+                     "pi_per_site": float(pi[wi]) / length})
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+# ------------------------------------------------------------ hudson fst
+
+
+def _two_panels(args):
+    from impop_tpu_torch.runtime.batcher import PanelSet
+
+    return PanelSet.from_dict({"A": tuple(read_panel_file(args.pop_a)),
+                               "B": tuple(read_panel_file(args.pop_b))})
+
+
+def _run_hudson(args, grouped: bool) -> int:
+    """run_h-fst.sh / run_hud.sh: Hudson Fst of panels A and B per window,
+    direct or grouped; Fst and Da from the f32 sums in float64 on the
+    host."""
+    from impop_tpu_torch.parallel.scan import batch_hudson
+
+    if getattr(args, "pair_shard", "off") == "on":
+        raise SystemExit("error: --pair-shard on is not ported to "
+                         "impop_tpu_torch yet (ROADMAP.md Queue 1 item 11, "
+                         "multi-GPU); --pair-shard auto or off compute the "
+                         "replicated [N, N] batch on the one GPU")
+    dev = _open_device(args.device)
+    regions = read_bed(args.bed)
+    src = _make_sim_source(args, dev)
+    kept, mats, region_strings = _load_windows(regions, src, args.prefix)
+
+    out = _out_stream(args.output)
+    try:
+        print(tables.HFST_HEADER, file=out)
+        if not kept:
+            return 0
+        def run(b):
+            res = batch_hudson(b.sim, b.present, b.member, b.panels, (0,),
+                               (1,), args.threshold, with_grouped=grouped)
+            chosen = res.grouped if grouped else res.direct
+            return chosen.pi_a, chosen.pi_b, chosen.dxy
+
+        pi_a_v, pi_b_v, dxy_v = (
+            v.astype(np.float64) for v in _batched(
+                mats, _two_panels(args), dev, run, exact=args.exact_names))
+        for wi, reg in enumerate(kept):
+            length = reg.length
+            pi_a, pi_b, dxy = pi_a_v[wi], pi_b_v[wi], dxy_v[wi]
+            pi_xy = 0.5 * (pi_a + pi_b)
+            fst = (dxy - pi_xy) / dxy if dxy > 0 else 0.0
+            da = dxy - pi_xy
+            inv = 1.0 / length
+            print(tables.hfst_row(
+                region_strings[wi], length, fst, pi_a * inv, pi_b * inv,
+                pi_xy * inv, dxy * inv, da * inv), file=out)
+            if args.log_dir:
+                _write_window_log(
+                    args.log_dir, region_strings[wi], "FST Calculation",
+                    {"region": region_strings[wi],
+                     "method": "grouped" if grouped else "direct",
+                     "pi_a": pi_a, "pi_b": pi_b, "pi_xy": pi_xy,
+                     "dxy": dxy, "fst": fst, "da": da,
+                     "per_site_length": length})
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def cmd_hfst(args) -> int:
+    return _run_hudson(args, grouped=False)
+
+
+def cmd_hud(args) -> int:
+    return _run_hudson(args, grouped=(args.method == "grouped"))
+
+
+# ------------------------------------------------------------ 3-pi fst
+
+
+def cmd_fst3pi(args) -> int:
+    """run_fst_impg.sh: πA, πB, πC of A ∪ B and the 3-π Fst per window."""
+    from impop_tpu_torch.parallel.scan import batch_fst_3pi_panels
+
+    dev = _open_device(args.device)
+    regions = read_bed(args.bed)
+    src = _make_sim_source(args, dev)
+    kept, mats, region_strings = _load_windows(regions, src, args.prefix)
+
+    out = _out_stream(args.output)
+    try:
+        print(tables.FST3PI_HEADER, file=out)
+        if not kept:
+            return 0
+        def run(b):
+            res = batch_fst_3pi_panels(b.sim, b.present, b.member, b.panels,
+                                       (0,), (1,), args.threshold)
+            return res.pi_a, res.pi_b, res.pi_c
+
+        pa_v, pb_v, pc_v = _batched(mats, _two_panels(args), dev, run,
+                                    exact=args.exact_names)
+        for wi, reg in enumerate(kept):
+            length = reg.length
+            pi_a = float(pa_v[wi]) / length
+            pi_b = float(pb_v[wi]) / length
+            pi_c = float(pc_v[wi]) / length
+            print(tables.fst3pi_row(region_strings[wi], length,
+                                    args.threshold, args.round, pi_a, pi_b,
+                                    pi_c), file=out)
+            if args.log_dir:
+                pi_ab = 0.5 * (pi_a + pi_b)
+                _write_window_log(
+                    args.log_dir, region_strings[wi], "3-pi FST Calculation",
+                    {"region": region_strings[wi], "length": length,
+                     "threshold": args.threshold,
+                     "pi_a": pi_a, "pi_b": pi_b, "pi_c": pi_c,
+                     "pi_ab": pi_ab,
+                     "fst": ((pi_c - pi_ab) / pi_c if pi_c else "NA")})
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+# ------------------------------------------------------------ afs
+
+
+def cmd_afs(args) -> int:
+    """af.py: the allele classes of one similarity TSV, the connected
+    components of ``sim >= threshold``, with sizes and frequencies."""
+    import torch
+
+    from impop_tpu_torch.stats.grouping import label_components
+
+    dev = _open_device(args.device)
+    # af.py truncates identifiers at the first ':' (af.py:13-14)
+    mat = read_similarity_tsv(args.input)
+    short = [nm.split(":", 1)[0] for nm in mat.names]
+    uniq = sorted(set(short))
+    idx = {nm: i for i, nm in enumerate(uniq)}
+    n = len(uniq)
+    sim = np.zeros((n, n))
+    present = np.zeros((n, n), dtype=bool)
+    np.fill_diagonal(present, True)
+    np.fill_diagonal(sim, 1.0)
+    for i in range(mat.n):
+        for j in range(mat.n):
+            if i != j and mat.present[i, j]:
+                a, b = idx[short[i]], idx[short[j]]
+                sim[a, b] = (max(sim[a, b], mat.sim[i, j])
+                             if present[a, b] and a != b else mat.sim[i, j])
+                present[a, b] = True
+
+    cap = _capacity_for([n])
+    sim_p = np.zeros((cap, cap), dtype=np.float32)
+    sim_p[:n, :n] = sim
+    pres_p = np.zeros((cap, cap), dtype=bool)
+    pres_p[:n, :n] = present
+    member = np.zeros(cap, dtype=bool)
+    member[:n] = True
+    # af.py links pairs with value >= threshold (af.py:38)
+    adj = (sim_p >= args.threshold) & pres_p
+    labels = label_components(torch.from_numpy(adj).to(dev),
+                              torch.from_numpy(member).to(dev))
+    labels = labels.cpu().numpy()[:n]
+
+    groups: Dict[int, List[str]] = {}
+    for i, name in enumerate(uniq):
+        groups.setdefault(int(labels[i]), []).append(name)
+    clusters = sorted(groups.values(), key=lambda c: (-len(c), sorted(c)))
+
+    out = _out_stream(args.output)
+    try:
+        print(tables.AFS_HEADER, file=out)
+        for row in tables.afs_summary_rows(clusters):
+            print(row, file=out)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    if args.details:
+        with open(args.details, "w") as fh:
+            fh.write("sample_id\tcluster_id\tthreshold\n")
+            for ci, members in enumerate(clusters, 1):
+                for sname in sorted(members):
+                    fh.write(f"{sname}\tc{ci}\t{args.threshold}\n")
+    return 0
+
+
+# ------------------------------------------------------------ batches
+
+
+def cmd_panels_hfst(args) -> int:
+    """All 10 unordered continental pairs (run_h_fst_panels.sh:60-71),
+    each written to ``<a>.<b>.fst`` in the working directory."""
+    pairs = [("EUR", "AFR"), ("EAS", "AFR"), ("SAS", "AFR"), ("AMR", "AFR"),
+             ("EAS", "EUR"), ("SAS", "EUR"), ("AMR", "EUR"), ("EAS", "SAS"),
+             ("AMR", "SAS"), ("AMR", "EAS")]
+    for a, b in pairs:
+        sub = argparse.Namespace(**vars(args))
+        sub.pop_a = os.path.join(args.metadata_dir, f"agc.{a}")
+        sub.pop_b = os.path.join(args.metadata_dir, f"agc.{b}")
+        sub.output = f"{a.lower()}.{b.lower()}.fst"
+        if not (os.path.exists(sub.pop_a) and os.path.exists(sub.pop_b)):
+            _warn(f"Warning: missing panel list for {a} or {b}; skipping")
+            continue
+        print(f"[h-fst] {a} vs {b} -> {sub.output}", file=sys.stderr)
+        cmd_hfst(sub)
+    return 0
+
+
+def cmd_panels_tajd(args) -> int:
+    """The 5 continental panels (run_tajd_panels.sh:60-66), each written
+    to ``<panel>.tj`` in the working directory."""
+    panels = [("EUR", "eur.tj"), ("AFR", "afr.tj"), ("EAS", "eas.tj"),
+              ("SAS", "sas.tj"), ("AMR", "amr.tj")]
+    for group, output in panels:
+        sub = argparse.Namespace(**vars(args))
+        sub.samples = os.path.join(args.metadata_dir, f"agc.{group}")
+        sub.output = output
+        if not os.path.exists(sub.samples):
+            _warn(f"Warning: missing panel list for {group}; skipping")
+            continue
+        print(f"[tajd] {group} -> {output}", file=sys.stderr)
+        cmd_tajd(sub)
+    return 0
+
+
+def _add_device(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA), cuda:K or "
+                        "cpu (the plain PyTorch path)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="impop-tpu-torch",
-        description="impop scan on PyTorch (CUDA kernels on the GPU)")
+        description="impop on PyTorch (CUDA kernels on the GPU)")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("scan", help="fused pi+Fst+TajD scan with resume")
     p.add_argument("-b", "--bed", required=True)
@@ -777,9 +1217,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device batches concatenated per result fetch")
     p.add_argument("--distributed", action="store_true",
                    help="not ported yet")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without CUDA), cuda:K or "
-                        "cpu (the plain PyTorch path)")
+    _add_device(p)
     p.add_argument("--profile-dir",
                    help="write a torch.profiler Chrome trace to this "
                         "directory")
@@ -816,10 +1254,65 @@ def build_parser() -> argparse.ArgumentParser:
                         "line, required with -s)")
     p.add_argument("--chunk-sites", type=int, default=4096,
                    help="site-chunk width for --stream-npy (default 4096)")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without CUDA), cuda:K or "
-                        "cpu (the plain PyTorch path)")
+    _add_device(p)
     p.set_defaults(func=cmd_tajd)
+
+    # the per-statistic commands: the JAX parser's flags, plus --device
+    p = sub.add_parser("pi", help="nucleotide diversity window scan")
+    _add_common(p)
+    _add_sim_args(p)
+    p.add_argument("-u", "--subset", help="panel list file (like agc.EUR)")
+    p.add_argument("-l", "--length", type=int,
+                   help="override per-site normalisation length")
+    _add_device(p)
+    p.set_defaults(func=cmd_pi)
+
+    for name, fn in (("hfst", cmd_hfst), ("hud", cmd_hud),
+                     ("fst3pi", cmd_fst3pi)):
+        p = sub.add_parser(name)
+        _add_common(p)
+        _add_sim_args(p)
+        p.add_argument("-A", "--pop-a", required=True)
+        p.add_argument("-B", "--pop-b", required=True)
+        p.add_argument("--exact-names", action="store_true",
+                       help="panel lists contain exact sequence names "
+                            "(hud.py matching) instead of assembly ids "
+                            "(h-fst.py prefix matching)")
+        if name == "hud":
+            p.add_argument("-m", "--method", choices=["direct", "grouped"],
+                           default="direct")
+        if name in ("hfst", "hud"):
+            p.add_argument("--pair-shard", choices=["auto", "on", "off"],
+                           default="auto",
+                           help="on is not ported yet (multi-GPU); auto "
+                                "and off compute the replicated batch")
+        _add_device(p)
+        p.set_defaults(func=fn)
+
+    p = sub.add_parser("afs", help="allele-class cluster frequencies (af.py)")
+    p.add_argument("--input", default="loc.sim")
+    p.add_argument("--threshold", type=float, default=1.0)
+    p.add_argument("--output")
+    p.add_argument("--details")
+    _add_device(p)
+    p.set_defaults(func=cmd_afs)
+
+    p = sub.add_parser("panels-hfst", help="all 10 continental pair Fst runs")
+    _add_common(p)
+    _add_sim_args(p)
+    p.add_argument("--metadata-dir", required=True)
+    p.add_argument("--exact-names", action="store_true")
+    _add_device(p)
+    p.set_defaults(func=cmd_panels_hfst)
+
+    p = sub.add_parser("panels-tajd", help="5 continental panel Tajima runs")
+    _add_common(p)
+    p.add_argument("--geno-dir")
+    p.add_argument("--gfa-dir")
+    p.add_argument("--metadata-dir", required=True)
+    p.add_argument("-l", "--length", type=int)
+    _add_device(p)
+    p.set_defaults(func=cmd_panels_tajd)
     return ap
 
 

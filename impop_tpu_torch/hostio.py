@@ -11,23 +11,31 @@ from __future__ import annotations
 import os
 import subprocess
 
-from impop_tpu.cli import (GenoSource, GfaDirSource, WindowError,
-                           _capacity_for, _open_extractor, _out_stream,
+from impop_tpu.cli import (DirSimSource, GenoSource, GfaDirSource,
+                           ImpgSimSource, SimSource, WindowError,
+                           _add_common, _add_sim_args, _capacity_for,
+                           _load_windows, _open_extractor, _out_stream,
                            _panel_label, _print_counters, _resolve_fasta,
                            _scan_buf_layout, _write_window_log,
                            pack_scan_batch, split_multiallelic)
 from impop_tpu.extract import library_path, site_weights_from_keys
 from impop_tpu.extract.simulate import simulate
-from impop_tpu.io.bed import read_bed
+from impop_tpu.io.bed import parse_region, read_bed
 from impop_tpu.io.panels import expand_population, read_panel_file
+from impop_tpu.io.simtsv import (SimilarityMatrix, read_similarity_tsv,
+                                 round_half_even, write_similarity_tsv)
 from impop_tpu.report import tables
 
-__all__ = ["GenoSource", "GfaDirSource", "WindowError", "tables",
-           "_capacity_for", "open_extractor",
+__all__ = ["DirSimSource", "GenoSource", "GfaDirSource", "ImpgSimSource",
+           "SimSource", "WindowError", "tables", "_add_common",
+           "_add_sim_args", "_capacity_for", "_load_windows",
+           "_open_extractor", "open_extractor",
            "_out_stream", "_panel_label", "_print_counters", "_resolve_fasta",
            "_scan_buf_layout", "_write_window_log", "pack_scan_batch",
-           "split_multiallelic", "simulate", "read_bed", "expand_population",
-           "read_panel_file", "site_weights_from_keys"]
+           "split_multiallelic", "simulate", "parse_region", "read_bed",
+           "expand_population", "read_panel_file", "SimilarityMatrix",
+           "read_similarity_tsv", "round_half_even", "write_similarity_tsv",
+           "site_weights_from_keys"]
 
 
 def open_extractor(paf: str, fasta: str):

@@ -1,1 +1,2 @@
-"""Runtime pieces of the scan: the result journal and stage timers."""
+"""Runtime pieces of the port: the result journal, stage timers, the
+site-chunk stream of long windows and the similarity-window batcher."""

@@ -1,17 +1,20 @@
 """Statistics straight from haplotype-by-site allele tiles (port of
-:mod:`impop_tpu.stats.allele`): identity (unit or column-mode weights), S
-and the allele-frequency spectrum.
+:mod:`impop_tpu.stats.allele`): identity (unit or column-mode weights), S,
+the allele-frequency spectrum and the fused per-window bundle.
 
 A window is an ``[N, S]`` int8 tile (1 alt, 0 ref, -1 missing or padding);
 every function here takes any number of leading window axes.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = ["pairwise_diff", "pairwise_diff_biallelic", "identity_epilogue",
            "identity_from_alleles", "segregating_sites",
-           "allele_frequency_spectrum", "panel_afs"]
+           "allele_frequency_spectrum", "panel_afs", "AlleleWindowStats",
+           "allele_window_stats"]
 
 
 def _valid(geno, member, site_mask):
@@ -154,3 +157,29 @@ def panel_afs(geno: torch.Tensor, member: torch.Tensor,
     return allele_frequency_spectrum(
         geno[..., None, :, :], panels & member[..., None, :],
         site_mask[..., None, :], max_n, folded)
+
+
+class AlleleWindowStats(NamedTuple):
+    pi_direct: torch.Tensor  # [...] f32 mean pairwise difference count
+    s: torch.Tensor          # [...] int32 segregating sites
+    n: torch.Tensor          # [...] int32 member haplotypes
+    afs: torch.Tensor        # [..., max_n + 1] int32 folded spectrum
+
+
+def allele_window_stats(geno: torch.Tensor, member: torch.Tensor,
+                        site_mask: torch.Tensor, max_n: int,
+                        num_alleles: int = 2) -> AlleleWindowStats:
+    """Direct π (mean difference count over pairs compared at one site or
+    more), S and the folded spectrum of each window, in plain PyTorch as
+    the JAX package leaves them to XLA."""
+    diff, compared = pairwise_diff(geno, member, site_mask, num_alleles)
+    n_cap = member.shape[-1]
+    offdiag = ~torch.eye(n_cap, dtype=torch.bool, device=geno.device)
+    pair_ok = (compared > 0) & offdiag
+    total = torch.where(pair_ok, diff, 0.0).sum(dim=(-2, -1)) * 0.5
+    pairs = pair_ok.sum(dim=(-2, -1), dtype=torch.float32) * 0.5
+    pi = torch.where(pairs > 0, total / torch.clamp(pairs, min=1.0), 0.0)
+    return AlleleWindowStats(
+        pi, segregating_sites(geno, member, site_mask),
+        member.sum(dim=-1, dtype=torch.int32),
+        allele_frequency_spectrum(geno, member, site_mask, max_n))

@@ -1,5 +1,5 @@
-"""Greedy grouping (port of :mod:`impop_tpu.stats.grouping` without
-``label_components``).
+"""Greedy grouping and connected components (port of
+:mod:`impop_tpu.stats.grouping`).
 
 Greedy single-link, one hop (pica2 semantics with the deterministic sorted
 row order): rows are processed in ascending index; an unabsorbed row
@@ -20,7 +20,7 @@ import torch
 from impop_tpu_torch.ops.seedpeel import link_matrix, seed_peel
 
 __all__ = ["greedy_group", "greedy_group_panels", "group_sizes",
-           "rep_weights", "first_pair_winner"]
+           "rep_weights", "first_pair_winner", "label_components"]
 
 # bound on the [..., P, N, N] candidate mask of _gid_from_seeds per chunk
 _GID_CHUNK_ELEMS = 1 << 27
@@ -136,3 +136,26 @@ def first_pair_winner(present: torch.Tensor, member_row: torch.Tensor,
     idx = torch.clamp(gid_col, 0, n_cap - 1).to(torch.int64)
     idx = idx[..., None, :].expand(*row_first.shape)
     return col_first & torch.gather(row_first, -1, idx)
+
+
+def label_components(adjacency: torch.Tensor, member: torch.Tensor,
+                     num_iters: int | None = None) -> torch.Tensor:
+    """Connected-component labels (af.py's union-find, af.py:21-33):
+    reachability R = (A | I)^(2^k) from ⌈log2 N⌉ squarings of a 0/1
+    float32 matrix (exact: the sums are counts below 2^24), then each
+    member's label is the smallest reachable row.
+
+    Args: adjacency [..., N, N] bool (symmetric), member [..., N] bool.
+    Returns label [..., N] int32, N for padding rows.
+    """
+    n_cap = member.shape[-1]
+    if num_iters is None:
+        num_iters = max(1, (n_cap - 1).bit_length())
+    eye = torch.eye(n_cap, dtype=torch.bool, device=adjacency.device)
+    reach = (adjacency | eye) & member[..., :, None] & member[..., None, :]
+    for _ in range(num_iters):
+        rf = reach.to(torch.float32)
+        reach = ((rf @ rf) > 0.5) | reach
+    order = torch.arange(n_cap, dtype=torch.int32, device=adjacency.device)
+    label = torch.where(reach, order, n_cap).amin(dim=-1)
+    return torch.where(member, label, n_cap).to(torch.int32)

@@ -9,7 +9,9 @@ Tolerances: integer outputs exact (S, n, num_groups, pairs_used2, cnt_*,
 seed_risk, seeds, gid, EHH step sums and carriers); unit and weighted
 sim / present exact (integer counts, integer weights: every sum is exact
 in float32); quad, sum_*, gdxy and the masked panel sums rtol 1e-5
-(float32 sums in another order).
+(float32 sums in another order).  The batch estimators of
+``parallel/scan`` run on the card against the same call on CPU tensors:
+integer fields exact, π and Dxy rtol 1e-5, Fst atol 2e-3.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
                                            masked_pair_sums_plain)
 from impop_tpu_torch.ops.seedpeel import seed_peel, seed_peel_plain
 from impop_tpu_torch.ops.windowstat import window_stats, window_stats_plain
+from impop_tpu_torch.parallel.scan import batch_hudson, batch_pi_panels
 from impop_tpu_torch.stats.allele import identity_from_alleles
 from impop_tpu_torch.stats.panelstats import (gdxy_rows, panel_mask_stack,
                                               panel_sums)
@@ -276,3 +279,58 @@ def test_identity_group_kernel_matches_plain(cuda_device, w, n, s, p,
     want = identity_group_plain(g, m, sm, stack, THR, lens)
     for name, a, b in zip(("sim", "present", "gid", "s"), got, want):
         assert torch.equal(a, b), name
+
+
+def hprc_sims(seed, w, p, disjoint):
+    """[512, 512] x w similarity tiles of HPRC-shaped windows (466
+    members of 512, 5 kb), computed on the CPU, and their panels."""
+    geno, member, smask, pmasks = batch(seed, w, 512, 128, p, disjoint,
+                                        False)
+    member[:, 466:] = False
+    sim, pres = identity_from_alleles(
+        *(torch.from_numpy(a) for a in (geno, member, smask)),
+        torch.full((w,), LEN))
+    return sim, pres, torch.from_numpy(member), torch.from_numpy(pmasks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("disjoint", [True, False])
+def test_batch_pi_panels_on_card_matches_cpu(cuda_device, disjoint):
+    """pi_grouped_panels through the seed-peel and masked-sums kernels:
+    integer fields exact, pi rtol 1e-5."""
+    cpu = hprc_sims(53, 8, 5, disjoint)
+    peel, sums = seed_peel.launches, masked_pair_sums.launches
+    got = batch_pi_panels(*(a.to(cuda_device) for a in cpu), THR)
+    torch.cuda.synchronize()
+    assert seed_peel.launches > peel and masked_pair_sums.launches > sums
+    want = batch_pi_panels(*cpu, THR)
+    for f in ("n", "num_groups", "pairs_used", "pairs_missing"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.pi.cpu(), want.pi, rtol=1e-5, atol=1e-9)
+    assert int(want.num_groups.min()) > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_grouped", [False, True])
+def test_batch_hudson_on_card_matches_cpu(cuda_device, with_grouped):
+    """Direct Hudson through the masked-sums kernel, grouped through the
+    seed-peel kernel, ten overlapping pairs: pi and Dxy rtol 1e-5, Fst
+    atol 2e-3."""
+    cpu = hprc_sims(54, 8, 5, False)
+    pairs = [(i, k) for i in range(5) for k in range(i + 1, 5)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    peel, sums = seed_peel.launches, masked_pair_sums.launches
+    got = batch_hudson(*(a.to(cuda_device) for a in cpu), pa, pb, THR,
+                       with_grouped=with_grouped)
+    torch.cuda.synchronize()
+    assert masked_pair_sums.launches > sums
+    assert (seed_peel.launches > peel) == with_grouped
+    want = batch_hudson(*cpu, pa, pb, THR, with_grouped=with_grouped)
+    for res_g, res_w in zip(got, want):
+        for f in ("pi_a", "pi_b", "pi_xy", "dxy"):
+            torch.testing.assert_close(getattr(res_g, f).cpu(),
+                                       getattr(res_w, f), rtol=1e-5,
+                                       atol=1e-9, msg=f)
+        for f in ("fst", "da"):
+            diff = (getattr(res_g, f).cpu() - getattr(res_w, f)).abs()
+            assert float(diff.max()) <= 2e-3, f

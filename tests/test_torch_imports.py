@@ -19,12 +19,14 @@ MODULES = [
     "impop_tpu_torch.ops.idgroup", "impop_tpu_torch.ops.pairdiff",
     "impop_tpu_torch.ops.panelquad", "impop_tpu_torch.ops.seedpeel",
     "impop_tpu_torch.ops.windowstat", "impop_tpu_torch.parallel",
-    "impop_tpu_torch.parallel.scan", "impop_tpu_torch.runtime.journal",
-    "impop_tpu_torch.runtime.profiling", "impop_tpu_torch.runtime.sitestream",
-    "impop_tpu_torch.stats.allele", "impop_tpu_torch.stats.ehh",
-    "impop_tpu_torch.stats.fst", "impop_tpu_torch.stats.grouping",
-    "impop_tpu_torch.stats.panelstats", "impop_tpu_torch.stats.pi",
-    "impop_tpu_torch.stats.tajima",
+    "impop_tpu_torch.parallel.scan", "impop_tpu_torch.runtime.batcher",
+    "impop_tpu_torch.runtime.journal", "impop_tpu_torch.runtime.profiling",
+    "impop_tpu_torch.runtime.sitestream", "impop_tpu_torch.stats.allele",
+    "impop_tpu_torch.stats.api", "impop_tpu_torch.stats.diversity",
+    "impop_tpu_torch.stats.ehh", "impop_tpu_torch.stats.fst",
+    "impop_tpu_torch.stats.grouping", "impop_tpu_torch.stats.panelstats",
+    "impop_tpu_torch.stats.pi", "impop_tpu_torch.stats.tajima",
+    "impop_tpu_torch.stats.types",
 ]
 
 
