@@ -16,13 +16,18 @@ Phases (one line each; any failure exits non-zero):
          focals on the first and last active site, a window with no
          active site, and [512, 1024] x 16 past 2^24 (all exactly equal);
      (g) pairwise_identity_weighted: [512, 128] x 64 with integer weights
-         1-50 and a 100 000 bp column, and [512, 4096] x 4 (exactly equal);
+         1-50 and a 100 000 bp column, [512, 4096] x 4, and ragged
+         [37, 37], [37, 1], [1024, 3120] with weights 1-50 and 100 000 bp
+         columns (per-pair sums below 2^24), all-ones
+         weights (exactly equal), non-integer weights (present equal, sim
+         within 1e-5 of the weight mass per bp + 1e-6);
      (h) masked_pair_sums on the stacks the columns scan builds, disjoint
          and overlapping pairs (rtol 1e-5);
-     (i) pairwise_identity (unit weights): [512, 2048] x 64 and
-         [512, 8192] x 8 with kernel and plain times, [1024, 2048] x 4,
-         and codes up to 3 with a member without calls and length 0
-         (sim and present exactly equal);
+     (i) pairwise_identity (unit weights): [512, 2048] x 64, [512, 8192] x 8
+         and tajd's [512, 3200] x 10 with kernel, plain and yardstick times
+         and a sweep of forced site splits, [1024, 2048] x 4, codes up to 3
+         (a member without calls, length 0) and up to 63, ragged [37, 37],
+         [37, 1], [1024, 3120] (sim and present exactly equal);
      (j) identity_group: [512, 128] x 320 with R = 15 and kernel and plain
          times, cap 256 with overlapping panels (sim, present, gid, S
          exactly equal)
@@ -59,8 +64,12 @@ Phases (one line each; any failure exits non-zero):
 Each main path (3-4, 5, 6, 7, 8, 9) starts with every kernel launch count at 0
 and fails unless each kernel of that path was launched during it.
 
-Before the last line it prints the kernel table as one JSON object and the
-card's name and power limit; the last line is
+Every kernel line of phase 2 gives its time, its plain version's, its bound
+(the larger of its bytes over 3.35 TB/s and its operations over the H100
+SXM peak for their type) with the share of it reached, and, for the two
+identity kernels, one PyTorch call computing the same Grams (a yardstick
+the port never calls).  Before the last line it prints the kernel table as
+one JSON object and the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is unavailable or when the
 package is not beside this script.  Imports nothing of JAX.
@@ -92,8 +101,43 @@ INT_KEYS = ("n", "num_groups", "pairs_used2", "cnt_aa", "cnt_bb", "cnt_ab",
 FLOAT_KEYS = ("quad", "sum_aa", "sum_bb", "sum_ab", "gdxy")
 
 
+# NVIDIA H100 SXM data sheet, dense: memory rate and peak rates by type
+# (int32: 64 lanes per SM, half the fp32 rate)
+H100_BYTES_PER_S = 3.35e12
+H100_PEAK = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12,
+             "int32": 33.5e12}
+
+
 class SmokeError(RuntimeError):
     pass
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, **ops) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and each type's
+    operations over its peak rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = max((n / H100_PEAK[k] for k, n in ops.items()), default=0.0)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def tri_pairs(n: int) -> int:
+    return n * (n + 1) // 2
+
+
+def set_bound(report, name, ms, n_bytes, library_ms=None, **ops):
+    """Record a kernel's bound (and yardstick) in the report; returns the
+    text of the share."""
+    b_ms, by = bound(n_bytes, **ops)
+    report[name].update(bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+    return (f"bound {b_ms:.4f} ms ({by}), {100 * b_ms / ms:.1f}% of it"
+            + ("" if library_ms is None else
+               f"; one library call {library_ms:.4f} ms"))
 
 
 def say(phase: str, msg: str) -> None:
@@ -123,7 +167,7 @@ def hprc_batch(rng, w, cap_n=CAP_N, cap_s=CAP_S, n_hap=N_HAP):
     smask = np.zeros((w, cap_s), bool)
     for wi in range(w):
         n_classes = int(rng.integers(3, 12))
-        n_sites = int(rng.integers(20, cap_s))
+        n_sites = int(rng.integers(20, cap_s)) if cap_s > 20 else cap_s
         classes = rng.integers(0, 2, size=(n_classes, n_sites)).astype(
             np.int8)
         g = classes[rng.integers(0, n_classes, size=n_hap)]
@@ -213,6 +257,14 @@ def cuda_time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds of fn() without the host's launch overhead
+    (``impop_tpu_torch.bench.graph_ms``: CUDA graph replays)."""
+    from impop_tpu_torch.bench import graph_ms as replay_ms
+
+    return replay_ms(fn, reps)
+
+
 def mid_active_focals(smask):
     """Per window, the middle active site (0 when the window has none)."""
     import numpy as np
@@ -255,10 +307,15 @@ def phase_ehh_kernel(dev, report):
                             mid_active_focals(smask), "2f")
     k_ms = cuda_time_ms(lambda: ehh_area(*args), 10)
     p_ms = cuda_time_ms(lambda: ehh_area_plain(*args), 3)
+    sums, carr = ehh_area(*args)
+    c = carr.double()
+    share = set_bound(report, "ehh_area", k_ms,
+                      nbytes(*args, sums, carr),
+                      int32=float((c * (c - 1)).sum()))  # 2 walks per pair
     say("2f", f"ehh_area [{CAP_N},{CAP_S}]x{BATCH}, focal at the middle "
         f"variant: sums and carriers exactly equal; kernel {k_ms:.4f} "
         f"ms/batch = {k_ms / BATCH * 1e3:.3f} us/window; plain "
-        f"{p_ms:.4f} ms/batch = {p_ms / BATCH * 1e3:.3f} us/window")
+        f"{p_ms:.4f} ms/batch = {p_ms / BATCH * 1e3:.3f} us/window; {share}")
 
     # focal on the first / last active site; a window with no active site
     geno, member, smask, _, _ = hprc_batch(rng, 6)
@@ -304,24 +361,43 @@ def phase_weighted_kernels(dev, report):
     rng = np.random.default_rng(23)
     w_cols = 64
 
-    def weighted(geno, member, smask, lengths, wts, tag):
+    def weighted(geno, member, smask, lengths, wts, tag, tol=None):
+        """Integer weights: exactly equal; ``tol`` (non-integer weights):
+        present equal and sim within tol."""
         args = to_dev(dev, geno, member, smask, lengths, wts)
         sim, pres = pairwise_identity_weighted(*args)
         sim_p, pres_p = pairwise_identity_weighted_plain(*args)
         torch.cuda.synchronize()
         if not torch.equal(pres, pres_p):
             raise SmokeError(f"{tag}: weighted present differs")
-        if not torch.equal(sim, sim_p):
-            err = float((sim - sim_p).abs().max())
+        err = float((sim - sim_p).abs().max()) if sim.numel() else 0.0
+        if (tol is None and not torch.equal(sim, sim_p)) or \
+                (tol is not None and err > tol):
             raise SmokeError(f"{tag}: weighted sim differs (max abs {err})")
-        return args, sim, pres
+        return args, sim, pres, err
 
     geno, member, smask, panels, lengths = hprc_batch(rng, w_cols)
     wts = rng.integers(1, 51, size=(w_cols, CAP_S)).astype(np.float32)
     wts[:, 7] = 100_000.0
-    args, sim, pres = weighted(geno, member, smask, lengths, wts, "2g")
-    k_ms = cuda_time_ms(lambda: pairwise_identity_weighted(*args), 10)
-    p_ms = cuda_time_ms(lambda: pairwise_identity_weighted_plain(*args), 5)
+    args, sim, pres, _ = weighted(geno, member, smask, lengths, wts, "2g")
+    k_ms = graph_ms(lambda: pairwise_identity_weighted(*args), 10)
+    p_ms = graph_ms(lambda: pairwise_identity_weighted_plain(*args), 5)
+    ev_ms = cuda_time_ms(lambda: pairwise_identity_weighted(*args), 10)
+    # yardstick: one fp32 bmm (TF32 off) of [a·w | c·w] x [c | a]^T
+    g_t, m_t, sm_t, _, w_t = args
+    valid = (g_t >= 0) & m_t[..., :, None] & sm_t[..., None, :]
+    a_op = (valid & (g_t > 0)).float()
+    c_op = valid.float() - a_op
+    lhs = torch.cat([a_op * w_t[:, None], c_op * w_t[:, None]], -1)
+    rhs = torch.cat([c_op, a_op], -1).transpose(1, 2).contiguous()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_ms = graph_ms(lambda: torch.bmm(lhs, rhs), 10)
+    del valid, a_op, c_op, lhs, rhs
+    share = set_bound(
+        report, "pairwise_identity_weighted", k_ms,
+        nbytes(*args, sim, pres), lib_ms,
+        bf16=4 * w_cols * tri_pairs(CAP_N) * CAP_S,
+        int8=2 * w_cols * tri_pairs(CAP_N) * CAP_S)
     g4, m4, s4, _, l4 = hprc_batch(rng, 4, cap_s=4096)
     g4[:, :N_HAP] = np.where(rng.random((4, N_HAP, 4096)) < 0.02, 1,
                              0).astype(np.int8)
@@ -329,11 +405,37 @@ def phase_weighted_kernels(dev, report):
     l4[:] = 200_000.0
     w4 = rng.integers(1, 51, size=(4, 4096)).astype(np.float32)
     weighted(g4, m4, s4, l4, w4, "2g long")
+    # ragged shapes, all-ones and SV weights, non-integer weights
+    cases = []
+    for w, n, s, kind in ((3, 37, 37, "int"), (2, 37, 1, "int"),
+                          (2, 1024, 3120, "int"), (4, CAP_N, CAP_S, "ones"),
+                          (3, 300, 640, "frac")):
+        gr, mr, sr, _, lr = hprc_batch(rng, w, cap_n=n, cap_s=s,
+                                       n_hap=min(n, N_HAP) - 1)
+        sr[:] = True
+        if kind == "ones":
+            wr = np.ones((w, s), np.float32)
+        elif kind == "frac":
+            wr = rng.uniform(0.0, 50.0, (w, s)).astype(np.float32)
+        else:   # 1-50 and every 97th column an SV of 100 000 bp: the
+            # per-pair sums stay below 2^24, where integers are exact
+            wr = rng.integers(1, 51, (w, s)).astype(np.float32)
+            wr[:, ::97] = 100_000.0
+        # non-integer weights: the float32 sums run in another order
+        tol = (1e-5 * float(wr.sum(axis=1).max()) / WIN_BP + 1e-6
+               if kind == "frac" else None)
+        err = weighted(gr, mr, sr, lr, wr, f"2g [{n},{s}]x{w} {kind}",
+                       tol)[3]
+        cases.append(f"[{n},{s}]x{w} {kind}"
+                     + (f" (max abs {err:.2e} <= {tol:.2e})" if tol else ""))
     say("2g", f"pairwise_identity_weighted [{CAP_N},{CAP_S}]x{w_cols} "
-        f"(weights 1-50, one 100 000 bp column) and [512,4096]x4: sim and "
-        f"present exactly equal; kernel {k_ms:.4f} ms/batch = "
+        f"(weights 1-50, one 100 000 bp column), [512,4096]x4 and "
+        f"{', '.join(cases)}: sim and present exactly equal (non-integer "
+        f"weights: present equal, sim within 1e-5 of the weight mass per bp "
+        f"+ 1e-6); device times (CUDA graph replays): kernel {k_ms:.4f} "
+        f"ms/batch (with the wrapper's host time, CUDA events: {ev_ms:.4f}) = "
         f"{k_ms / w_cols * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch = "
-        f"{p_ms / w_cols * 1e3:.3f} us/window")
+        f"{p_ms / w_cols * 1e3:.3f} us/window; {share} (fp32 bmm, TF32 off)")
     report["pairwise_identity_weighted"].update(max_abs_err=0.0, ms=k_ms,
                                                 plain_ms=p_ms)
 
@@ -370,11 +472,14 @@ def phase_weighted_kernels(dev, report):
     k_ms = cuda_time_ms(lambda: masked_pair_sums(*timed), 10)
     p_ms = cuda_time_ms(lambda: masked_pair_sums_plain(*timed), 5)
     rows = (timed[2].shape[-2], timed[3].shape[-2])
+    share = set_bound(report, "masked_pair_sums", k_ms,
+                      nbytes(*timed, *masked_pair_sums(*timed)),
+                      fp32=2 * w_cols * CAP_N * CAP_N * sum(rows))
     say("2h", f"masked_pair_sums [{CAP_N},{CAP_N}]x{w_cols}, {rows[0]} + "
         f"{rows[1]} rows, disjoint and overlapping pairs: within rtol "
         f"{RTOL} (max_abs_err {worst:.3e}); kernel {k_ms:.4f} ms/batch = "
         f"{k_ms / w_cols * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
-        f"= {p_ms / w_cols * 1e3:.3f} us/window")
+        f"= {p_ms / w_cols * 1e3:.3f} us/window; {share}")
     report["masked_pair_sums"].update(max_abs_err=worst, ms=k_ms,
                                       plain_ms=p_ms)
 
@@ -391,14 +496,22 @@ def phase_kernels(dev, report):
     rng = np.random.default_rng(7)
     # (a) the HPRC shape
     batch = hprc_batch(rng, BATCH)
-    err_a, args, _ = window_case(dev, *batch, True, "2a")
+    err_a, args, got = window_case(dev, *batch, True, "2a")
     k_ms = cuda_time_ms(lambda: window_stats(*args), 10)
     p_ms = cuda_time_ms(lambda: window_stats_plain(*args), 3)
+    g, m, sm, stack, ma, mb = args[:6]
+    r, q = stack.shape[-2], ma.shape[-2]
+    rows = r + 2 * q + r + 2 * q      # div-side and mask-side product rows
+    share = set_bound(
+        report, "window_stats", k_ms,
+        nbytes(g, m, sm, stack, ma, mb, args[7], *got.values()),
+        int8=4 * BATCH * tri_pairs(CAP_N) * CAP_S,
+        fp32=2 * BATCH * CAP_N * CAP_N * rows)
     say("2a", f"window_stats [{CAP_N},{CAP_S}]x{BATCH} 5 panels/10 pairs "
         f"disjoint: integers exact, floats within rtol {RTOL} (max_abs_err "
         f"{err_a:.3e}); kernel {k_ms:.4f} ms/batch "
         f"= {k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
-        f"= {p_ms / BATCH * 1e3:.3f} us/window")
+        f"= {p_ms / BATCH * 1e3:.3f} us/window; {share}")
     report["window_stats"].update(max_abs_err=err_a, ms=k_ms, plain_ms=p_ms)
 
     # (b) cap 256, overlapping panels (non-disjoint layout)
@@ -452,9 +565,11 @@ def phase_kernels(dev, report):
     p_ms = cuda_time_ms(
         lambda: seed_peel_plain(sim[:1], present[:1], m[:1], masks[:1],
                                 THRESHOLD), 5)
+    share = set_bound(report, "seed_peel", k_ms,
+                      nbytes(sim[:1], present[:1], m[:1], masks[:1], got[:1]))
     say("2e", f"seed_peel [512,512] x 20 masks: seeds equal "
         f"({int(got.sum())} seeds over 4 windows); kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms per window")
+        f"plain {p_ms:.4f} ms per window; {share}")
     report["seed_peel"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
 
 
@@ -477,14 +592,28 @@ def long_batch(rng, w, cap_n=CAP_N, cap_s=2048, n_hap=N_HAP, bp=200_000.0):
     return geno, member, smask, np.full(w, bp, np.float32)
 
 
+def zv_operands(geno, member, smask):
+    """The stacked ±1/0 bf16 operands [z; v] of the unit-weight Grams,
+    [2W, N, S], for the one-call yardstick."""
+    import torch
+
+    valid = (geno >= 0) & member[..., :, None] & smask[..., None, :]
+    v = valid.to(torch.bfloat16)
+    z = torch.where(valid, 2 * geno.clamp(min=0) - 1, 0).to(torch.bfloat16)
+    return torch.cat([z, v], 0)
+
+
 def phase_identity_kernel(dev, report):
     import numpy as np
     import torch
 
-    from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
+    from impop_tpu_torch.ops.pairdiff import (_pairwise_identity_cuda,
+                                              identity_partition,
+                                              pairwise_identity,
                                               pairwise_identity_plain)
 
     rng = np.random.default_rng(29)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def case(arrays, tag):
         args = to_dev(dev, *arrays)
@@ -497,15 +626,30 @@ def phase_identity_kernel(dev, report):
             err = float((sim - sim_p).abs().max())
             raise SmokeError(f"{tag}: unit-weight sim differs (max abs "
                              f"{err})")
-        return args
+        return args, sim, pres
 
     times = []
-    for w, s in ((64, 2048), (8, 8192)):
-        args = case(long_batch(rng, w, cap_s=s), f"2i [512,{s}]")
-        k_ms = cuda_time_ms(lambda: pairwise_identity(*args), 10)
-        p_ms = cuda_time_ms(lambda: pairwise_identity_plain(*args), 5)
-        times.append((w, s, k_ms, p_ms))
-        del args
+    for w, s in ((64, 2048), (8, 8192), (10, 3200)):
+        args, sim, pres = case(long_batch(rng, w, cap_s=s), f"2i [512,{s}]")
+        k_ms = graph_ms(lambda: pairwise_identity(*args), 10)
+        p_ms = graph_ms(lambda: pairwise_identity_plain(*args), 5)
+        ev_ms = cuda_time_ms(lambda: pairwise_identity(*args), 10)
+        x = zv_operands(*args[:3])
+        xt = x.transpose(1, 2).contiguous()
+        lib_ms = graph_ms(lambda: torch.bmm(x, xt), 10)
+        b_ms, by = bound(nbytes(*args, sim, pres),
+                         int8=4 * w * tri_pairs(CAP_N) * s)
+        splits = identity_partition(w, CAP_N, s, 64, sms)[2]
+        sweep = {k: graph_ms(
+            lambda: _pairwise_identity_cuda(*args, splits=k), 10)
+            for k in (1, 2, 3, 4, 5, 6, 8)}
+        times.append((w, s, k_ms, p_ms, lib_ms, b_ms, by, splits, sweep,
+                      ev_ms))
+        if s == 2048:
+            share = set_bound(report, "pairwise_identity", k_ms,
+                              nbytes(*args, sim, pres), lib_ms,
+                              int8=4 * w * tri_pairs(CAP_N) * s)
+        del args, sim, pres, x, xt
     case(long_batch(rng, 4, cap_n=1024, n_hap=1000), "2i [1024,2048]")
     geno, member, smask, lengths = long_batch(rng, 4, cap_s=256)
     geno = np.where(geno > 0, rng.integers(1, 4, size=geno.shape),
@@ -513,13 +657,31 @@ def phase_identity_kernel(dev, report):
     geno[:, 3] = -1
     lengths[:] = 0.0
     case((geno, member, smask, lengths), "2i codes")
+    geno, member, smask, lengths = long_batch(rng, 3, cap_n=200, cap_s=300,
+                                              n_hap=190)
+    geno = np.where(geno > 0, rng.integers(1, 64, size=geno.shape),
+                    geno).astype(np.int8)
+    case((geno, member, smask, lengths), "2i codes to 63")
+    ragged = []
+    for w, n, s in ((3, 37, 37), (2, 37, 1), (2, 1024, 3120)):
+        arrays = long_batch(rng, w, cap_n=n, cap_s=s, n_hap=n - 1)
+        arrays[2][:] = True
+        case(arrays, f"2i [{n},{s}]x{w}")
+        ragged.append(f"[{n},{s}]x{w}")
     say("2i", "pairwise_identity at [512,2048]x64, [512,8192]x8, "
-        "[1024,2048]x4 and codes up to 3 (a member without calls, length "
-        "0): sim and present exactly equal; " + "; ".join(
-            f"[512,{s}]x{w}: kernel {k:.4f} ms/batch = {k / w * 1e3:.3f} "
-            f"us/window, plain {p:.4f} ms/batch = {p / w * 1e3:.3f} "
-            f"us/window" for w, s, k, p in times))
-    w, s, k_ms, p_ms = times[0]
+        "[512,3200]x10, [1024,2048]x4, codes up to 3 (a member without "
+        "calls, length 0) and up to 63, " + ", ".join(ragged) + ": sim and "
+        "present exactly equal")
+    for w, s, k, p, lib, b, by, splits, sweep, ev in times:
+        say("2i", f"[512,{s}]x{w}, device times (CUDA graph replays): kernel "
+            f"{k:.4f} ms/batch = {k / w * 1e3:.3f} us/window ({splits} site "
+            f"splits; with the wrapper's host time, CUDA events: {ev:.4f}), "
+            "plain "
+            f"{p:.4f} ms; bound {b:.4f} ms ({by}), {100 * b / k:.1f}% of it;"
+            f" one bf16 bmm of [z; v] {lib:.4f} ms; by forced splits: "
+            + ", ".join(f"{n_} {t:.4f}" for n_, t in sweep.items()))
+    w, s, k_ms, p_ms = times[0][:4]
+    say("2i", f"[512,2048]x64 in the report: {share}")
     report["pairwise_identity"].update(max_abs_err=0.0, ms=k_ms,
                                        plain_ms=p_ms)
 
@@ -553,6 +715,9 @@ def phase_idgroup_kernel(dev, report):
     args, r = case(*hprc_batch(rng, BATCH), True, "2j")
     k_ms = cuda_time_ms(lambda: identity_group(*args), 10)
     p_ms = cuda_time_ms(lambda: identity_group_plain(*args), 3)
+    share = set_bound(report, "identity_group", k_ms,
+                      nbytes(*args[:4], args[5], *identity_group(*args)),
+                      int8=4 * BATCH * tri_pairs(CAP_N) * CAP_S)
     geno, member, smask, _, lengths = hprc_batch(rng, 64, cap_n=256,
                                                  n_hap=230)
     _, r_b = case(geno, member, smask, rng.random((64, 4, 256)) < 0.4,
@@ -561,7 +726,7 @@ def phase_idgroup_kernel(dev, report):
         f"[256,128]x64 overlapping panels R = {r_b}: sim, present, gid and "
         f"S exactly equal; kernel {k_ms:.4f} ms/batch = "
         f"{k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch = "
-        f"{p_ms / BATCH * 1e3:.3f} us/window")
+        f"{p_ms / BATCH * 1e3:.3f} us/window; {share}")
     report["identity_group"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
 
 
@@ -785,9 +950,9 @@ def run_cli(argv, what) -> float:
 
 
 def native_extractor(pg):
-    from impop_tpu_torch.hostio import open_extractor
+    from impop_tpu_torch.hostio import _open_extractor
 
-    ex = open_extractor(pg["paf"], pg["fasta"])
+    ex = _open_extractor(pg["paf"], pg["fasta"])
     if type(ex).__name__ != "NativeExtractor":
         raise SmokeError(f"extractor is {type(ex).__name__}, not the native "
                          "one")

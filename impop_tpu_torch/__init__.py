@@ -20,10 +20,15 @@ to find:
                              commands (``pi``, ``hfst``, ``hud``,
                              ``fst3pi``, ``afs``, ``panels-*``)
 
-Host code that never touches JAX (``impop_tpu.io``, ``impop_tpu.extract``,
-``impop_tpu.report`` and the wire-format helpers of ``impop_tpu.cli``) is
-imported from the JAX package, not copied, so both packages share one wire
-format, one row order and one table schema.  Nothing here imports ``jax``.
+- impop_tpu_torch.io, .extract, .report, .hostio : the host layer (BED,
+                             panels, similarity TSVs, native extraction
+                             from ``cpp/``, output tables, the scan's wire
+                             buffer), copies of the JAX package's JAX-free
+                             modules, so both packages share one wire
+                             format, one row order and one table schema
+
+Nothing here imports ``jax`` or ``impop_tpu``
+(``tests/test_torch_imports.py``).
 """
 
 __version__ = "0.1.0"

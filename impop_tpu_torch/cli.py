@@ -53,8 +53,8 @@ from impop_tpu_torch.hostio import (DirSimSource, GenoSource, GfaDirSource,
                                     _load_windows, _open_extractor,
                                     _out_stream, _panel_label,
                                     _print_counters, _resolve_fasta,
-                                    _scan_buf_layout, _write_window_log,
-                                    expand_population, open_extractor,
+                                    _scan_buf_layout, _warn,
+                                    _write_window_log, expand_population,
                                     pack_scan_batch, parse_region, read_bed,
                                     read_panel_file, read_similarity_tsv,
                                     round_half_even, site_weights_from_keys,
@@ -65,10 +65,6 @@ from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
 __all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
            "cmd_hud", "cmd_fst3pi", "cmd_afs", "cmd_panels_hfst",
            "cmd_panels_tajd", "GenoSimSource", "main"]
-
-
-def _warn(msg: str) -> None:
-    print(msg, file=sys.stderr)
 
 
 def _refuse_unported(args) -> None:
@@ -145,7 +141,7 @@ def cmd_scan(args) -> int:
                 else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
     with timers.stage("setup.open"):
         fasta_store = _resolve_fasta(args)
-        extractor = (open_extractor(args.paf, fasta_store)
+        extractor = (_open_extractor(args.paf, fasta_store)
                      if args.paf and fasta_store else None)
     if geno_src is None and extractor is None:
         raise SystemExit("error: provide --geno-dir, --gfa-dir, "
@@ -785,8 +781,7 @@ class GenoSimSource(SimSource):
                          else GfaDirSource(gfa_dir) if gfa_dir else None)
         self.extractor = None
         if paf and fasta:
-            self.extractor = (open_extractor(paf, fasta) if use_native
-                              else _open_extractor(paf, fasta, False))
+            self.extractor = _open_extractor(paf, fasta, use_native)
 
     def load(self, region: str) -> SimilarityMatrix:
         import torch

@@ -80,9 +80,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.impop_seed_peel.restype = _I
     lib.impop_ehh_area.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 4
     lib.impop_ehh_area.restype = _I
-    lib.impop_weighted_identity.argtypes = [_P] * 5 + [_I] * 3 + [_P] * 3
+    lib.impop_weighted_identity.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 4
     lib.impop_weighted_identity.restype = _I
-    lib.impop_pairwise_identity.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 3
+    lib.impop_pairwise_identity.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 4
     lib.impop_pairwise_identity.restype = _I
     lib.impop_identity_group.argtypes = (
         [_P] * 5 + [_F] + [_I] * 4 + [_P] * 7)

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from impop_tpu.io.panels import expand_population
+from impop_tpu_torch.io.panels import expand_population
 from impop_tpu_torch.parallel.scan import WindowBatch
 
 __all__ = ["PanelSet", "build_window_batch", "pad_batch_count"]

@@ -65,7 +65,7 @@ def batch(seed, w, n, s, p, disjoint, partial):
     member = np.zeros((w, n), bool)
     member[:, :n_mem] = True
     smask = np.ones((w, s), bool)
-    smask[:, -7:] = False
+    smask[:, s - min(7, s // 4):] = False   # keeps S = 1 active
     if disjoint:
         pmasks = np.zeros((w, p, n), bool)
         edges = np.linspace(0, n_mem, p + 1).astype(int)
@@ -171,30 +171,56 @@ def test_ehh_area_kernel_matches_plain(cuda_device, w, n, s, noise,
         assert int(got[0].max()) > 1 << 24
 
 
-def weighted_inputs(seed, w, n, s):
+def weighted_inputs(seed, w, n, s, weights="int"):
+    """Integer weights 1-50 with one 100 000 bp column ("int"), all ones
+    ("ones"), or non-integer weights in (0, 50) ("frac")."""
     geno, member, smask, _ = batch(seed, w, n, s, 2, True, False)
     rng = np.random.default_rng(seed)
-    wts = rng.integers(1, 51, size=(w, s)).astype(np.float32)
-    wts[:, s // 5] = 100_000.0
+    if weights == "ones":
+        wts = np.ones((w, s), np.float32)
+    elif weights == "frac":
+        wts = rng.uniform(0.0, 50.0, size=(w, s)).astype(np.float32)
+    else:
+        wts = rng.integers(1, 51, size=(w, s)).astype(np.float32)
+        wts[:, s // 5] = 100_000.0
     return geno, member, smask, wts
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w,n,s", [(8, 512, 128), (2, 512, 4096),
-                                   (3, 100, 77)])
-def test_weighted_identity_kernel_matches_plain(cuda_device, w, n, s):
-    geno, member, smask, wts = weighted_inputs(48, w, n, s)
+@pytest.mark.parametrize("w,n,s,weights,splits", [
+    (8, 512, 128, "int", None), (2, 512, 4096, "int", None),
+    (3, 100, 77, "int", None), (3, 37, 37, "int", None),
+    (2, 37, 1, "int", None), (2, 1024, 3120, "int", None),
+    (4, 512, 128, "ones", None), (2, 256, 640, "int", 3),
+    (3, 200, 300, "frac", None)])
+def test_weighted_identity_kernel_matches_plain(cuda_device, w, n, s,
+                                                weights, splits):
+    """Integer weights: sim and present exactly equal.  Non-integer
+    weights: present equal, sim within 1e-5 of the weight mass per bp
+    (the float32 sums run in another order) plus 1e-6."""
+    from impop_tpu_torch.ops.pairdiff import _weighted_identity_cuda
+
+    geno, member, smask, wts = weighted_inputs(48, w, n, s, weights)
     args = [torch.from_numpy(a).to(cuda_device)
             for a in (geno, member, smask)]
     length = torch.full((w,), LEN, device=cuda_device)
-    weights = torch.from_numpy(wts).to(cuda_device)
+    weights_t = torch.from_numpy(wts).to(cuda_device)
     before = pairwise_identity_weighted.launches
-    sim, pres = pairwise_identity_weighted(*args, length, weights)
+    if splits is None:
+        sim, pres = pairwise_identity_weighted(*args, length, weights_t)
+    else:
+        sim, pres = _weighted_identity_cuda(*args, length, weights_t,
+                                            splits=splits)
     torch.cuda.synchronize()
     assert pairwise_identity_weighted.launches == before + 1
-    sim_p, pres_p = pairwise_identity_weighted_plain(*args, length, weights)
+    sim_p, pres_p = pairwise_identity_weighted_plain(*args, length,
+                                                     weights_t)
     assert torch.equal(pres, pres_p)
-    assert torch.equal(sim, sim_p)
+    if weights == "frac":
+        atol = 1e-5 * float(wts.sum(axis=1).max()) / LEN + 1e-6
+        torch.testing.assert_close(sim, sim_p, rtol=0.0, atol=atol)
+    else:
+        assert torch.equal(sim, sim_p)
 
 
 @pytest.mark.gpu
@@ -235,24 +261,33 @@ def test_masked_pair_sums_kernel_matches_plain(cuda_device, disjoint):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w,n,s,max_code,length", [
-    (8, 512, 2048, 1, 200_000.0), (2, 1024, 256, 1, LEN),
-    (3, 100, 77, 3, LEN), (2, 64, 96, 1, 0.0)])
+@pytest.mark.parametrize("w,n,s,max_code,length,splits", [
+    (8, 512, 2048, 1, 200_000.0, None), (2, 1024, 256, 1, LEN, None),
+    (3, 100, 77, 3, LEN, None), (2, 64, 96, 1, 0.0, None),
+    (3, 37, 37, 1, LEN, None), (2, 37, 1, 1, LEN, None),
+    (2, 1024, 3120, 1, LEN, None), (10, 512, 3200, 1, 200_000.0, None),
+    (3, 200, 300, 63, LEN, None), (2, 300, 1000, 1, LEN, 4),
+    (1, 512, 8192, 1, 200_000.0, 5)])
 def test_pairwise_identity_kernel_matches_plain(cuda_device, w, n, s,
-                                                max_code, length):
+                                                max_code, length, splits):
+    from impop_tpu_torch.ops.pairdiff import _pairwise_identity_cuda
+
     geno, member, smask, _ = batch(51, w, n, s, 2, True, False)
     rng = np.random.default_rng(51)
     if max_code > 1:
         geno = np.where(geno > 0, rng.integers(1, max_code + 1,
                                                size=geno.shape),
                         geno).astype(np.int8)
-    member[:, 3] = True
-    geno[:, 3] = -1                  # a member with no valid call
+    member[:, 3 % n] = True
+    geno[:, 3 % n] = -1              # a member with no valid call
     args = [torch.from_numpy(a).to(cuda_device)
             for a in (geno, member, smask)]
     lens = torch.full((w,), length, device=cuda_device)
     before = pairwise_identity.launches
-    sim, pres = pairwise_identity(*args, lens)
+    if splits is None:
+        sim, pres = pairwise_identity(*args, lens)
+    else:
+        sim, pres = _pairwise_identity_cuda(*args, lens, splits=splits)
     torch.cuda.synchronize()
     assert pairwise_identity.launches == before + 1
     sim_p, pres_p = pairwise_identity_plain(*args, lens)

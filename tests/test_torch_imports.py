@@ -1,7 +1,10 @@
-"""The port never loads JAX: importing every module of impop_tpu_torch in a
-fresh interpreter must leave ``jax`` out of ``sys.modules`` (the machine
-with the card has no JAX at all).  Also: the device helper never moves to
-the CPU by itself, and nothing builds a kernel at import time."""
+"""The port never loads JAX and never imports the JAX package: importing
+every module of impop_tpu_torch in a fresh interpreter, and running a tiny
+``scan`` and ``tajd`` through ``python -m impop_tpu_torch.cli`` on the CPU,
+must leave ``jax`` and every ``impop_tpu`` / ``impop_tpu.*`` module out of
+``sys.modules`` (the machine with the card has no JAX at all).  Also: the
+device helper never moves to the CPU by itself, and nothing builds a kernel
+at import time."""
 from __future__ import annotations
 
 import os
@@ -15,6 +18,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "impop_tpu_torch", "impop_tpu_torch.cli", "impop_tpu_torch.device",
     "impop_tpu_torch.hostio", "impop_tpu_torch.scanstep",
+    "impop_tpu_torch.io", "impop_tpu_torch.io.bed", "impop_tpu_torch.io.bgzf",
+    "impop_tpu_torch.io.panels", "impop_tpu_torch.io.simtsv",
+    "impop_tpu_torch.extract", "impop_tpu_torch.extract.agc",
+    "impop_tpu_torch.extract.gfa", "impop_tpu_torch.extract.pyfallback",
+    "impop_tpu_torch.extract.simulate", "impop_tpu_torch.report",
+    "impop_tpu_torch.report.tables", "impop_tpu_torch.bench",
+    "impop_tpu_torch.bench.gram_breakdown",
     "impop_tpu_torch.ops._build", "impop_tpu_torch.ops.ehhdeath",
     "impop_tpu_torch.ops.idgroup", "impop_tpu_torch.ops.pairdiff",
     "impop_tpu_torch.ops.panelquad", "impop_tpu_torch.ops.seedpeel",
@@ -30,20 +40,70 @@ MODULES = [
 ]
 
 
+FORBIDDEN = ("bad = sorted(m for m in sys.modules if m in ('jax', 'impop_tpu')"
+             " or m.startswith(('jax.', 'impop_tpu.')))\n"
+             "print('forbidden:', bad)\n"
+             "sys.exit(1 if bad else 0)\n")
+
+
+def _run_clean(code, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
 def test_port_imports_without_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "import impop_tpu_torch.ops._build as b\n"
             + "assert b._lib is None, 'kernel library loaded at import'\n"
-            + "bad = sorted(m for m in sys.modules"
-              " if m == 'jax' or m.startswith('jax.'))\n"
-            + "print(bad)\n"
-            + "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+            + FORBIDDEN)
+    proc = _run_clean(code, REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """``scan`` (native PAF + FASTA extraction) and ``tajd`` (allele
+    tiles), each as ``python -m impop_tpu_torch.cli ... --device cpu``,
+    with inputs made by the port's own simulator."""
+    code = f"""import runpy, sys
+import numpy as np
+from impop_tpu_torch.hostio import simulate
+
+tmp = {str(tmp_path)!r}
+sim = simulate(tmp, ref_len=3000, n_haps=6, seed=5, site_pool=20,
+               span=(0, 3000))
+open(tmp + '/w.bed', 'w').write('chr1\\t0\\t1500\\nchr1\\t1500\\t3000\\n')
+open(tmp + '/agc.A', 'w').write('HG00900\\nHG00901\\nHG00902\\n')
+open(tmp + '/agc.B', 'w').write('HG00903\\nHG00904\\n')
+rng = np.random.default_rng(0)
+import os
+os.makedirs(tmp + '/tiles')
+for k in range(2):
+    np.savez(tmp + f'/tiles/chr1:{{1500 * k}}-{{1500 * (k + 1)}}.npz',
+             geno=rng.integers(-1, 2, (9, 40)).astype(np.int8),
+             names=np.array([f'HG{{j:05d}}#1#c' for j in range(9)]))
+runs = [
+    ['scan', '-b', tmp + '/w.bed', '--paf', sim.paf_path, '--fasta',
+     sim.fasta_path, '-P', 'CHM13#0#', '--panel', tmp + '/agc.A',
+     '--panel', tmp + '/agc.B', '-o', tmp + '/scan.tsv', '--device', 'cpu'],
+    ['tajd', '-b', tmp + '/w.bed', '-P', '', '--geno-dir', tmp + '/tiles',
+     '-o', tmp + '/tajd.tsv', '--device', 'cpu'],
+]
+for argv in runs:
+    sys.argv = ['impop_tpu_torch.cli'] + argv
+    try:
+        runpy.run_module('impop_tpu_torch.cli', run_name='__main__')
+    except SystemExit as e:
+        assert not e.code, (argv[0], e.code)
+for name in ('scan.tsv', 'tajd.tsv'):
+    rows = open(tmp + '/' + name).read().splitlines()
+    assert len(rows) == 3, (name, rows)
+""" + FORBIDDEN
+    proc = _run_clean(code, str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "forbidden: []" in proc.stdout
 
 
 def test_resolve_device_never_falls_back():
