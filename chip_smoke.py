@@ -9,9 +9,10 @@ Phases (one line each; any failure exits non-zero):
   1  build the CUDA kernels from impop_tpu_torch/csrc
   2  each kernel against its plain PyTorch version on the card:
      (a) [512, 128] x 320 HPRC-shaped windows, 5 panels / 10 disjoint
-         pairs, with kernel and plain per-window times (CUDA events);
+         pairs, with kernel and plain per-window times (CUDA events) and
+         the time of each of the window program's kernels (torch.profiler);
      (b) cap 256 with overlapping panels; (c) a partial-coverage window
-     that sets seed_risk; (d) cap_s = 4096; (e) seed_peel;
+     that sets seed_risk; (d) cap_s = 4096, timed; (e) seed_peel;
      (f) ehh_area: [512, 128] x 320 with the focal at the middle variant,
          focals on the first and last active site, a window with no
          active site, and [512, 1024] x 16 past 2^24 (all exactly equal);
@@ -45,10 +46,15 @@ Phases (one line each; any failure exits non-zero):
      (native extractor), on the card and again on the CPU (integer columns
      exact, PI and D rtol 1e-5), with ``-s`` on one panel, then the whole
      2 Mb as one window, batched and streamed (``--stream-npy
-     --chunk-sites 4096``): the two rows equal
+     --chunk-sites 4096``): the two rows equal; and the ten windows again
+     in device batches of 4 + 4 + 2: the rows of the one-batch run
   8  ``fused_window_stats(return_matrices=True)`` against
      ``return_matrices=False`` at [512, 128] x 320 (S and integers exact,
      floats rtol 1e-5, Fst atol 2e-3)
+  A1 ``fused_window_stats(return_matrices=False)`` on [2, 512, 65 664], past
+     the window kernel's cap, against ``window_stats_plain``: the composed
+     route (identity, S, fused_panel_stats) by its launch counts
+     (pairwise_identity > 0, window_stats == 0)
   9  the per-statistic commands on 200 consecutive 5 kb windows of the same
      pangenome as .npz tiles, on the card (two device batches of 128 and
      72 windows): ``pi -u agc.EUR``, ``hfst``, ``hud -m grouped`` and
@@ -61,7 +67,7 @@ Phases (one line each; any failure exits non-zero):
      2e-3, NA in the same places; afs files identical); then the device
      steps alone, timed and profiled
 
-Each main path (3-4, 5, 6, 7, 8, 9) starts with every kernel launch count at 0
+Each main path (3-4, 5, 6, 7, 8, A1, 9) starts with every kernel launch count at 0
 and fails unless each kernel of that path was launched during it.
 
 Every kernel line of phase 2 gives its time, its plain version's, its bound
@@ -512,6 +518,8 @@ def phase_kernels(dev, report):
         f"{err_a:.3e}); kernel {k_ms:.4f} ms/batch "
         f"= {k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
         f"= {p_ms / BATCH * 1e3:.3f} us/window; {share}")
+    say("2a", "window_stats by phase kernel (torch.profiler, one call): "
+        + profile_ops(lambda: window_stats(*args), k_ms))
     report["window_stats"].update(max_abs_err=err_a, ms=k_ms, plain_ms=p_ms)
 
     # (b) cap 256, overlapping panels (non-disjoint layout)
@@ -546,9 +554,12 @@ def phase_kernels(dev, report):
         rng.random((8, N_HAP, 4096)) < 0.02, 1, 0).astype(np.int8)
     smask[:] = True
     lengths[:] = 200_000.0
-    err_d, _, _ = window_case(dev, geno, member, smask, panels, lengths,
-                              True, "2d")
-    say("2d", f"window_stats [512,4096]x8: max_abs_err {err_d:.3e}")
+    err_d, args_d, _ = window_case(dev, geno, member, smask, panels,
+                                   lengths, True, "2d")
+    d_ms = cuda_time_ms(lambda: window_stats(*args_d), 10)
+    say("2d", f"window_stats [512,4096]x8: max_abs_err {err_d:.3e}; kernel "
+        f"{d_ms:.4f} ms/batch; by phase kernel (torch.profiler): "
+        + profile_ops(lambda: window_stats(*args_d), d_ms))
     report["window_stats"]["max_abs_err"] = max(err_a, err_b, err_c, err_d)
 
     # (e) seed_peel at the recompute's shape: one window, 2Q = 20 masks
@@ -607,7 +618,8 @@ def phase_identity_kernel(dev, report):
     import numpy as np
     import torch
 
-    from impop_tpu_torch.ops.pairdiff import (_pairwise_identity_cuda,
+    from impop_tpu_torch.ops.pairdiff import (KT_UNIT,
+                                              _pairwise_identity_cuda,
                                               identity_partition,
                                               pairwise_identity,
                                               pairwise_identity_plain)
@@ -639,7 +651,7 @@ def phase_identity_kernel(dev, report):
         lib_ms = graph_ms(lambda: torch.bmm(x, xt), 10)
         b_ms, by = bound(nbytes(*args, sim, pres),
                          int8=4 * w * tri_pairs(CAP_N) * s)
-        splits = identity_partition(w, CAP_N, s, 64, sms)[2]
+        splits = identity_partition(w, CAP_N, s, KT_UNIT, sms)[2]
         sweep = {k: graph_ms(
             lambda: _pairwise_identity_cuda(*args, splits=k), 10)
             for k in (1, 2, 3, 4, 5, 6, 8)}
@@ -728,6 +740,52 @@ def phase_idgroup_kernel(dev, report):
         f"{k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch = "
         f"{p_ms / BATCH * 1e3:.3f} us/window; {share}")
     report["identity_group"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
+
+
+def phase_route(dev):
+    """Windows past the window kernel's 65 535 sites: fused_window_stats
+    composes the identity, S and fused_panel_stats, against
+    window_stats_plain on the same [2, 512, 65 664] batch (integers exact,
+    floats rtol 1e-5, Fst atol 2e-3); the launch counts show the route."""
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.ops.windowstat import window_stats, window_stats_plain
+    from impop_tpu_torch.stats.panelstats import (_assemble_from_kernel,
+                                                  fused_window_stats,
+                                                  panel_mask_stack)
+
+    cap_s = 65_664
+    rng = np.random.default_rng(41)
+    geno, member, smask, panels, lengths = hprc_batch(rng, 2, cap_s=cap_s)
+    geno[:, :N_HAP] = np.where(rng.random((2, N_HAP, cap_s)) < 0.02, 1,
+                               0).astype(np.int8)
+    smask[:] = True
+    lengths[:] = 2_000_000.0
+    p = panels.shape[1]
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    g, m, sm, pn, ln = to_dev(dev, geno, member, smask, panels, lengths)
+    sim, pres, s_count, got = fused_window_stats(g, m, sm, ln, pn, pa, pb,
+                                                 THRESHOLD, True,
+                                                 return_matrices=False)
+    torch.cuda.synchronize()
+    if sim is not None or pres is not None:
+        raise SmokeError("A1: the composed route returned matrices")
+    if window_stats.launches:
+        raise SmokeError("A1: the window kernel ran past its cap")
+    stack, ma, mb = panel_mask_stack(pn, m, pa, pb, True)
+    raw = window_stats_plain(g, m, sm, stack, ma, mb, THRESHOLD, ln, pa, pb,
+                             True)
+    want = _assemble_from_kernel(raw, p + len(pairs), len(pairs), pa, pb,
+                                 True)
+    if not torch.equal(s_count, raw["s"]):
+        raise SmokeError("A1: S differs from the plain version")
+    worst = compare_panelstats(got, want, "A1")
+    say("A1", f"fused_window_stats [{CAP_N},{cap_s}]x2 (past the window "
+        f"kernel's 65 535 sites, S = {[int(x) for x in s_count.tolist()]}): "
+        f"composed route equals window_stats_plain (integers exact, floats "
+        f"rtol {RTOL}, Fst atol 2e-3; max abs {worst:.3e})")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -987,8 +1045,6 @@ def phase_tajd(dev, tmp, pg, step):
     the ten windows for :func:`time_tajd_step`."""
     import numpy as np
 
-    from impop_tpu_torch.hostio import _capacity_for
-
     t0 = time.perf_counter()
     ex = native_extractor(pg)
     tiles, whole = os.path.join(tmp, "tajd200k"), os.path.join(tmp, "tajd2m")
@@ -1019,6 +1075,24 @@ def phase_tajd(dev, tmp, pg, step):
     wall_c = run_cli(base + ["-o", out("cpu"), "--device", "cpu"],
                      "tajd --cpu")
     rows = compare_tajd(out("gpu"), out("cpu"), "7 gpu-vs-cpu")
+    # device batches of 4 windows: the rows of the one-batch run
+    import impop_tpu_torch.cli as torch_cli
+    from impop_tpu_torch.hostio import _capacity_for
+
+    cap_n = _capacity_for([wm.geno.shape[0] for wm in wms[:-1]])
+    saved = torch_cli._WINDOW_CHUNK_ELEMS
+    torch_cli._WINDOW_CHUNK_ELEMS = 4 * cap_n * cap_n
+    try:
+        run_cli(base + ["-o", out("gpu_b4"), "--device", dev.type],
+                "tajd in batches of 4 on the card")
+    finally:
+        torch_cli._WINDOW_CHUNK_ELEMS = saved
+    compare_tajd(out("gpu_b4"), out("gpu"), "7 batches of 4 vs one batch")
+    with open(out("gpu_b4")) as fa, open(out("gpu")) as fb:
+        same_text = fa.read() == fb.read()
+    say("7", f"tajd in device batches of 4 + 4 + 2 windows: rows equal to the "
+        f"one-batch rows (integers exact, PI and D rtol 1e-5; text "
+        f"{'identical' if same_text else 'differs in the last digits'})")
     for r in rows:
         if not np.isfinite(float(r[4])) or r[5] == "NA" or int(r[3]) < 2048:
             raise SmokeError(f"7: implausible row {r}")
@@ -1126,6 +1200,38 @@ def profile_ops(fn, step_ms: float, top: int = 8) -> str:
                 for us, key, n in rows[:top]))
 
 
+def compare_panelstats(got, want, tag) -> float:
+    """Integer fields exact, Fst / Da atol 2e-3 with NaN at the same
+    places, other floats rtol RTOL; returns the max abs difference."""
+    import torch
+
+    worst = 0.0
+
+    def check(name, a, b):
+        nonlocal worst
+        if name in ("n", "num_groups", "pairs_used", "pairs_missing",
+                    "seed_risk"):
+            if not torch.equal(a, b):
+                raise SmokeError(f"{tag}: {name} differs")
+            return
+        diff = torch.nan_to_num((a - b).abs(), nan=0.0)
+        worst = max(worst, float(diff.max()))
+        if name.endswith((".fst", ".da")):
+            ok = (diff <= 2e-3) & (a.isnan() == b.isnan())
+        else:
+            ok = torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+        if not bool(ok.all()):
+            raise SmokeError(f"{tag}: {name} beyond tolerance")
+
+    for f, a, b in zip(got._fields, got, want):
+        if isinstance(a, tuple):
+            for f2, a2, b2 in zip(a._fields, a, b):
+                check(f"{f}.{f2}", a2, b2)
+        else:
+            check(f, a, b)
+    return worst
+
+
 def phase_matrices(dev):
     """fused_window_stats with and without its matrices on one batch."""
     import numpy as np
@@ -1151,30 +1257,7 @@ def phase_matrices(dev):
         raise SmokeError("8: S differs with and without matrices")
     if not bool(torch.isfinite(res_m.pi).all()):
         raise SmokeError("8: non-finite pi")
-    worst = 0.0
-
-    def check(name, a, b):
-        nonlocal worst
-        if name in ("n", "num_groups", "pairs_used", "pairs_missing",
-                    "seed_risk"):
-            if not torch.equal(a, b):
-                raise SmokeError(f"8: {name} differs")
-            return
-        diff = torch.nan_to_num((a - b).abs(), nan=0.0)
-        worst = max(worst, float(diff.max()))
-        if name.endswith((".fst", ".da")):
-            ok = (diff <= 2e-3) & (a.isnan() == b.isnan())
-        else:
-            ok = torch.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
-        if not bool(ok.all()):
-            raise SmokeError(f"8: {name} beyond tolerance")
-
-    for f, a, b in zip(res_m._fields, res_m, res_w):
-        if isinstance(a, tuple):
-            for f2, a2, b2 in zip(a._fields, a, b):
-                check(f"{f}.{f2}", a2, b2)
-        else:
-            check(f, a, b)
+    worst = compare_panelstats(res_m, res_w, "8")
     say("8", f"fused_window_stats(return_matrices=True) [{CAP_N},{CAP_S}]x"
         f"{BATCH}: sim [{CAP_N},{CAP_N}] per window; S and integer fields "
         f"exact, floats within rtol {RTOL} (Fst atol 2e-3) of "
@@ -1461,6 +1544,8 @@ def main() -> int:
              ("pairwise_identity", "seed_peel")),
             ("8", lambda: phase_matrices(dev),
              ("identity_group", "masked_pair_sums")),
+            ("A1", lambda: phase_route(dev),
+             ("pairwise_identity", "seed_peel", "masked_pair_sums")),
             ("9", lambda: phase_stats(dev, tmp, pg, step),
              ("seed_peel", "masked_pair_sums")),
         ]

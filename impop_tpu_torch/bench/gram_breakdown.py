@@ -3,20 +3,23 @@
     python -m impop_tpu_torch.bench.gram_breakdown
 
 Builds variants of ``csrc/pairdiff.cu`` with one part of the unit-weight
-kernel taken out (text substitutions on the source; the results of a
-variant are wrong by design and are not checked), launches each through
-its C entry point with one site split, and prints the device time of each
-(CUDA graph replays, median of 10) at [512, 64] x 64 (almost all
-epilogue) and [512, 2048] x 64 (the main path's shape of the long-window
-kernel).  A part's cost is the base time minus the variant's.
+kernel (``unit_gram_kernel``: TMA boxes in flight, every warp decoding
+the next stage while two warpgroups' ``wgmma`` run) taken out
+(text substitutions on the source; the results of a variant are wrong by
+design and are not checked), launches each through its C entry point with
+one site split, and prints the device time of each (CUDA graph replays,
+median of 10) at [512, 64] x 64 (almost all epilogue) and [512, 2048] x 64
+(the main path's shape of the long-window kernel).  A part's cost is the
+base time minus the variant's; parts that overlap cost less than their
+sum.
 
   base       the kernel as built for the port
   nodiv      the epilogue's exact division replaced by one multiply
   nomirror   no (j, i) mirror writes
   nostores   no global stores (staging in shared memory only)
   noepi      no epilogue at all (one word per block)
-  nodecode   no decode of the int8 tiles (the MMAs read stale tiles)
-  nomma      no matrix math
+  nodecode   no decode after the first stage (the wgmmas read stale tiles)
+  nomma      no matrix math (the consumer still waits and releases)
   loadsonly  neither decode nor matrix math: loads, barriers, epilogue
 """
 from __future__ import annotations
@@ -27,59 +30,39 @@ import subprocess
 import sys
 import tempfile
 
-_DECODE = "      else decode_unit(smem, (t + 1) % kStages, next, diag, tid);\n"
-_MMA_A = ("    if (!decode_first) mma_stage(acc, cur, diag, row0, col0, lane, "
-          "pieces);\n")
-_MMA_B = ("    if (decode_first) mma_stage(acc, cur, diag, row0, col0, lane, "
-          "pieces);\n")
-_KEEP = "    if (decode_first && cur[tid] == 77) acc.d[0][0][0] += 1;\n"
+_DECODE = ("      decode_stage(smem + slot * kRawSlot, smem + kDecOff + ((t + 1) & 1) * "
+           "kDecSlot,\n")
+_MMA = ("      wgmma_s8(zacc, operand_desc(zi + 2 * kLbo * kk), "
+        "operand_desc(zj + 2 * kLbo * kk));\n"
+        "      wgmma_s8(vacc, operand_desc(vi + 2 * kLbo * kk), "
+        "operand_desc(vj + 2 * kLbo * kk));\n")
+_EPI = "    unit_epilogue(zacc, vacc, smem, a, k);\n    return;\n"
+_STAGED = "  __syncthreads();\n\n  const size_t base = static_cast<size_t>(k.w)"
 
 VARIANTS = {
     "base": [],
     "nodiv": [("div_rn(diff, len, inv)", "(diff * inv)")],
-    "nomirror": [("  if (ti == tj) return;\n", "  return;\n")],
-    "nostores": [("  const size_t base = static_cast<size_t>(w) * n * n;\n",
-                  "  if (n > 0) return;\n"
-                  "  const size_t base = static_cast<size_t>(w) * n * n;\n")],
-    "noepi": [("    epilogue<kW>(acc, smem, a, w, ti, tj);\n    return;\n",
-               "    if (tid == 0) a.sim[w] = acc.d[0][0][0] + acc.v[1][2][3];\n"
+    "nomirror": [("  if (k.diag) return;\n", "  return;\n")],
+    "nostores": [(_STAGED, "  __syncthreads();\n  if (n > 0) return;\n"
+                  "\n  const size_t base = static_cast<size_t>(k.w)")],
+    "noepi": [(_EPI, "    if (threadIdx.x == 0) a.sim[k.w] = zacc[0] + vacc[63];\n"
                "    return;\n")],
-    "nodecode": [(_DECODE, "      else (void)next;\n")],
-    "nomma": [(_MMA_A, ""), (_MMA_B, _KEEP)],
-    "loadsonly": [(_DECODE, "      else (void)next;\n"), (_MMA_A, ""),
-                  (_MMA_B, _KEEP)],
+    "nodecode": [(_DECODE, "      if (a.n < 0) decode_stage(smem + slot * kRawSlot, "
+                  "smem + kDecOff,\n")],
+    "nomma": [(_MMA, "      (void)vj;\n")],
+    "loadsonly": [(_DECODE, "      if (a.n < 0) decode_stage(smem + slot * kRawSlot, "
+                   "smem + kDecOff,\n"), (_MMA, "      (void)vj;\n")],
 }
 SHAPES = ((64, 512, 64), (64, 512, 2048))
 
 
 def build(work: str) -> dict:
-    from impop_tpu_torch.ops._build import NVCC_FLAGS, _CSRC, nvcc_path
+    from impop_tpu_torch.bench import build_variants
 
-    with open(os.path.join(_CSRC, "pairdiff.cu")) as fh:
-        src = fh.read()
-    procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer has {old!r}")
-            text = text.replace(old, new)
-        path = os.path.join(work, f"{name}.cu")
-        with open(path, "w") as fh:
-            fh.write(text)
-        procs[name] = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
-             os.path.join(work, f"{name}.so"), path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(work, f"{name}.so"))
+    libs = build_variants("pairdiff.cu", VARIANTS, work)
+    for lib in libs.values():
         lib.impop_pairwise_identity.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
-        libs[name] = lib
     return libs
 
 
@@ -88,6 +71,7 @@ def main() -> int:
     import torch
 
     from impop_tpu_torch.bench import graph_ms
+    from impop_tpu_torch.ops.pairdiff import KT_UNIT
 
     if not torch.cuda.is_available():
         print("gram_breakdown: needs a CUDA device", file=sys.stderr)
@@ -117,7 +101,7 @@ def main() -> int:
                 def run(lib=lib):
                     err = lib.impop_pairwise_identity(
                         g.data_ptr(), mem.data_ptr(), smk.data_ptr(),
-                        lens.data_ptr(), w, n, s, 1, -(-s // 64), None,
+                        lens.data_ptr(), w, n, s, 1, -(-s // KT_UNIT), None,
                         sim.data_ptr(), pres.data_ptr(),
                         torch.cuda.current_stream().cuda_stream)
                     if err:

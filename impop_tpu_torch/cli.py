@@ -671,11 +671,8 @@ def _tajd_streamed(args, regions, dev) -> int:
 
 
 def cmd_tajd(args) -> int:
-    """Segregating sites, grouped π and Tajima's D per window."""
-    import torch
-
-    from impop_tpu_torch.parallel.scan import batch_tajd_from_alleles
-
+    """Segregating sites, grouped π and Tajima's D per window, in device
+    batches of at most ``_WINDOW_CHUNK_ELEMS`` sim elements."""
     dev = _open_device(args.device)
     regions = read_bed(args.bed)
     # panels-tajd passes a namespace without the streaming flags
@@ -708,46 +705,62 @@ def cmd_tajd(args) -> int:
         print(tables.TAJD_HEADER, file=out)
         if not kept:
             return 0
+        # every batch is padded to the capacity of the largest window, so a
+        # window's row does not depend on the batch it falls in
         cap_n = _capacity_for([t[0].shape[0] for t in tiles])
         cap_s = max(8, max(t[0].shape[1] for t in tiles))
         cap_s = ((cap_s + 127) // 128) * 128
-        w = len(tiles)
-        geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
-        member = np.zeros((w, cap_n), dtype=bool)
-        site_mask = np.zeros((w, cap_s), dtype=bool)
-        panels = np.zeros((w, 1, cap_n), dtype=bool)
-        lengths = np.zeros((w,), dtype=np.float32)
-        for wi, ((g, names, _keys), reg) in enumerate(zip(tiles, kept)):
-            order = np.argsort(names)
-            names = [names[i] for i in order]
-            n, s = g.shape
-            geno[wi, :n, :s] = g[order]
-            member[wi, :n] = True
-            site_mask[wi, :s] = True
-            lengths[wi] = args.length or reg.length
-            if sample_list is None:
-                panels[wi, 0, :n] = True
-            else:
-                matched, _ = expand_population(sample_list, names)
-                panels[wi, 0, :n] = [nm in matched for nm in names]
-        res = batch_tajd_from_alleles(
-            *(torch.from_numpy(a).to(dev)
-              for a in (geno, member, site_mask, panels, lengths)),
-            args.threshold)
-        n_h, s_h, pi_h, d_h = (t.cpu().numpy()
-                               for t in (res.n, res.s, res.pi, res.d))
-        for wi, rs in enumerate(region_strings):
-            n_val, s_val = int(n_h[wi, 0]), int(s_h[wi])
-            pi_val, d_val = float(pi_h[wi, 0]), float(d_h[wi, 0])
-            print(tables.tajd_row(rs, int(lengths[wi]), n_val, s_val,
-                                  pi_val, d_val), file=out)
-            if args.log_dir:
-                _tajd_log(args, rs, lengths[wi], n_val, s_val, pi_val,
-                          d_val)
+        step = max(1, _WINDOW_CHUNK_ELEMS // (cap_n * cap_n))
+        for lo in range(0, len(tiles), step):
+            _tajd_batch(args, tiles[lo:lo + step], kept[lo:lo + step],
+                        region_strings[lo:lo + step], sample_list, cap_n,
+                        cap_s, dev, out)
     finally:
         if out is not sys.stdout:
             out.close()
     return 0
+
+
+def _tajd_batch(args, tiles, kept, region_strings, sample_list, cap_n,
+                cap_s, dev, out) -> None:
+    """One device batch of ``cmd_tajd``: pad, run, print the rows (and
+    their logs) in window order."""
+    import torch
+
+    from impop_tpu_torch.parallel.scan import batch_tajd_from_alleles
+
+    w = len(tiles)
+    geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
+    member = np.zeros((w, cap_n), dtype=bool)
+    site_mask = np.zeros((w, cap_s), dtype=bool)
+    panels = np.zeros((w, 1, cap_n), dtype=bool)
+    lengths = np.zeros((w,), dtype=np.float32)
+    for wi, ((g, names, _keys), reg) in enumerate(zip(tiles, kept)):
+        order = np.argsort(names)
+        names = [names[i] for i in order]
+        n, s = g.shape
+        geno[wi, :n, :s] = g[order]
+        member[wi, :n] = True
+        site_mask[wi, :s] = True
+        lengths[wi] = args.length or reg.length
+        if sample_list is None:
+            panels[wi, 0, :n] = True
+        else:
+            matched, _ = expand_population(sample_list, names)
+            panels[wi, 0, :n] = [nm in matched for nm in names]
+    res = batch_tajd_from_alleles(
+        *(torch.from_numpy(a).to(dev)
+          for a in (geno, member, site_mask, panels, lengths)),
+        args.threshold)
+    n_h, s_h, pi_h, d_h = (t.cpu().numpy()
+                           for t in (res.n, res.s, res.pi, res.d))
+    for wi, rs in enumerate(region_strings):
+        n_val, s_val = int(n_h[wi, 0]), int(s_h[wi])
+        pi_val, d_val = float(pi_h[wi, 0]), float(d_h[wi, 0])
+        print(tables.tajd_row(rs, int(lengths[wi]), n_val, s_val,
+                              pi_val, d_val), file=out)
+        if args.log_dir:
+            _tajd_log(args, rs, lengths[wi], n_val, s_val, pi_val, d_val)
 
 
 # ------------------------------------------------------------ sim sources

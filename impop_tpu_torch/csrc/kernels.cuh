@@ -70,22 +70,23 @@ __device__ __forceinline__ void group_products(const float* __restrict__ x, int 
   }
 }
 
-// ---- window identity in bit-packed form (window_stats_kernel phase A,
-// identity_group_kernel).  Rows are bit-packed into 32-site words of alt
+// ---- window identity in bit-packed form (window_stats_kernel phase A0,
+// identity_group_kernel phase A).  Rows are bit-packed into 32-site words of alt
 // bits (valid and call > 0) and valid bits (site_mask & member & call >= 0);
 // biallelic codes.  N and S are multiples of 32.
 
-// A0: the alt / valid words of every row ([S/32, N] each, word-major) and
-// the column bitmaps of valid alt and valid ref calls.  Every warp of the
-// block calls it; col_alt / col_ref must be zero on entry.
-__device__ inline void pack_bits(const int8_t* __restrict__ geno,
+// A0: the alt / valid words of rows [i_lo, i_lo + rows) ([S/32, N] each,
+// word-major) and the column bitmaps of valid alt and valid ref calls over
+// those rows (OR-ed in with shared-memory atomics).  Every warp of the
+// block calls it; col_alt / col_ref must be zero before the first call.
+__device__ inline void pack_rows(const int8_t* __restrict__ geno,
                                  const uint8_t* __restrict__ smask,
-                                 const uint8_t* __restrict__ mem, int n, int s,
-                                 uint32_t* abits, uint32_t* vbits, uint32_t* col_alt,
+                                 const uint8_t* __restrict__ mem, int n, int s, int i_lo,
+                                 int rows, uint32_t* abits, uint32_t* vbits, uint32_t* col_alt,
                                  uint32_t* col_ref, int warp, int n_warps, int lane) {
   const int sw = s / 32;
-  for (int item = warp; item < n * sw; item += n_warps) {
-    const int i = item / sw, k = item % sw;
+  for (int item = warp; item < rows * sw; item += n_warps) {
+    const int i = i_lo + item / sw, k = item % sw;
     const int site = 32 * k + lane;
     const int8_t g = geno[static_cast<size_t>(i) * s + site];
     const bool valid = g >= 0 && smask[site] && mem[i];
@@ -98,6 +99,15 @@ __device__ inline void pack_bits(const int8_t* __restrict__ geno,
       atomicOr(&col_ref[k], vv & ~av);
     }
   }
+}
+
+// A0 over every row.
+__device__ inline void pack_bits(const int8_t* __restrict__ geno,
+                                 const uint8_t* __restrict__ smask,
+                                 const uint8_t* __restrict__ mem, int n, int s,
+                                 uint32_t* abits, uint32_t* vbits, uint32_t* col_alt,
+                                 uint32_t* col_ref, int warp, int n_warps, int lane) {
+  pack_rows(geno, smask, mem, n, s, 0, n, abits, vbits, col_alt, col_ref, warp, n_warps, lane);
 }
 
 // A1: every pair (i, j), one warp per (i, 32 consecutive j).  For each pair

@@ -1,7 +1,7 @@
-// Identity from allele tiles for Hopper (sm_90a): two Grams on the tensor
-// cores, one skeleton.
+// Identity from allele tiles for Hopper (sm_90a): the Grams on the tensor
+// cores, one kernel for unit weights and one for column weights.
 //
-// Unit weights, gram_kernel<false>.  Replaces the unit-weight Pallas TPU
+// Unit weights, unit_gram_kernel.  Replaces the unit-weight Pallas TPU
 // kernels of the JAX package, which compute one function on three TPU
 // schedules:
 //   impop_tpu/ops/pairdiff.py:403  pairwise_identity_pallas (tri-resident,
@@ -21,7 +21,7 @@
 // for every code whose z still fits int8 (g <= 63), so sim and present
 // equal the plain version's for any summation order.
 //
-// Column weights, gram_kernel<true>.  Replaces the weighted branch of
+// Column weights, weighted_gram_kernel.  Replaces the weighted branch of
 //   impop_tpu/ops/pairdiff.py:486  pairwise_identity_pallas(site_weights=...)
 // With a = call at a valid site, c = v - a (biallelic codes; a code above 1
 // counts as the alt allele) and per-site weights w:
@@ -41,57 +41,71 @@
 // needs (block-uniform, decided on the device by __syncthreads_or): integer
 // weights below 256 need one.  Never TF32.
 //
-// Design (both).  One block of 512 threads (16 warps, each 32 x 32 outputs)
-// per (window, 128 x 128 output tile pair ti <= tj, site split); the lower
-// triangle is never computed.  Raw int8 tiles of the 2 x 128 rows (one set
-// on a diagonal tile) and the site mask (and weights) stream through a
-// 4-deep cp.async ring of 16-byte copies; each stage is decoded once into
-// double-buffered operand tiles in shared memory, four sites per 32-bit
-// word with plain integer ops (no per-byte branches; the __v*4 intrinsics
-// are emulated on sm_90 and cost several times more): unit weights store
-// z only and take v = z & 0x01 per byte from the loaded fragments.  The
-// decode of stage t + 1 and the mma.sync of stage t sit between the same
-// two barriers, so one warp's decode overlaps another's matrix math.
-// Fragments come from ldmatrix (decoded rows padded by 16 bytes, so the
-// eight row addresses of each 8 x 8 matrix hit distinct banks).  Math:
-// mma.sync m16n8k32 s8 -> s32 (z and v Grams), m16n8k16 bf16 -> f32
-// (weighted diff).  The epilogue stages the sim (f32) and present (u8)
-// tile in shared memory and writes the (i, j) tile and its mirror (j, i)
-// with 16-byte stores, four lanes per output row.
+// Unit weights, design (unit_gram_kernel).  One CTA of 256 threads (two
+// warpgroups) per (window, 128 x 128 output tile pair ti <= tj, site
+// split); the lower triangle is never computed.
+//   loads   thread 0 keeps the raw int8 tiles of the next stages in
+//           flight, one TMA box (cp.async.bulk.tensor) of 64 sites x 128
+//           rows for the i rows (none on a diagonal tile) and one for the
+//           j rows, and a bulk copy of the site mask, into a 6-deep ring;
+//           completion on an mbarrier per slot.  Out-of-bounds rows and
+//           sites arrive as zeros.
+//   decode  every warp turns stage t + 1 into z and v in the K-major
+//           core-matrix layout wgmma reads (8 rows x 16 bytes per core
+//           matrix, no swizzle), double-buffered;
+//   math    meanwhile each warpgroup's wgmma.mma_async m64n128k32 s8 ->
+//           s32 of stage t runs for its 64 rows, z.z^T and v.v^T from
+//           shared memory, int32 accumulators in registers (2 x 64 per
+//           thread, about 165 registers in all, one CTA per SM).
+// compared = v.v^T on the tensor cores costs what z.z^T costs; a popcount
+// of packed v on the CUDA cores would take about as long as the whole
+// kernel at these shapes.  Two barriers per stage order the decode with
+// the products.  The epilogue stages sim / present in shared memory and
+// writes the (i, j) tile and its mirror (j, i) with 16-byte stores.
+// Warp specialisation (a producer warpgroup decoding for a consumer
+// warpgroup, two CTAs per SM) was tried first: setmaxnreg did not give
+// the consumer room for its 128 accumulators without spills, and four
+// decoding warps per SM could not keep up with wgmma (PERF.md).
 //
-// Filling the card: the wrapper picks the site split (ops/pairdiff.py
-// identity_partition).  With one split the main kernel runs the epilogue;
-// with more, each split writes its accumulators to a scratch the wrapper
-// allocates ([split][tile][register][thread], coalesced) and
-// gram_reduce_kernel sums them in split order (int32 exactly; f32 in a
-// fixed order) and runs the same epilogue.
+// Weighted, design (weighted_gram_kernel, the first tensor-core design,
+// kept).  One block of 512 threads (16 warps, each
+// 32 x 32 outputs) per (window, 128 x 128 output tile pair ti <= tj, site
+// split).  Raw int8 tiles of the 2 x 128 rows (one set on a diagonal tile),
+// the site mask and the weights stream through a 4-deep cp.async ring of
+// 16-byte copies; each stage is decoded once into double-buffered operand
+// tiles in shared memory.  Fragments come from ldmatrix; math is mma.sync
+// m16n8k16 bf16 -> f32 (weighted diff) and m16n8k32 s8 -> s32 (v Gram).
+// The epilogue stages the sim (f32) and present (u8) tile in shared memory
+// and writes the (i, j) tile and its mirror (j, i) with 16-byte stores.
 //
-// Ragged shapes: any N (rows past N load as zero and are never written;
-// the output stores fall back to scalars when N % 4 (f32) or N % 16 (u8)
-// leaves rows unaligned).  S must be a multiple of 16 so that every
-// 16-byte copy is aligned: the wrapper pads S once (masked columns) when it
-// is not, which costs one copy of the tile, and only on that path.
+// Filling the card (both): the wrapper picks the site split
+// (ops/pairdiff.py identity_partition).  With one split the main kernel
+// runs the epilogue; with more, each split writes its accumulators to a
+// scratch the wrapper allocates (coalesced, [split][tile][register]
+// [thread]) and a reduce kernel sums them in split order (int32 exactly;
+// f32 in a fixed order) and runs the same epilogue.
+//
+// Ragged shapes: any N (rows past N are never loaded, decode as zero and
+// are never written; a half tile wholly past N exits at once; the output
+// stores fall back to scalars when N % 4 (f32) or N % 16 (u8) leaves rows
+// unaligned).  S must be a multiple of 16 so that every copy is 16-byte
+// aligned: the wrapper pads S once (masked columns) when it is not, which
+// costs one copy of the tile, and only on that path.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1979 TOP/s int8,
 // 989 TFLOP/s bf16).  Unit weights, [512, 2048] x 64: 67 MB of int8 in and
 // 84 MB of sim + present out, 45 us of bytes, against 69 GOP of int8 on the
 // triangle (35 us): bytes.  [512, 8192] x 8: 34 GOP (17 us) against 44 MB
-// (13 us): operations, and only 80 tile pairs for 132 SMs, which the site
+// (13 us): operations, and only 160 half tiles for 132 SMs, which the site
 // split addresses.  Weighted, [512, 128] x 64: 88 MB of bytes (26 us)
 // against 4.3 GFLOP of bf16 (4 us): bytes, so the epilogue's stores
-// dominate and the coalesced mirrored writes are what matters.  On the
-// card the unit-weight kernel stays well above its bound (PERF.md;
-// chip_smoke.py phase 2i, impop_tpu_torch/bench/gram_breakdown.py): with
-// one 512-thread block per SM the mma.sync phase, the decode and the
-// epilogue's stores run one after another, and mma.sync does not reach the
-// rate of wgmma, which is the next step (warp-specialised loads and
-// decode feeding wgmma, and an epilogue overlapped with the next tile).
+// dominate and the coalesced mirrored writes are what matters.
 //
 // The C functions return the first CUDA error of their launches; they never
 // synchronise and never allocate.
 
 #include <cstdint>
-#include <type_traits>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,23 +119,8 @@ constexpr int kSimStride = kTile + 4;   // staged sim row, floats (16-byte rows)
 constexpr int kPresStride = kTile + 16; // staged present row, bytes
 constexpr int kEpilogueSmem = 4 * kTile * kSimStride + kTile * kPresStride;
 
-template <bool kW>
-struct Cfg;
-
-template <>
-struct Cfg<false> {
-  static constexpr int kKt = 64;                          // sites per stage
-  static constexpr int kDec = kKt + 16;                   // z row, bytes
-  static constexpr int kDecBytes = 2 * kTile * kDec;      // z_i, z_j (v = z & 1)
-  static constexpr int kRawBytes = kStages * 2 * kTile * kKt;
-  static constexpr int kSmkOff = kRawBytes;
-  static constexpr int kWtOff = kSmkOff + kStages * kKt;  // (no weights)
-  static constexpr int kDecOff = kWtOff;
-  static constexpr int kSmem = kDecOff + 2 * kDecBytes;
-};
-
-template <>
-struct Cfg<true> {
+// The weighted kernel's stage geometry and shared-memory layout.
+struct Cfg {
   static constexpr int kKt = 32;
   static constexpr int kPiece = 4 * kKt + 16;             // [a w | c w] bf16 row
   static constexpr int kV = kKt + 16;                     // v row, bytes
@@ -134,8 +133,8 @@ struct Cfg<true> {
   static constexpr int kSmem = kDecOff + 2 * kDecBytes;
 };
 
-static_assert(Cfg<false>::kSmem >= kEpilogueSmem, "epilogue reuses the ring");
-static_assert(Cfg<true>::kSmem <= 232448, "weighted kernel's shared memory");
+static_assert(Cfg::kSmem >= kEpilogueSmem, "epilogue reuses the ring");
+static_assert(Cfg::kSmem <= 232448, "weighted kernel's shared memory");
 
 struct GramArgs {
   const int8_t* geno;      // [W, N, S], S % 16 == 0
@@ -149,11 +148,9 @@ struct GramArgs {
   uint8_t* pres;           // [W, N, N]
 };
 
-template <bool kW>
 struct Acc {
-  using D = typename std::conditional<kW, float, int>::type;
-  D d[kMt][4][4];   // unit weights: z.z^T; weighted: diff
-  int v[kMt][4][4]; // compared = v.v^T
+  float d[kMt][4][4];  // diff
+  int v[kMt][4][4];    // compared = v.v^T
 };
 
 // ------------------------------------------------------------------ PTX
@@ -244,11 +241,10 @@ __device__ __forceinline__ void tile_pair(int p, int t, int& ti, int& tj) {
 
 // Stage `kt` (sites kt * kKt ...) of rows i0.. (and j0.. unless diag) into
 // ring slot `slot`.
-template <bool kW>
 __device__ __forceinline__ void load_stage(uint8_t* smem, int slot, int kt, const int8_t* g,
                                            const uint8_t* sm, const float* wt, int n, int s,
                                            int i0, int j0, bool diag, int tid) {
-  using C = Cfg<kW>;
+  using C = Cfg;
   constexpr int kChunks = C::kKt / 16;
   uint8_t* raw = smem + slot * 2 * kTile * C::kKt;
   const int site0 = kt * C::kKt;
@@ -266,12 +262,10 @@ __device__ __forceinline__ void load_stage(uint8_t* smem, int slot, int kt, cons
     cp_async16(smem + C::kSmkOff + slot * C::kKt + tid * 16, site < s ? sm + site : sm,
                site < s);
   }
-  if constexpr (kW) {
-    if (tid >= 32 && tid < 32 + C::kKt / 4) {
-      const int site = site0 + (tid - 32) * 4;
-      cp_async16(smem + C::kWtOff + 4 * (slot * C::kKt + (tid - 32) * 4),
-                 site < s ? wt + site : wt, site < s);
-    }
+  if (tid >= 32 && tid < 32 + C::kKt / 4) {
+    const int site = site0 + (tid - 32) * 4;
+    cp_async16(smem + C::kWtOff + 4 * (slot * C::kKt + (tid - 32) * 4),
+               site < s ? wt + site : wt, site < s);
   }
 }
 
@@ -290,32 +284,11 @@ __device__ __forceinline__ uint32_t z_bytes(uint32_t g, uint32_t v) {
   return ((((g & vm) << 1) + 0x7f7f7f7fu) ^ 0x80808080u) & vm;
 }
 
-// Unit weights: z of every row of the stage, 16 sites per step (v = z & 1
-// is taken from the fragments).  Each thread keeps one 16-site column
-// chunk, so it reads the site mask once.
-__device__ __forceinline__ void decode_unit(const uint8_t* smem, int slot, uint8_t* dec,
-                                            bool diag, int tid) {
-  using C = Cfg<false>;
-  const uint8_t* raw = smem + slot * 2 * kTile * C::kKt;
-  const int c = tid & 3;
-  const uint4 mq = *reinterpret_cast<const uint4*>(smem + C::kSmkOff + slot * C::kKt + c * 16);
-  const uint32_t mw[4] = {mq.x, mq.y, mq.z, mq.w};
-  const int rows = (diag ? 1 : 2) * kTile;
-  for (int r = tid >> 2; r < rows; r += kThreads / 4) {
-    const uint4 gq = *reinterpret_cast<const uint4*>(raw + r * C::kKt + c * 16);
-    const uint32_t gw[4] = {gq.x, gq.y, gq.z, gq.w};
-    uint32_t z[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) z[q] = z_bytes(gw[q], valid_bits(gw[q], mw[q]));
-    *reinterpret_cast<uint4*>(dec + r * C::kDec + c * 16) = make_uint4(z[0], z[1], z[2], z[3]);
-  }
-}
-
 // Weighted: per thread one word of 4 sites (q) over rows r = tid / 8 + 32k.
 // Returns the pieces this thread's sites need beyond the first (0, 1 or 2).
 __device__ __forceinline__ int decode_weighted(const uint8_t* smem, int slot, uint8_t* dec,
                                                bool diag, int tid) {
-  using C = Cfg<true>;
+  using C = Cfg;
   const uint8_t* raw = smem + slot * 2 * kTile * C::kKt;
   const uint8_t* smk = smem + C::kSmkOff + slot * C::kKt;
   const float* wt = reinterpret_cast<const float*>(smem + C::kWtOff) + slot * C::kKt;
@@ -377,43 +350,9 @@ __device__ __forceinline__ int decode_weighted(const uint8_t* smem, int slot, ui
   return extra;
 }
 
-// Both unit-weight Grams from the z tiles: zz from the fragments as loaded,
-// vv from the same fragments & 0x01 per byte (z is odd exactly where valid).
-__device__ __forceinline__ void mma_stage(Acc<false>& acc, const uint8_t* dec, bool diag,
-                                          int row0, int col0, int lane, int) {
-  using C = Cfg<false>;
-  const uint8_t* zi = dec;
-  const uint8_t* zj = diag ? zi : dec + kTile * C::kDec;
-  const int br = (lane & 7) + (lane >> 4) * 8, ar = (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kb = 0; kb < C::kKt; kb += 32) {
-    uint32_t b[2][4], bv[2][4];
-    const int bk = kb + ((lane >> 3) & 1) * 16, ak = kb + (lane >> 4) * 16;
-    ldsm_x4(b[0], zj + (col0 + br) * C::kDec + bk);
-    ldsm_x4(b[1], zj + (col0 + 16 + br) * C::kDec + bk);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) bv[h][x] = b[h][x] & 0x01010101u;
-#pragma unroll
-    for (int mt = 0; mt < kMt; ++mt) {
-      uint32_t a[4], av[4];
-      ldsm_x4(a, zi + (row0 + mt * 16 + ar) * C::kDec + ak);
-#pragma unroll
-      for (int x = 0; x < 4; ++x) av[x] = a[x] & 0x01010101u;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int h = nt >> 1, o = (nt & 1) * 2;
-        mma(acc.d[mt][nt], a, b[h][o], b[h][o + 1]);
-        mma(acc.v[mt][nt], av, bv[h][o], bv[h][o + 1]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_stage(Acc<true>& acc, const uint8_t* dec, bool diag,
+__device__ __forceinline__ void mma_stage(Acc& acc, const uint8_t* dec, bool diag,
                                           int row0, int col0, int lane, int pieces) {
-  using C = Cfg<true>;
+  using C = Cfg;
   const uint8_t* colop = dec + 3 * kTile * C::kPiece;
   const uint8_t* vi = dec + 4 * kTile * C::kPiece;
   const uint8_t* vj = diag ? vi : vi + kTile * C::kV;
@@ -443,8 +382,7 @@ __device__ __forceinline__ float div_rn(float a, float b, float inv) {
   return __fmaf_rn(r, inv, q);
 }
 
-template <bool kW>
-__device__ void epilogue(const Acc<kW>& acc, uint8_t* smem, const GramArgs& a, int w, int ti,
+__device__ void epilogue(const Acc& acc, uint8_t* smem, const GramArgs& a, int w, int ti,
                          int tj) {
   const int n = a.n, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = (warp >> 2) * 32, col0 = (warp & 3) * 32, g = lane >> 2, t4 = lane & 3;
@@ -474,9 +412,7 @@ __device__ void epilogue(const Acc<kW>& acc, uint8_t* smem, const GramArgs& a, i
         for (int e = 0; e < 2; ++e) {
           const int c = col0 + nt * 8 + 2 * t4 + e, x = 2 * h + e;
           const int vv = acc.v[mt][nt][x];
-          float diff;
-          if constexpr (kW) diff = acc.d[mt][nt][x];
-          else diff = static_cast<float>((vv - acc.d[mt][nt][x]) / 2);
+          const float diff = acc.d[mt][nt][x];
           bool present = vv > 0 && mi && mcol[nt][e];
           float simv = present ? __fsub_rn(1.0f, div_rn(diff, len, inv)) : 0.0f;
           if (i == j0 + c && mi) {
@@ -555,18 +491,11 @@ __device__ void epilogue(const Acc<kW>& acc, uint8_t* smem, const GramArgs& a, i
   }
 }
 
-template <class T>
-__device__ __forceinline__ int acc_bits(T x) {
-  if constexpr (std::is_same<T, float>::value) return __float_as_int(x);
-  else return x;
-}
-
 // ------------------------------------------------------------------ kernels
 
-template <bool kW>
-__global__ void __launch_bounds__(kThreads, 1) gram_kernel(GramArgs a) {
-  using C = Cfg<kW>;
-  extern __shared__ __align__(16) uint8_t smem[];
+__global__ void __launch_bounds__(kThreads, 1) weighted_gram_kernel(GramArgs a) {
+  using C = Cfg;
+  extern __shared__ __align__(128) uint8_t smem[];
   int ti, tj;
   tile_pair(blockIdx.x, a.t_blocks, ti, tj);
   const int w = blockIdx.y, split = blockIdx.z;
@@ -579,10 +508,10 @@ __global__ void __launch_bounds__(kThreads, 1) gram_kernel(GramArgs a) {
   const int kt0 = split * a.chunk, nt = max(0, min(nk - kt0, a.chunk));
   const int8_t* g = a.geno + static_cast<size_t>(w) * n * s;
   const uint8_t* sm = a.smask + static_cast<size_t>(w) * s;
-  const float* wt = kW ? a.weights + static_cast<size_t>(w) * s : nullptr;
+  const float* wt = a.weights + static_cast<size_t>(w) * s;
   uint8_t* dec = smem + C::kDecOff;
 
-  Acc<kW> acc;
+  Acc acc;
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
@@ -596,28 +525,23 @@ __global__ void __launch_bounds__(kThreads, 1) gram_kernel(GramArgs a) {
   // group t of the cp.async ring holds stage t (empty past the split's end)
 #pragma unroll
   for (int st = 0; st < kStages; ++st) {
-    if (st < nt) load_stage<kW>(smem, st, kt0 + st, g, sm, wt, n, s, i0, j0, diag, tid);
+    if (st < nt) load_stage(smem, st, kt0 + st, g, sm, wt, n, s, i0, j0, diag, tid);
     cp_async_commit();
   }
   cp_async_wait<kStages - 1>();
   __syncthreads();
   int extra = 0;
   if (nt > 0) {
-    if constexpr (kW) extra = decode_weighted(smem, 0, dec, diag, tid);
-    else decode_unit(smem, 0, dec, diag, tid);
+    extra = decode_weighted(smem, 0, dec, diag, tid);
   }
   for (int t = 0; t < nt; ++t) {
     cp_async_wait<kStages - 2>();  // stage t + 1 has landed (this thread's copies)
     // one barrier: dec[t & 1] and raw stage t + 1 are visible to all, and
     // every warp is done with dec[(t + 1) & 1] and raw slot t % kStages
-    int pieces = 1;
-    if constexpr (kW) {
-      pieces = __syncthreads_or(extra == 2) ? 3 : (__syncthreads_or(extra == 1) ? 2 : 1);
-    } else {
-      __syncthreads();
-    }
+    const int pieces =
+        __syncthreads_or(extra == 2) ? 3 : (__syncthreads_or(extra == 1) ? 2 : 1);
     if (t + kStages < nt)
-      load_stage<kW>(smem, t % kStages, kt0 + t + kStages, g, sm, wt, n, s, i0, j0, diag, tid);
+      load_stage(smem, t % kStages, kt0 + t + kStages, g, sm, wt, n, s, i0, j0, diag, tid);
     cp_async_commit();
     // of the four warps of a scheduler (w, w + 4, w + 8, w + 12) two take
     // the phases in the other order, so decode (integer pipe) overlaps mma
@@ -626,8 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1) gram_kernel(GramArgs a) {
     if (!decode_first) mma_stage(acc, cur, diag, row0, col0, lane, pieces);
     if (t + 1 < nt) {
       uint8_t* next = dec + ((t + 1) & 1) * C::kDecBytes;
-      if constexpr (kW) extra = decode_weighted(smem, (t + 1) % kStages, next, diag, tid);
-      else decode_unit(smem, (t + 1) % kStages, next, diag, tid);
+      extra = decode_weighted(smem, (t + 1) % kStages, next, diag, tid);
     }
     if (decode_first) mma_stage(acc, cur, diag, row0, col0, lane, pieces);
   }
@@ -635,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, 1) gram_kernel(GramArgs a) {
   __syncthreads();  // the epilogue reuses the ring
 
   if (a.splits == 1) {
-    epilogue<kW>(acc, smem, a, w, ti, tj);
+    epilogue(acc, smem, a, w, ti, tj);
     return;
   }
   int* out = a.scratch +
@@ -648,21 +571,20 @@ __global__ void __launch_bounds__(kThreads, 1) gram_kernel(GramArgs a) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int ri = (mt * 4 + nt2) * 4 + x;
-        out[ri * kThreads] = acc_bits(acc.d[mt][nt2][x]);
+        out[ri * kThreads] = __float_as_int(acc.d[mt][nt2][x]);
         out[(kAccRegs / 2 + ri) * kThreads] = acc.v[mt][nt2][x];
       }
 }
 
-template <bool kW>
-__global__ void __launch_bounds__(kThreads, 1) gram_reduce_kernel(GramArgs a) {
-  extern __shared__ __align__(16) uint8_t smem[];
+__global__ void __launch_bounds__(kThreads, 1) weighted_reduce_kernel(GramArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
   int ti, tj;
   tile_pair(blockIdx.x, a.t_blocks, ti, tj);
   const int w = blockIdx.y, tid = threadIdx.x;
   const size_t tiles = static_cast<size_t>(gridDim.y) * a.pairs;
   const int* in = a.scratch + (static_cast<size_t>(w) * a.pairs + blockIdx.x) * kAccRegs * kThreads +
                   tid;
-  Acc<kW> acc;
+  Acc acc;
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
@@ -682,29 +604,496 @@ __global__ void __launch_bounds__(kThreads, 1) gram_reduce_kernel(GramArgs a) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           const int ri = (mt * 4 + nt) * 4 + x;
-          if constexpr (kW) acc.d[mt][nt][x] += __int_as_float(__ldcs(part + ri * kThreads));
-          else acc.d[mt][nt][x] += __ldcs(part + ri * kThreads);
+          acc.d[mt][nt][x] += __int_as_float(__ldcs(part + ri * kThreads));
           acc.v[mt][nt][x] += __ldcs(part + (kAccRegs / 2 + ri) * kThreads);
         }
   }
-  epilogue<kW>(acc, smem, a, w, ti, tj);
+  epilogue(acc, smem, a, w, ti, tj);
 }
 
-template <bool kW>
-int launch(const GramArgs& a, int w, cudaStream_t stream) {
-  const int smem = Cfg<kW>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(gram_kernel<kW>,
+int launch_weighted(const GramArgs& a, int w, cudaStream_t stream) {
+  const int smem = Cfg::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(weighted_gram_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gram_kernel<kW><<<dim3(a.pairs, w, a.splits), kThreads, smem, stream>>>(a);
+  weighted_gram_kernel<<<dim3(a.pairs, w, a.splits), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(gram_reduce_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(weighted_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kEpilogueSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gram_reduce_kernel<kW><<<dim3(a.pairs, w), kThreads, kEpilogueSmem, stream>>>(a);
+  weighted_reduce_kernel<<<dim3(a.pairs, w), kThreads, kEpilogueSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------------------------------------------ unit weights (wgmma)
+
+namespace unitw {
+
+constexpr int kThreadsU = 256;                 // two warpgroups: tile rows [0, 64), [64, 128)
+constexpr int kKt = 64;                        // sites per stage
+constexpr int kRaw = 6;                        // raw ring depth: boxes five stages ahead
+constexpr int kRawRows = 2 * kTile;            // i rows, then j rows (TMA boxes)
+constexpr int kRawSmk = kRawRows * kKt;        // the site mask after the rows
+constexpr int kRawSlot = (kRawSmk + kKt + 127) / 128 * 128;
+constexpr int kLbo = 128;                      // next 16-byte K chunk of a core matrix
+constexpr int kSbo = kLbo * (kKt / 16);        // next 8-row group
+constexpr int kOp = kTile * kKt;               // one decoded operand, bytes
+constexpr int kDecSlot = 4 * kOp;              // z_i, v_i, z_j, v_j
+constexpr int kDecOff = kRaw * kRawSlot;
+constexpr int kBarOff = kDecOff + 2 * kDecSlot;
+constexpr int kSmemU = kBarOff + 8 * kRaw;
+constexpr int kStSim = kTile + 4;              // staged sim row, floats
+constexpr int kStPres = kTile + 16;            // staged present row, bytes
+constexpr int kEpiSmem = 4 * kTile * kStSim + kTile * kStPres;
+constexpr int kAccInts = 2 * 64 * kThreadsU;   // scratch ints of one tile pair
+
+static_assert(kEpiSmem <= kBarOff, "the epilogue stages in the rings");
+static_assert(kDecOff % 128 == 0 && kDecSlot % 128 == 0, "operand alignment");
+static_assert(kSmemU <= 232448, "shared memory of a CTA");
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A pipeline fault
+// traps after about 2^26 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const unsigned addr = smem_addr(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A box of the [W, N, S] int8 tensor (coordinates innermost first) into
+// shared memory; out-of-bounds bytes arrive as zeros and count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int site, int row,
+                                         int w, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(site), "r"(row), "r"(w), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// generic-proxy shared-memory writes -> visible to the async proxy (wgmma,
+// bulk copies), and the reverse order for a slot about to be refilled
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// K-major operand in the no-swizzle core-matrix layout: 8 rows x 16 bytes
+// per core matrix, kLbo to the next 16 bytes of K, kSbo to the next 8 rows.
+__device__ __forceinline__ uint64_t operand_desc(const void* p) {
+  const uint32_t addr = smem_addr(p);
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(kLbo >> 4) << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator register
+// across the asynchronous matrix math.
+__device__ __forceinline__ void reg_fence(int (&d)[64]) {
+#pragma unroll
+  for (int x = 0; x < 64; ++x) asm volatile("" : "+r"(d[x])::"memory");
+}
+
+// d[64 x 128] += A[64 x 32] . B[128 x 32]^T, int8 operands K-major in
+// shared memory, int32 accumulators: thread t of the warpgroup holds
+// d[4 jn + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 jn + 2 (t % 4) + e].
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Where a CTA works: tile pair, window, split, its rows and stages.
+struct Work {
+  int ti, tj, w, i0, j0, kt0, nt;
+  bool diag;
+};
+
+__device__ __forceinline__ Work work_of(const GramArgs& a) {
+  Work k;
+  tile_pair(blockIdx.x, a.t_blocks, k.ti, k.tj);
+  k.w = blockIdx.y;
+  k.diag = k.ti == k.tj;
+  k.i0 = k.ti * kTile;
+  k.j0 = k.tj * kTile;
+  const int nk = (a.s + kKt - 1) / kKt;
+  k.kt0 = blockIdx.z * a.chunk;
+  k.nt = max(0, min(nk - k.kt0, a.chunk));
+  return k;
+}
+
+// Thread 0: stage t's raw tiles (one TMA box of 128 i rows, none on a
+// diagonal tile, and one of 128 j rows) and site mask into ring slot
+// t % kRaw.
+__device__ __forceinline__ void issue_stage(const GramArgs& a, const Work& k,
+                                            const CUtensorMap* map, uint8_t* smem,
+                                            uint64_t* raw_full, int t) {
+  const int slot = t % kRaw;
+  uint8_t* raw = smem + slot * kRawSlot;
+  const int site0 = (k.kt0 + t) * kKt;
+  const int bytes = min(kKt, a.s - site0);      // a multiple of 16
+  mbar_expect_tx(&raw_full[slot],
+                 static_cast<uint32_t>((k.diag ? kTile : kRawRows) * kKt + bytes));
+  if (!k.diag) tma_load(raw, map, site0, k.i0, k.w, &raw_full[slot]);
+  tma_load(raw + kTile * kKt, map, site0, k.j0, k.w, &raw_full[slot]);
+  bulk_load(raw + kRawSmk, a.smask + static_cast<size_t>(k.w) * a.s + site0, bytes,
+            &raw_full[slot]);
+}
+
+// Every thread: z and v of one raw stage into a decoded slot, in the
+// K-major core-matrix layout wgmma reads.  A thread keeps one 16-byte
+// chunk c (so it reads the site mask once) over rows rb + 64 m, four
+// independent rows; eight consecutive threads take eight consecutive rows
+// of a chunk, so the core-matrix writes are conflict-free.  Rows past N
+// and chunks past S decode as zero.
+__device__ __forceinline__ void decode_stage(const uint8_t* raw, uint8_t* dec, int site0, int s,
+                                             int n, const Work& k, int tid) {
+  const int c = (tid >> 3) & 3, rb = 8 * (tid >> 5) + (tid & 7);
+  const bool site_ok = site0 + 16 * c < s;
+  const uint4 mq = *reinterpret_cast<const uint4*>(raw + kRawSmk + 16 * c);
+#pragma unroll
+  for (int m = 0; m < kRawRows / 64; ++m) {
+    const bool is_i = m < kTile / 64;
+    if (is_i && k.diag) continue;
+    const int rl = rb + 64 * m - (is_i ? 0 : kTile);
+    uint4 z = make_uint4(0u, 0u, 0u, 0u), v = z;
+    if (site_ok && (is_i ? k.i0 : k.j0) + rl < n) {
+      const uint4 gq = *reinterpret_cast<const uint4*>(raw + (rb + 64 * m) * kKt + 16 * c);
+      v = make_uint4(valid_bits(gq.x, mq.x), valid_bits(gq.y, mq.y), valid_bits(gq.z, mq.z),
+                     valid_bits(gq.w, mq.w));
+      z = make_uint4(z_bytes(gq.x, v.x), z_bytes(gq.y, v.y), z_bytes(gq.z, v.z),
+                     z_bytes(gq.w, v.w));
+    }
+    uint8_t* zb = dec + (is_i ? 0 : 2 * kOp) + (rl >> 3) * kSbo + c * kLbo + (rl & 7) * 16;
+    *reinterpret_cast<uint4*>(zb) = z;
+    *reinterpret_cast<uint4*>(zb + kOp) = v;
+  }
+}
+
+// sim / present of the CTA's 128 x 128 tile from its Grams (warpgroup g
+// holds rows [64 g, 64 g + 64)), staged in shared memory, then the (i, j)
+// rows and, off the diagonal, the mirror (j, i).  All 256 threads call it.
+__device__ __forceinline__ void unit_epilogue(const int (&zacc)[64], const int (&vacc)[64],
+                                              uint8_t* smem, const GramArgs& a, const Work& k) {
+  const int n = a.n, tid = threadIdx.x, lane = tid & 31, wq = tid >> 5;
+  const uint8_t* mem = a.member + static_cast<size_t>(k.w) * n;
+  const float len = fmaxf(a.length[k.w], 1.0f), inv = __frcp_rn(len);
+  float* st = reinterpret_cast<float*>(smem);
+  uint8_t* sp = smem + 4 * kTile * kStSim;
+
+  uint32_t mcol = 0u;   // bit 2 jn + e: member column 8 jn + 2 (lane % 4) + e
+#pragma unroll
+  for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = k.j0 + 8 * jn + 2 * (lane & 3) + e;
+      if (j < n && mem[j] != 0) mcol |= 1u << (2 * jn + e);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * wq + (lane >> 2) + 8 * h, i = k.i0 + r;
+    const bool mi = i < n && mem[i] != 0;
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * jn + 2 * h + e, c = 8 * jn + 2 * (lane & 3) + e;
+        const int vv = vacc[x];
+        const float diff = static_cast<float>((vv - zacc[x]) / 2);
+        bool present = vv > 0 && mi && ((mcol >> (2 * jn + e)) & 1u);
+        float simv = present ? __fsub_rn(1.0f, div_rn(diff, len, inv)) : 0.0f;
+        if (i == k.j0 + c && mi) {
+          simv = 1.0f;
+          present = true;
+        }
+        st[r * kStSim + c] = simv;
+        sp[r * kStPres + c] = present ? 1 : 0;
+      }
+  }
+  __syncthreads();
+
+  const size_t base = static_cast<size_t>(k.w) * n * n;
+  float* so = a.sim + base;
+  uint8_t* po = a.pres + base;
+  const bool vec4 = (n & 3) == 0, vec16 = (n & 15) == 0;
+  // (i, j): 32 lanes per output row, 16 bytes each
+  for (int e = tid; e < kTile * 32; e += kThreadsU) {
+    const int r = e >> 5, q = e & 31, i = k.i0 + r, j = k.j0 + 4 * q;
+    if (i >= n || j >= n) continue;
+    const float4 val = *reinterpret_cast<const float4*>(st + r * kStSim + 4 * q);
+    float* dst = so + static_cast<size_t>(i) * n + j;
+    if (vec4 && j + 4 <= n) {
+      *reinterpret_cast<float4*>(dst) = val;
+    } else {
+      const float vals[4] = {val.x, val.y, val.z, val.w};
+      for (int t = 0; t < 4 && j + t < n; ++t) dst[t] = vals[t];
+    }
+  }
+  for (int e = tid; e < kTile * 8; e += kThreadsU) {
+    const int r = e >> 3, q = e & 7, i = k.i0 + r, j = k.j0 + 16 * q;
+    if (i >= n || j >= n) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(sp + r * kStPres + 16 * q);
+    uint8_t* dst = po + static_cast<size_t>(i) * n + j;
+    if (vec16 && j + 16 <= n) {
+      *reinterpret_cast<uint4*>(dst) = val;
+    } else {
+      const uint8_t* vals = sp + r * kStPres + 16 * q;
+      for (int t = 0; t < 16 && j + t < n; ++t) dst[t] = vals[t];
+    }
+  }
+  if (k.diag) return;
+  // (j, i): gathered from columns of the staged tile; a warp covers 8
+  // output rows x 4 chunks of 16 bytes
+  for (int e = tid; e < kTile * 32; e += kThreadsU) {
+    const int it = e >> 5;
+    const int c = (it & 15) * 8 + (lane & 7), q = (it >> 4) * 4 + (lane >> 3);
+    const int j = k.j0 + c, i = k.i0 + 4 * q;
+    if (j >= n || i >= n) continue;
+    float vals[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) vals[t] = st[(4 * q + t) * kStSim + c];
+    float* dst = so + static_cast<size_t>(j) * n + i;
+    if (vec4 && i + 4 <= n) {
+      *reinterpret_cast<float4*>(dst) = make_float4(vals[0], vals[1], vals[2], vals[3]);
+    } else {
+      for (int t = 0; t < 4 && i + t < n; ++t) dst[t] = vals[t];
+    }
+  }
+  // a warp covers 16 output rows x 2 chunks of 16 bytes
+  for (int e = tid; e < kTile * 8; e += kThreadsU) {
+    const int it = e >> 5;
+    const int c = (it & 7) * 16 + (lane & 15), q = (it >> 3) * 2 + (lane >> 4);
+    const int j = k.j0 + c, i = k.i0 + 16 * q;
+    if (j >= n || i >= n) continue;
+    uint32_t words[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+      words[t >> 2] |= static_cast<uint32_t>(sp[(16 * q + t) * kStPres + c]) << (8 * (t & 3));
+    uint8_t* dst = po + static_cast<size_t>(j) * n + i;
+    if (vec16 && i + 16 <= n) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
+    } else {
+      for (int t = 0; t < 16 && i + t < n; ++t) dst[t] = (words[t >> 2] >> (8 * (t & 3))) & 0xffu;
+    }
+  }
+}
+
+// The pipeline: the TMA boxes of stages t + 1 .. t + kRaw - 1 in flight
+// (thread 0, an mbarrier per ring slot) while every warp decodes stage
+// t + 1 and both warpgroups' wgmma of stage t run on the tensor cores.
+__global__ void __launch_bounds__(kThreadsU, 1)
+    unit_gram_kernel(GramArgs a, const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Work k = work_of(a);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  if (tid == 0) {
+    for (int s = 0; s < kRaw; ++s) mbar_init(&raw_full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < min(kRaw, k.nt); ++t) issue_stage(a, k, &map, smem, raw_full, t);
+  }
+  __syncthreads();
+
+  int zacc[64], vacc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    zacc[x] = 0;
+    vacc[x] = 0;
+  }
+  reg_fence(zacc);
+  reg_fence(vacc);
+  // warpgroup wg's i rows: rows [64 wg, 64 wg + 64) of the i operand, or of
+  // the j operand on a diagonal tile
+  const int i_off = (k.diag ? 2 * kOp : 0) + wg * (kTile / 16) * kSbo;
+  if (k.nt > 0) {
+    mbar_wait(&raw_full[0], 0);
+    decode_stage(smem, smem + kDecOff, k.kt0 * kKt, a.s, a.n, k, tid);
+    fence_proxy_async();
+    __syncthreads();
+  }
+  for (int t = 0; t < k.nt; ++t) {
+    const uint8_t* dec = smem + kDecOff + (t & 1) * kDecSlot;
+    const uint8_t* zi = dec + i_off;
+    const uint8_t* vi = zi + kOp;
+    const uint8_t* zj = dec + 2 * kOp;
+    const uint8_t* vj = zj + kOp;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKt / 32; ++kk) {
+      wgmma_s8(zacc, operand_desc(zi + 2 * kLbo * kk), operand_desc(zj + 2 * kLbo * kk));
+      wgmma_s8(vacc, operand_desc(vi + 2 * kLbo * kk), operand_desc(vj + 2 * kLbo * kk));
+    }
+    wgmma_commit();
+    if (t + 1 < k.nt) {
+      wgmma_wait<1>();   // stage t - 1's products are done with the other slot
+      __syncthreads();   // ... in both warpgroups; stage t's raw slot is decoded
+      if (tid == 0 && t + kRaw < k.nt) {
+        fence_proxy_async();
+        issue_stage(a, k, &map, smem, raw_full, t + kRaw);
+      }
+      const int slot = (t + 1) % kRaw;
+      mbar_wait(&raw_full[slot], ((t + 1) / kRaw) & 1);
+      decode_stage(smem + slot * kRawSlot, smem + kDecOff + ((t + 1) & 1) * kDecSlot,
+                   (k.kt0 + t + 1) * kKt, a.s, a.n, k, tid);
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(zacc);
+  reg_fence(vacc);
+  __syncthreads();   // every wgmma is done before the epilogue reuses the rings
+
+  if (a.splits == 1) {
+    unit_epilogue(zacc, vacc, smem, a, k);
+    return;
+  }
+  int* out = a.scratch +
+             ((static_cast<size_t>(blockIdx.z) * gridDim.y + k.w) * a.pairs + blockIdx.x) *
+                 kAccInts +
+             tid;
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    out[x * kThreadsU] = zacc[x];
+    out[(64 + x) * kThreadsU] = vacc[x];
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsU, 1) unit_reduce_kernel(GramArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Work k = work_of(a);
+  const size_t tiles = static_cast<size_t>(gridDim.y) * a.pairs;
+  const int* in =
+      a.scratch + (static_cast<size_t>(k.w) * a.pairs + blockIdx.x) * kAccInts + threadIdx.x;
+  int zacc[64], vacc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    zacc[x] = 0;
+    vacc[x] = 0;
+  }
+  // splits outermost, in order: each pass issues all 128 loads at once
+  for (int sp = 0; sp < a.splits; ++sp) {
+    const int* part = in + sp * tiles * kAccInts;
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      zacc[x] += __ldcs(part + x * kThreadsU);
+      vacc[x] += __ldcs(part + (64 + x) * kThreadsU);
+    }
+  }
+  unit_epilogue(zacc, vacc, smem, a, k);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point lookup
+// (no link to libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) ==
+            cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [W, N, S] int8 geno as a 3-D tensor, boxes of kKt sites x kTile rows.
+bool geno_map(CUtensorMap* map, const GramArgs& a, int w) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.s), static_cast<cuuint64_t>(a.n),
+                              static_cast<cuuint64_t>(w)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(a.s),
+                                 static_cast<cuuint64_t>(a.s) * a.n};
+  const cuuint32_t box[3] = {kKt, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<int8_t*>(a.geno), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const GramArgs& a, int w, cudaStream_t stream) {
+  CUtensorMap map;
+  if (!geno_map(&map, a, w)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(unit_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemU);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unit_gram_kernel<<<dim3(a.pairs, w, a.splits), kThreadsU, kSmemU, stream>>>(a, map);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(unit_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kEpiSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unit_reduce_kernel<<<dim3(a.pairs, w), kThreadsU, kEpiSmem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace unitw
 
 GramArgs make_args(const void* geno, const void* member, const void* smask, const void* weights,
                    const void* length, int n, int s, int splits, int chunk, void* scratch,
@@ -738,7 +1127,7 @@ int impop_pairwise_identity(const void* geno, const void* member, const void* sm
                             void* scratch, void* sim, void* present, void* stream) {
   const GramArgs a = make_args(geno, member, smask, nullptr, length, n, s, splits, chunk,
                                scratch, sim, present);
-  return launch<false>(a, w, static_cast<cudaStream_t>(stream));
+  return unitw::launch(a, w, static_cast<cudaStream_t>(stream));
 }
 
 // As above, with stages of 32 sites and weights [W, S] f32.
@@ -748,7 +1137,7 @@ int impop_weighted_identity(const void* geno, const void* member, const void* sm
                             void* stream) {
   const GramArgs a = make_args(geno, member, smask, weights, length, n, s, splits, chunk,
                                scratch, sim, present);
-  return launch<true>(a, w, static_cast<cudaStream_t>(stream));
+  return launch_weighted(a, w, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -22,6 +22,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import struct
 import subprocess
 import tempfile
 from typing import List, NamedTuple, Optional
@@ -235,14 +236,55 @@ class NativeBatch:
             pass
 
 
+# the sidecar header of cpp/paf.cc (IdxHeader: magic, version, the PAF's
+# size and mtime, the record count) and the smallest record it can hold:
+# two name lengths, seven int64 fields, the strand byte and an op count
+_IDX_HEADER = struct.Struct("<4sIqqqQ")
+_IDX_MIN_RECORD = 4 + 4 + 8 * 3 + 1 + 8 * 3 + 8
+
+
+def _sidecar_overclaims(paf_path: str) -> bool:
+    """True when ``<paf>.impopidx`` has the magic and version the C++ loads
+    but claims more records than the bytes after its header can hold.  The
+    C++ sizes its record table from that count before any bounds check, so
+    a bogus count makes ``ix_open`` fail instead of reparsing the PAF."""
+    path = paf_path + ".impopidx"
+    try:
+        size = os.path.getsize(path)
+        with open(path, "rb") as fh:
+            head = fh.read(_IDX_HEADER.size)
+    except OSError:
+        return False
+    if len(head) < _IDX_HEADER.size:
+        return False
+    magic, version, _, _, _, n_records = _IDX_HEADER.unpack(head)
+    return (magic == b"IPXI" and version == 1
+            and n_records * _IDX_MIN_RECORD > size - _IDX_HEADER.size)
+
+
 class NativeExtractor:
-    """PAF + FASTA → per-window allele matrices (C++ fast path)."""
+    """PAF + FASTA → per-window allele matrices (C++ fast path).
+
+    A sidecar index whose header overclaims its record count is bypassed:
+    the PAF is opened with ``IMPOP_PAF_INDEX=0`` for the duration of the
+    call, so the C++ reparses it and neither loads nor rewrites the
+    sidecar."""
 
     def __init__(self, paf_path: str, fasta_path: str):
         self._lib = load_library()
-        self._handle = self._lib.ix_open(
-            paf_path.encode(), fasta_path.encode()
-        )
+        saved = os.environ.get("IMPOP_PAF_INDEX")
+        bypass = _sidecar_overclaims(paf_path)
+        if bypass:
+            os.environ["IMPOP_PAF_INDEX"] = "0"
+        try:
+            self._handle = self._lib.ix_open(
+                paf_path.encode(), fasta_path.encode()
+            )
+        finally:
+            if bypass and saved is None:
+                del os.environ["IMPOP_PAF_INDEX"]
+            elif bypass:
+                os.environ["IMPOP_PAF_INDEX"] = saved
         err = self._lib.ix_error(self._handle)
         if err:
             msg = err.decode()

@@ -71,10 +71,8 @@ def _digest(sources: list[str]) -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.impop_window_stats_smem.argtypes = [_I, _I]
-    lib.impop_window_stats_smem.restype = ctypes.c_size_t
     lib.impop_window_stats.argtypes = (
-        [_P] * 8 + [_F] + [_I] * 10 + [_P] * 8)
+        [_P] * 8 + [_F] + [_I] * 10 + [_P] * 10)
     lib.impop_window_stats.restype = _I
     lib.impop_seed_peel.argtypes = [_P] * 4 + [_F] + [_I] * 3 + [_P] * 3
     lib.impop_seed_peel.restype = _I

@@ -21,11 +21,12 @@ and in both
   float32 ``torch.matmul`` Grams (TF32 off on CUDA), then the reference's
   epilogue.
 - :func:`pairwise_identity` / :func:`pairwise_identity_weighted`: the
-  wrappers.  CPU tensors take the plain version; CUDA tensors launch
-  ``gram_kernel`` of ``csrc/pairdiff.cu`` (tensor-core Grams over i <= j
-  128 x 128 tile pairs, mirrored: int8 ``mma.sync`` for unit weights, bf16
-  ``mma.sync`` on an exact three-piece split of the weights for columns
-  mode), every N and S, or raise.
+  wrappers.  CPU tensors take the plain version; CUDA tensors launch the
+  kernels of ``csrc/pairdiff.cu`` (tensor-core Grams over i <= j
+  128 x 128 tile pairs, mirrored: int8 ``wgmma`` in ``unit_gram_kernel``
+  for unit weights, bf16 ``mma.sync`` on an exact three-piece split of the
+  weights in ``weighted_gram_kernel`` for columns mode), every N and S, or
+  raise.
 
 What the kernels' wrappers compute in Python, and the CPU tests check:
 :func:`identity_partition` (tile pairs and the site split that fills the
@@ -230,7 +231,7 @@ def _launch(entry, kernel, geno, member, site_mask, length, weights=None,
 
 
 def _pairwise_identity_cuda(geno, member, site_mask, length, splits=None):
-    out = _launch("impop_pairwise_identity", "gram_kernel<unit>", geno,
+    out = _launch("impop_pairwise_identity", "unit_gram_kernel", geno,
                   member, site_mask, length, splits=splits)
     pairwise_identity.launches += 1
     return out
@@ -269,7 +270,7 @@ def pairwise_identity_weighted_plain(geno, member, site_mask, length,
 
 def _weighted_identity_cuda(geno, member, site_mask, length, site_weights,
                             splits=None):
-    out = _launch("impop_weighted_identity", "gram_kernel<weighted>", geno,
+    out = _launch("impop_weighted_identity", "weighted_gram_kernel", geno,
                   member, site_mask, length, site_weights, splits)
     pairwise_identity_weighted.launches += 1
     return out

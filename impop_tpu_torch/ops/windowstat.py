@@ -6,7 +6,9 @@ every panel and pair reduction and ``seed_risk`` for a batch of windows
   reduction of ``fused_panel_stats``, returning the raw row-dots.
 - :func:`window_stats`: the wrapper.  CPU tensors take the plain version;
   CUDA tensors launch ``window_stats_kernel`` of ``csrc/windowstat.cu``
-  (one block per window; see the source for its design), or raise.
+  (five launches, many blocks per window; see the source for its
+  design), or raise.  :func:`window_kernel_fits` says which caps it
+  takes; ``stats.panelstats.fused_window_stats`` composes the others.
 
 Both return the dict ``window_stats_pallas`` returns, with a leading window
 axis: quad/n/num_groups [W, R], pairs_used2 [W, PQ], sum/cnt aa, bb, ab and
@@ -23,11 +25,22 @@ from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
 from impop_tpu_torch.stats.allele import segregating_sites
 from impop_tpu_torch.stats.panelstats import gdxy_rows, panel_sums
 
-__all__ = ["window_stats", "window_stats_plain", "out_layout"]
+__all__ = ["window_stats", "window_stats_plain", "window_kernel_fits",
+           "out_layout"]
 
-_GROUP = 16          # Y rows per pass of the kernel's phase C
+_GROUP = 16          # the X stacks are padded to multiples of 16 rows
+_COL_TILE = 64       # Y columns per block of the kernel's phase C
+MAX_SITES = 65535    # the kernel keeps each pair's diff count in 16 bits
 _Q_KEYS = ("sum_aa", "cnt_aa", "sum_bb", "cnt_bb", "sum_ab", "cnt_ab",
            "gdxy")
+
+
+def window_kernel_fits(n_cap: int, s_cap: int) -> bool:
+    """Whether ``window_stats_kernel`` takes a batch of [n_cap, s_cap]
+    windows: positive multiples of 32 (whole bit-packed words), with every
+    pair's count of differing sites below the 16-bit sentinel."""
+    return (n_cap > 0 and s_cap > 0 and n_cap % 32 == 0 and s_cap % 32 == 0
+            and s_cap <= MAX_SITES)
 
 
 def _pad(rows: int) -> int:
@@ -107,12 +120,9 @@ def _window_stats_cuda(geno, member, site_mask, pmasks_stack, mask_a,
     pq = r_count - (0 if pairs_disjoint else 2 * q)
     if geno.dtype != torch.int8:
         raise ValueError(f"window_stats: geno must be int8, got {geno.dtype}")
-    if n_cap % 32 or s_cap % 32 or n_cap == 0 or s_cap == 0:
+    if not window_kernel_fits(n_cap, s_cap):
         raise ValueError(f"window_stats: caps N={n_cap}, S={s_cap} must be "
-                         "positive multiples of 32")
-    if s_cap > 65535:
-        raise ValueError(f"window_stats: S={s_cap} exceeds the uint16 diff "
-                         "scratch (65535 sites)")
+                         f"positive multiples of 32 with S <= {MAX_SITES}")
     if len(pair_a) != q or len(pair_b) != q or pq < 0:
         raise ValueError("window_stats: pair tuples, mask stacks and "
                          "pairs_disjoint disagree")
@@ -141,21 +151,25 @@ def _window_stats_cuda(geno, member, site_mask, pmasks_stack, mask_a,
     out = torch.empty((w, lay["n_out"]), dtype=torch.float32, device=dev)
     if w > 0:
         nw, sw = n_cap // 32, s_cap // 32
+        t = dots.shape[0]
         bits = torch.empty((w, 2, sw, n_cap), dtype=torch.int32, device=dev)
+        colbits = torch.zeros((w, 2, sw), dtype=torch.int32, device=dev)
         pres = torch.empty((w, n_cap, nw), dtype=torch.int32, device=dev)
         link = torch.empty_like(pres)
         diff = torch.empty((w, n_cap, n_cap), dtype=torch.int16, device=dev)
         x = torch.empty((w, rd + rp, n_cap), dtype=torch.float32, device=dev)
-        y = torch.empty_like(x)
+        xbits = torch.empty((w, rp, nw), dtype=torch.int32, device=dev)
+        partial = torch.empty((w, t, -(-n_cap // _COL_TILE)),
+                              dtype=torch.float32, device=dev)
         lib = load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.impop_window_stats(
             genc.data_ptr(), mem.data_ptr(), smk.data_ptr(), pmk.data_ptr(),
             mak.data_ptr(), mbk.data_ptr(), lens.data_ptr(), dots.data_ptr(),
-            float(threshold), w, n_cap, s_cap, r_count, pq, q, dots.shape[0],
-            rd, rp, lay["n_out"], bits.data_ptr(), pres.data_ptr(),
-            link.data_ptr(), diff.data_ptr(), x.data_ptr(), y.data_ptr(),
-            out.data_ptr(), stream)
+            float(threshold), w, n_cap, s_cap, r_count, pq, q, t,
+            rd, rp, lay["n_out"], bits.data_ptr(), colbits.data_ptr(),
+            pres.data_ptr(), link.data_ptr(), diff.data_ptr(), x.data_ptr(),
+            xbits.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
         check(lib, err, "window_stats_kernel")
         window_stats.launches += 1
     sizes = {"quad": r_count, "n": r_count, "num_groups": r_count,

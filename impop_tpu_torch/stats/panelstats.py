@@ -189,7 +189,11 @@ def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
 
     - ``return_matrices=False`` (the scan): the whole-window kernel on CUDA
       tensors, its plain version on CPU tensors; nothing of shape [N, N]
-      is returned.
+      is returned.  Caps the kernel does not take
+      (``ops.windowstat.window_kernel_fits``, e.g. more than 65 535 sites)
+      compose ``identity_from_alleles``, ``segregating_sites`` and
+      :func:`fused_panel_stats` on any device, as the JAX package composes
+      above its kernel's cap.
     - ``return_matrices=True`` (the JAX default): ``identity_group`` (the
       fused identity + grouping kernel on CUDA tensors) writes sim,
       present, the grouping and S, then :func:`fused_panel_stats` runs on
@@ -211,7 +215,18 @@ def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
                                 threshold, pairs_disjoint, gid=gid)
         return sim, present, s_count, res
 
-    from impop_tpu_torch.ops.windowstat import window_stats
+    from impop_tpu_torch.ops.windowstat import (window_kernel_fits,
+                                                window_stats)
+
+    if not window_kernel_fits(*geno.shape[-2:]):
+        from impop_tpu_torch.stats.allele import (identity_from_alleles,
+                                                  segregating_sites)
+
+        sim, present = identity_from_alleles(geno, member, site_mask, length)
+        s_count = segregating_sites(geno, member, site_mask).to(torch.float32)
+        res = fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
+                                threshold, pairs_disjoint)
+        return None, None, s_count, res
 
     all_masks, mask_a, mask_b = panel_mask_stack(
         pmasks, member, pair_a, pair_b, pairs_disjoint)

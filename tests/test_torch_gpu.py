@@ -80,7 +80,8 @@ def batch(seed, w, n, s, p, disjoint, partial):
 @pytest.mark.parametrize("disjoint,partial,n,s,p", [
     (True, False, 512, 128, 5), (False, False, 256, 128, 4),
     (True, True, 128, 128, 2), (True, False, 512, 4096, 5),
-    (True, False, 64, 128, 1)])
+    (True, False, 64, 128, 1), (False, False, 160, 128, 6),
+    (True, False, 96, 256, 3)])
 def test_window_stats_kernel_matches_plain(cuda_device, disjoint, partial,
                                            n, s, p):
     geno, member, smask, pmasks = batch(41, 6, n, s, p, disjoint, partial)
@@ -369,3 +370,44 @@ def test_batch_hudson_on_card_matches_cpu(cuda_device, with_grouped):
         for f in ("fst", "da"):
             diff = (getattr(res_g, f).cpu() - getattr(res_w, f)).abs()
             assert float(diff.max()) <= 2e-3, f
+
+
+@pytest.mark.gpu
+def test_route_above_the_window_kernel_cap(cuda_device):
+    """[2, 512, 65 664]: fused_window_stats(return_matrices=False) composes
+    the identity kernel, S and fused_panel_stats (the window kernel is not
+    launched) and equals the epilogue on window_stats_plain: integers
+    exact, π rtol 1e-5, Fst atol 2e-3."""
+    from impop_tpu_torch.stats.panelstats import (_assemble_from_kernel,
+                                                  fused_window_stats)
+
+    w, n, s, p = 2, 512, 65_664, 4
+    geno, member, smask, pmasks = batch(55, w, n, s, p, True, False)
+    pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
+    g, m, sm, pm = (torch.from_numpy(a).to(cuda_device)
+                    for a in (geno, member, smask, pmasks))
+    length = torch.full((w,), 2_000_000.0, device=cuda_device)
+    before_w, before_i = window_stats.launches, pairwise_identity.launches
+    sim, pres, s_count, got = fused_window_stats(
+        g, m, sm, length, pm, pa, pb, THR, True, return_matrices=False)
+    torch.cuda.synchronize()
+    assert sim is None and pres is None
+    assert window_stats.launches == before_w
+    assert pairwise_identity.launches > before_i
+    stack, ma, mb = panel_mask_stack(pm, m, pa, pb, True)
+    raw = window_stats_plain(g, m, sm, stack, ma, mb, THR, length, pa, pb,
+                             True)
+    want = _assemble_from_kernel(raw, p + len(pairs), len(pairs), pa, pb,
+                                 True)
+    assert torch.equal(s_count, raw["s"])
+    for f in ("n", "num_groups", "pairs_used", "pairs_missing",
+              "seed_risk"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    torch.testing.assert_close(got.pi, want.pi, rtol=1e-5, atol=1e-9)
+    for res_g, res_w in ((got.hudson, want.hudson),
+                         (got.hudson_grouped, want.hudson_grouped)):
+        torch.testing.assert_close(res_g.dxy, res_w.dxy, rtol=1e-5,
+                                   atol=1e-9)
+        diff = torch.nan_to_num((res_g.fst - res_w.fst).abs(), nan=0.0)
+        assert float(diff.max()) <= 2e-3

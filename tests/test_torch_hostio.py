@@ -493,6 +493,46 @@ def test_native_extractor_matches_jax(pangenome):
     opened.close()
 
 
+@pytest.mark.skipif(not HAVE_TOOLCHAIN, reason="no C++ toolchain")
+@pytest.mark.parametrize("n_records,preset", [(2 ** 40, None),
+                                              (2 ** 58, "1")])
+def test_native_extractor_bypasses_overclaiming_sidecar(tmp_path,
+                                                         monkeypatch,
+                                                         n_records, preset):
+    """A sidecar with a valid header whose record count cannot fit its
+    bytes: the open reparses the PAF and gives the windows of
+    IMPOP_PAF_INDEX=0, leaves the sidecar byte for byte as it was and
+    restores the environment."""
+    import struct
+
+    from impop_tpu_torch.extract import NativeExtractor
+
+    sim = tsimulate.simulate(str(tmp_path), ref_len=4000, n_haps=8, seed=7,
+                             site_pool=50, p_indel=0.6)
+
+    def windows():
+        with NativeExtractor(sim.paf_path, sim.fasta_path) as ex:
+            return [ex.extract(sim.ref_name, lo, hi) for lo, hi in WINDOWS]
+
+    monkeypatch.delenv("IMPOP_PAF_INDEX", raising=False)
+    windows()                               # writes the sidecar
+    idx = sim.paf_path + ".impopidx"
+    raw = bytearray(open(idx, "rb").read())
+    assert raw[:4] == b"IPXI" and len(raw) < n_records
+    raw[32:40] = struct.pack("<Q", n_records)
+    with open(idx, "wb") as fh:
+        fh.write(raw)
+    if preset is not None:
+        monkeypatch.setenv("IMPOP_PAF_INDEX", preset)
+    got = windows()
+    assert os.environ.get("IMPOP_PAF_INDEX") == preset
+    assert open(idx, "rb").read() == bytes(raw)
+    monkeypatch.setenv("IMPOP_PAF_INDEX", "0")
+    for a, b in zip(got, windows(), strict=True):
+        _assert_same(a, b)
+        assert a.geno.shape[1] > 0
+
+
 # ---------------------------------------------------------------- bgzf
 
 

@@ -238,6 +238,32 @@ def test_partition_fills_the_card():
     assert identity_partition(320, 512, 128, 32, 132)[2] == 1
 
 
+@pytest.mark.parametrize("tool,source,variant", [
+    ("gram_breakdown", "pairdiff.cu", v) for v in (
+        "base", "nodiv", "nomirror", "nostores", "noepi", "nodecode", "nomma",
+        "loadsonly")] + [
+    ("window_breakdown", "windowstat.cu", v) for v in (
+        "base", "novalue", "nostage", "nomask", "nodots")])
+def test_breakdown_variants_match_the_kernel_source(tool, source, variant):
+    """Each variant of ``bench/gram_breakdown.py`` and
+    ``bench/window_breakdown.py`` edits text the kernel source still has
+    (the scripts build the variants on the card only), and the unit
+    identity kernel issues ``wgmma``."""
+    import importlib
+    import os
+
+    from impop_tpu_torch.ops._build import _CSRC
+
+    bench = importlib.import_module(f"impop_tpu_torch.bench.{tool}")
+    with open(os.path.join(_CSRC, source)) as fh:
+        src = fh.read()
+    if source == "pairdiff.cu":
+        assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in src
+    for old, new in bench.VARIANTS[variant]:
+        assert src.count(old) >= 1, old
+        assert old != new
+
+
 def _rn32(x):
     """Round an exact rational to the nearest float32, ties to even."""
     from fractions import Fraction

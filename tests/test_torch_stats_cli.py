@@ -312,6 +312,49 @@ def test_panels_tajd_matches_jax(inputs, tmp_path):
         assert {int(r[2]) for r in rows[1:]} == {want}
 
 
+@pytest.mark.parametrize("cmd", ["tajd", "panels-tajd"])
+def test_tajd_batches_match_jax(inputs, tmp_path, capsys, monkeypatch, cmd):
+    """Two windows per device batch (N capacity 64): ``tajd`` and
+    ``panels-tajd`` walk the three kept windows in batches of 2 + 1 and
+    print the JAX tables and counters."""
+    import impop_tpu_torch.parallel.scan as torch_scan
+
+    monkeypatch.setattr(torch_cli, "_WINDOW_CHUNK_ELEMS", 2 * 64 * 64)
+    sizes = []
+    step = torch_scan.batch_tajd_from_alleles
+
+    def counted(geno, *a, **k):
+        sizes.append(geno.shape[0])
+        return step(geno, *a, **k)
+
+    monkeypatch.setattr(torch_scan, "batch_tajd_from_alleles", counted)
+    if cmd == "tajd":
+        argv = base("tajd", inputs, "geno")
+        errs = {}
+        for tag, main, extra in (("jax", jax_main, []),
+                                 ("torch", torch_main, ["--device", "cpu"])):
+            capsys.readouterr()
+            assert main(argv + ["-o", str(tmp_path / f"{tag}.tsv")]
+                        + extra) == 0
+            errs[tag] = counters(capsys.readouterr().err)
+        assert errs["torch"] == errs["jax"] == [
+            "Processed: 4 windows (success: 3, errors: 1)"]
+        assert sizes == [2, 1]
+        assert len(assert_tables_close(tmp_path / "jax.tsv",
+                                       tmp_path / "torch.tsv")) == 4
+        return
+    argv = ["panels-tajd", "-b", str(inputs / "w.bed"), "--geno-dir",
+            str(inputs / "geno"), "--metadata-dir",
+            str(inputs / "metadata")]
+    run_in(tmp_path / "jax", jax_main, argv)
+    run_in(tmp_path / "torch", torch_main, argv + ["--device", "cpu"])
+    assert sizes == [2, 1] * len(PANELS)
+    for name in sorted(os.listdir(tmp_path / "jax")):
+        rows = assert_tables_close(tmp_path / "jax" / name,
+                                   tmp_path / "torch" / name)
+        assert len(rows) == 4
+
+
 def test_cmd_tajd_without_streaming_flags(inputs, tmp_path):
     """The namespace panels-tajd hands to cmd_tajd has no stream_npy,
     stream_names or chunk_sites."""
