@@ -10,9 +10,12 @@ Phases (one line each; any failure exits non-zero):
   2  each kernel against its plain PyTorch version on the card:
      (a) [512, 128] x 320 HPRC-shaped windows, 5 panels / 10 disjoint
          pairs, with kernel and plain per-window times (CUDA events) and
-         the time of each of the window program's kernels (torch.profiler);
-     (b) cap 256 with overlapping panels; (c) a partial-coverage window
-     that sets seed_risk; (d) cap_s = 4096, timed; (e) seed_peel;
+         the time of each of the window program's kernels (torch.profiler,
+         printed after 2j, so that no kernel of phase 2 is timed after a
+         profiler session);
+     (b) cap 256 with 4 and with 10 overlapping panels, cap 1152; (c) a
+     partial-coverage window that sets seed_risk; (d) cap_s = 4096, timed
+     and profiled as (a); (e) seed_peel;
      (f) ehh_area: [512, 128] x 320 with the focal at the middle variant,
          focals on the first and last active site, a window with no
          active site, and [512, 1024] x 16 past 2^24 (all exactly equal);
@@ -92,14 +95,15 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(HERE, "impop_tpu_torch")):
+    sys.exit("chip_smoke: impop_tpu_torch/ is not beside this script")
+sys.path.insert(0, HERE)
 
-N_HAP = 466                   # HPRC v2: 465 assemblies + CHM13
-CAP_N, CAP_S = 512, 128
-WIN_BP = 5000
+from impop_tpu_torch.bench.inputs import (  # noqa: E402
+    BATCH, CAP_N, CAP_S, N_HAP, PANEL_SIZES, THRESHOLD, WIN_BP, hprc_batch,
+    long_batch, to_dev)
+
 SCAN_BP = 2_000_000           # simulated pangenome for the scan phase
-BATCH = 320
-THRESHOLD = 0.999
-PANEL_SIZES = {"AFR": 140, "AMR": 88, "EAS": 100, "EUR": 60, "SAS": 72}
 RTOL = 1e-5                   # floats: f32 sums in another order
 ATOL = 1e-6
 INT_KEYS = ("n", "num_groups", "pairs_used2", "cnt_aa", "cnt_bb", "cnt_ab",
@@ -158,42 +162,6 @@ def nvidia_smi_line() -> str:
     if out.returncode != 0:
         raise SmokeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-# ------------------------------------------------------------------ inputs
-
-
-def hprc_batch(rng, w, cap_n=CAP_N, cap_s=CAP_S, n_hap=N_HAP):
-    """HPRC-shaped windows: a few haplotype classes with class-structured
-    variation and 0.1% noise, the five continental panels side by side."""
-    import numpy as np
-
-    geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
-    member = np.zeros((w, cap_n), bool)
-    smask = np.zeros((w, cap_s), bool)
-    for wi in range(w):
-        n_classes = int(rng.integers(3, 12))
-        n_sites = int(rng.integers(20, cap_s)) if cap_s > 20 else cap_s
-        classes = rng.integers(0, 2, size=(n_classes, n_sites)).astype(
-            np.int8)
-        g = classes[rng.integers(0, n_classes, size=n_hap)]
-        g = np.where(rng.random((n_hap, n_sites)) < 0.001, 1 - g, g)
-        geno[wi, :n_hap, :n_sites] = g
-        member[wi, :n_hap] = True
-        smask[wi, :n_sites] = True
-    panels = np.zeros((w, len(PANEL_SIZES), cap_n), bool)
-    start = 0
-    for pi, size in enumerate(PANEL_SIZES.values()):
-        panels[:, pi, start:start + size] = True
-        start += size
-    lengths = np.full(w, float(WIN_BP), np.float32)
-    return geno, member, smask, panels, lengths
-
-
-def to_dev(dev, *arrays):
-    import torch
-
-    return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
 # ------------------------------------------------------------------ phase 2
@@ -490,7 +458,10 @@ def phase_weighted_kernels(dev, report):
                                       plain_ms=p_ms)
 
 
-def phase_kernels(dev, report):
+def phase_kernels(dev, report, profiles):
+    """2a-2e; the window kernel's per-launch profiles go to ``profiles``,
+    taken after every kernel of phase 2 is timed (a torch.profiler session
+    leaves later kernel times a little slower)."""
     import numpy as np
     import torch
 
@@ -507,29 +478,48 @@ def phase_kernels(dev, report):
     p_ms = cuda_time_ms(lambda: window_stats_plain(*args), 3)
     g, m, sm, stack, ma, mb = args[:6]
     r, q = stack.shape[-2], ma.shape[-2]
-    rows = r + 2 * q + r + 2 * q      # div-side and mask-side product rows
+    value_rows = r + 2 * q    # X . (1 - sim) rows: fp32 FMAs
+    mask_rows = r + 2 * q     # 0/1 rows . present (disjoint: PQ = R): per
+    #                           32-bit word an AND, a popcount and an add
+    in_out = nbytes(g, m, sm, stack, ma, mb, args[7], *got.values())
+    gram = 4 * BATCH * tri_pairs(CAP_N) * CAP_S
     share = set_bound(
-        report, "window_stats", k_ms,
-        nbytes(g, m, sm, stack, ma, mb, args[7], *got.values()),
-        int8=4 * BATCH * tri_pairs(CAP_N) * CAP_S,
-        fp32=2 * BATCH * CAP_N * CAP_N * rows)
+        report, "window_stats", k_ms, in_out, int8=gram,
+        fp32=2 * BATCH * CAP_N * CAP_N * value_rows,
+        int32=3 * BATCH * mask_rows * CAP_N * (CAP_N // 32))
+    # PR 5's count, every product row as fp32 FMAs, kept for comparison
+    # with the shares recorded before (not a bound: the 0/1 rows need none)
+    old_ms = bound(in_out, int8=gram,
+                   fp32=2 * BATCH * CAP_N * CAP_N * (value_rows + mask_rows))[0]
     say("2a", f"window_stats [{CAP_N},{CAP_S}]x{BATCH} 5 panels/10 pairs "
         f"disjoint: integers exact, floats within rtol {RTOL} (max_abs_err "
         f"{err_a:.3e}); kernel {k_ms:.4f} ms/batch "
         f"= {k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
-        f"= {p_ms / BATCH * 1e3:.3f} us/window; {share}")
-    say("2a", "window_stats by phase kernel (torch.profiler, one call): "
-        + profile_ops(lambda: window_stats(*args), k_ms))
+        f"= {p_ms / BATCH * 1e3:.3f} us/window; {share}; PR 5's count (all "
+        f"{value_rows + mask_rows} product rows as fp32 FMAs) {old_ms:.4f} "
+        f"ms, {100 * old_ms / k_ms:.1f}% of it")
+    profiles.append(("2a", "window_stats by phase kernel (torch.profiler, "
+                     "one call): ", lambda: window_stats(*args), k_ms))
     report["window_stats"].update(max_abs_err=err_a, ms=k_ms, plain_ms=p_ms)
 
-    # (b) cap 256, overlapping panels (non-disjoint layout)
+    # (b) cap 256, overlapping panels (non-disjoint layout); ten
+    # overlapping panels (X stacks of 400 rows: phase C reads its X columns
+    # from device memory); cap 1152 (phase B reads the link bits from
+    # device memory)
     geno, member, smask, _, lengths = hprc_batch(rng, 64, cap_n=256,
                                                  n_hap=230)
     panels = rng.random((64, 4, 256)) < 0.4
     err_b, _, _ = window_case(dev, geno, member, smask, panels, lengths,
                               False, "2b")
-    say("2b", f"window_stats [256,128]x64 overlapping panels: max_abs_err "
-        f"{err_b:.3e}")
+    geno, member, smask, _, lengths = hprc_batch(rng, 16, cap_n=256,
+                                                 n_hap=230)
+    panels = rng.random((16, 10, 256)) < 0.3
+    err_b = max(err_b, window_case(dev, geno, member, smask, panels, lengths,
+                                   False, "2b ten panels")[0])
+    batch = hprc_batch(rng, 8, cap_n=1152, n_hap=1100)
+    err_b = max(err_b, window_case(dev, *batch, True, "2b cap 1152")[0])
+    say("2b", f"window_stats [256,128]x64 overlapping panels, [256,128]x16 "
+        f"ten overlapping panels, [1152,128]x8: max_abs_err {err_b:.3e}")
 
     # (c) partial coverage: two coverage islands -> seed_risk
     geno, member, smask, _, lengths = hprc_batch(rng, 4, cap_n=128,
@@ -558,8 +548,10 @@ def phase_kernels(dev, report):
                                    lengths, True, "2d")
     d_ms = cuda_time_ms(lambda: window_stats(*args_d), 10)
     say("2d", f"window_stats [512,4096]x8: max_abs_err {err_d:.3e}; kernel "
-        f"{d_ms:.4f} ms/batch; by phase kernel (torch.profiler): "
-        + profile_ops(lambda: window_stats(*args_d), d_ms))
+        f"{d_ms:.4f} ms/batch")
+    profiles.append(("2d", "window_stats [512,4096]x8 by phase kernel "
+                     "(torch.profiler, one call): ",
+                     lambda: window_stats(*args_d), d_ms))
     report["window_stats"]["max_abs_err"] = max(err_a, err_b, err_c, err_d)
 
     # (e) seed_peel at the recompute's shape: one window, 2Q = 20 masks
@@ -582,25 +574,6 @@ def phase_kernels(dev, report):
         f"({int(got.sum())} seeds over 4 windows); kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.4f} ms per window; {share}")
     report["seed_peel"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
-
-
-def long_batch(rng, w, cap_n=CAP_N, cap_s=2048, n_hap=N_HAP, bp=200_000.0):
-    """Long windows: class-structured haplotypes over every site (about
-    the density of a 200 kb window of the simulated pangenome)."""
-    import numpy as np
-
-    geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
-    for wi in range(w):
-        classes = rng.integers(0, 2, size=(8, cap_s)).astype(np.int8)
-        g = classes[rng.integers(0, 8, size=n_hap)]
-        geno[wi, :n_hap] = np.where(rng.random((n_hap, cap_s)) < 0.002,
-                                    1 - g, g)
-    geno[:, :n_hap][rng.random((w, n_hap, cap_s)) < 0.01] = -1
-    member = np.zeros((w, cap_n), bool)
-    member[:, :n_hap] = True
-    smask = np.ones((w, cap_s), bool)
-    smask[:, cap_s - 37:] = False
-    return geno, member, smask, np.full(w, bp, np.float32)
 
 
 def zv_operands(geno, member, smask):
@@ -1457,11 +1430,6 @@ def time_stats_step(dev, step):
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "impop_tpu_torch")):
-        print("chip_smoke: impop_tpu_torch/ is not beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
     import torch
 
     if not torch.cuda.is_available():
@@ -1516,11 +1484,14 @@ def main() -> int:
                      "source": f"impop_tpu_torch/csrc/{src}",
                      "replaces": replaces, "launches": 0}
               for name, (src, replaces) in sources.items()}
-    phase_kernels(dev, report)
+    profiles = []
+    phase_kernels(dev, report, profiles)
     phase_ehh_kernel(dev, report)
     phase_weighted_kernels(dev, report)
     phase_identity_kernel(dev, report)
     phase_idgroup_kernel(dev, report)
+    for tag, text, fn, ms in profiles:
+        say(tag, text + profile_ops(fn, ms))
 
     # the main paths, each through the port's CLI entry point: every launch
     # count is 0 just before a path and must be nonzero for each kernel of

@@ -6,8 +6,8 @@ Builds variants of ``csrc/windowstat.cu`` with one part of
 ``window_products_kernel`` taken out (text substitutions on the source;
 the results of a variant are wrong by design and are not checked), runs
 the whole window program of each on [512, 128] x 320 HPRC-shaped windows
-(5 panels, 10 disjoint pairs, the inputs of ``chip_smoke.py`` phase 2a)
-and prints the device time of ``window_products_kernel`` (torch.profiler,
+(5 panels, 10 disjoint pairs: ``bench.inputs``, as in ``chip_smoke.py``
+phase 2a) and prints the device time of ``window_products_kernel`` (torch.profiler,
 median of 5 calls).  A part's cost is the base time minus the variant's.
 
   base      the kernel as built for the port
@@ -79,27 +79,26 @@ def main() -> int:
     import torch
 
     import impop_tpu_torch.ops._build as build_mod
+    from impop_tpu_torch.bench import inputs
     from impop_tpu_torch.ops.windowstat import window_stats
     from impop_tpu_torch.stats.panelstats import panel_mask_stack
 
     if not torch.cuda.is_available():
         print("window_breakdown: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(build_mod._PKG))
-    import chip_smoke as cs
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     dev = torch.device("cuda")
-    geno, member, smask, panels, lengths = cs.hprc_batch(
-        np.random.default_rng(7), cs.BATCH)
+    geno, member, smask, panels, lengths = inputs.hprc_batch(
+        np.random.default_rng(7), inputs.BATCH)
     p = panels.shape[1]
     pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
     pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
-    g, m, sm, pn, ln = cs.to_dev(dev, geno, member, smask, panels, lengths)
+    g, m, sm, pn, ln = inputs.to_dev(dev, geno, member, smask, panels,
+                                     lengths)
     stack, ma, mb = panel_mask_stack(pn, m, pa, pb, True)
-    args = (g, m, sm, stack, ma, mb, cs.THRESHOLD, ln, pa, pb, True)
+    args = (g, m, sm, stack, ma, mb, inputs.THRESHOLD, ln, pa, pb, True)
     os.makedirs(build_mod._BUILD, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_mod._BUILD) as work:
         libs = build(work)
@@ -112,8 +111,8 @@ def main() -> int:
         finally:
             build_mod.load_library = saved
     print(f"window_breakdown on {smi}: window_products_kernel device ms "
-          f"(torch.profiler, median of 5) at [{cs.CAP_N},{cs.CAP_S}]x"
-          f"{cs.BATCH}: " + ", ".join(row), flush=True)
+          f"(torch.profiler, median of 5) at [{inputs.CAP_N},"
+          f"{inputs.CAP_S}]x{inputs.BATCH}: " + ", ".join(row), flush=True)
     return 0
 
 

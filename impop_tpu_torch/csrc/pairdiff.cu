@@ -85,10 +85,10 @@
 // [thread]) and a reduce kernel sums them in split order (int32 exactly;
 // f32 in a fixed order) and runs the same epilogue.
 //
-// Ragged shapes: any N (rows past N are never loaded, decode as zero and
-// are never written; a half tile wholly past N exits at once; the output
-// stores fall back to scalars when N % 4 (f32) or N % 16 (u8) leaves rows
-// unaligned).  S must be a multiple of 16 so that every copy is 16-byte
+// Ragged shapes: any N (a tile pair runs whole: rows past N are never
+// loaded, decode as zero and are never stored; the output stores fall back
+// to scalars when N % 4 (f32) or N % 16 (u8) leaves rows unaligned).
+// S must be a multiple of 16 so that every copy is 16-byte
 // aligned: the wrapper pads S once (masked columns) when it is not, which
 // costs one copy of the tile, and only on that path.
 //
@@ -96,7 +96,7 @@
 // 989 TFLOP/s bf16).  Unit weights, [512, 2048] x 64: 67 MB of int8 in and
 // 84 MB of sim + present out, 45 us of bytes, against 69 GOP of int8 on the
 // triangle (35 us): bytes.  [512, 8192] x 8: 34 GOP (17 us) against 44 MB
-// (13 us): operations, and only 160 half tiles for 132 SMs, which the site
+// (13 us): operations, and only 80 tile pairs for 132 SMs, which the site
 // split addresses.  Weighted, [512, 128] x 64: 88 MB of bytes (26 us)
 // against 4.3 GFLOP of bf16 (4 us): bytes, so the epilogue's stores
 // dominate and the coalesced mirrored writes are what matters.

@@ -25,6 +25,7 @@ import os
 import struct
 import subprocess
 import tempfile
+import threading
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -241,6 +242,7 @@ class NativeBatch:
 # two name lengths, seven int64 fields, the strand byte and an op count
 _IDX_HEADER = struct.Struct("<4sIqqqQ")
 _IDX_MIN_RECORD = 4 + 4 + 8 * 3 + 1 + 8 * 3 + 8
+_OPEN_LOCK = threading.Lock()
 
 
 def _sidecar_overclaims(paf_path: str) -> bool:
@@ -272,19 +274,23 @@ class NativeExtractor:
 
     def __init__(self, paf_path: str, fasta_path: str):
         self._lib = load_library()
-        saved = os.environ.get("IMPOP_PAF_INDEX")
         bypass = _sidecar_overclaims(paf_path)
-        if bypass:
-            os.environ["IMPOP_PAF_INDEX"] = "0"
-        try:
-            self._handle = self._lib.ix_open(
-                paf_path.encode(), fasta_path.encode()
-            )
-        finally:
-            if bypass and saved is None:
-                del os.environ["IMPOP_PAF_INDEX"]
-            elif bypass:
-                os.environ["IMPOP_PAF_INDEX"] = saved
+        # the C++ reads the process environment while it opens (and may
+        # write the sidecar), so opens take turns: no other open sees the
+        # bypass, and the restore cannot race with one
+        with _OPEN_LOCK:
+            saved = os.environ.get("IMPOP_PAF_INDEX")
+            if bypass:
+                os.environ["IMPOP_PAF_INDEX"] = "0"
+            try:
+                self._handle = self._lib.ix_open(
+                    paf_path.encode(), fasta_path.encode()
+                )
+            finally:
+                if bypass and saved is None:
+                    del os.environ["IMPOP_PAF_INDEX"]
+                elif bypass:
+                    os.environ["IMPOP_PAF_INDEX"] = saved
         err = self._lib.ix_error(self._handle)
         if err:
             msg = err.decode()

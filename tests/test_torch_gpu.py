@@ -81,7 +81,11 @@ def batch(seed, w, n, s, p, disjoint, partial):
     (True, False, 512, 128, 5), (False, False, 256, 128, 4),
     (True, True, 128, 128, 2), (True, False, 512, 4096, 5),
     (True, False, 64, 128, 1), (False, False, 160, 128, 6),
-    (True, False, 96, 256, 3)])
+    (True, False, 96, 256, 3),
+    # X stacks of 400 rows: phase C reads its X columns from device memory
+    (False, False, 256, 128, 10),
+    # 1152 rows: phase B reads the link bits from device memory
+    (True, False, 1152, 128, 5)])
 def test_window_stats_kernel_matches_plain(cuda_device, disjoint, partial,
                                            n, s, p):
     geno, member, smask, pmasks = batch(41, 6, n, s, p, disjoint, partial)
