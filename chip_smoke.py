@@ -15,10 +15,15 @@ Phases (one line each; any failure exits non-zero):
          profiler session);
      (b) cap 256 with 4 and with 10 overlapping panels, cap 1152; (c) a
      partial-coverage window that sets seed_risk; (d) cap_s = 4096, timed
-     and profiled as (a); (e) seed_peel;
+     and profiled as (a);
+     (e) seed_peel: seeds and gid exactly equal to the plain composition
+         at [512, 512] x 1 with 20 masks, x 10 with one mask (tajd's step)
+         and x 200 with two (phase 9's), each timed with its longest seed
+         chain beside its byte bound;
      (f) ehh_area: [512, 128] x 320 with the focal at the middle variant,
          focals on the first and last active site, a window with no
-         active site, and [512, 1024] x 16 past 2^24 (all exactly equal);
+         active site, [512, 4096] x 4 (words read from device memory) and
+         [512, 1024] x 16 past 2^24, timed (all exactly equal);
      (g) pairwise_identity_weighted: [512, 128] x 64 with integer weights
          1-50 and a 100 000 bp column, [512, 4096] x 4, and ragged
          [37, 37], [37, 1], [1024, 3120] with weights 1-50 and 100 000 bp
@@ -270,7 +275,7 @@ def ehh_case(dev, geno, member, smask, focal, tag):
     return 0.0, int(got[0].max()), args
 
 
-def phase_ehh_kernel(dev, report):
+def phase_ehh_kernel(dev, report, profiles):
     import numpy as np
 
     from impop_tpu_torch.ops.ehhdeath import ehh_area, ehh_area_plain
@@ -279,7 +284,8 @@ def phase_ehh_kernel(dev, report):
     geno, member, smask, _, _ = hprc_batch(rng, BATCH)
     err, _, args = ehh_case(dev, geno, member, smask,
                             mid_active_focals(smask), "2f")
-    k_ms = cuda_time_ms(lambda: ehh_area(*args), 10)
+    ev_ms = cuda_time_ms(lambda: ehh_area(*args), 10)
+    k_ms = graph_ms(lambda: ehh_area(*args), 10)
     p_ms = cuda_time_ms(lambda: ehh_area_plain(*args), 3)
     sums, carr = ehh_area(*args)
     c = carr.double()
@@ -288,8 +294,12 @@ def phase_ehh_kernel(dev, report):
                       int32=float((c * (c - 1)).sum()))  # 2 walks per pair
     say("2f", f"ehh_area [{CAP_N},{CAP_S}]x{BATCH}, focal at the middle "
         f"variant: sums and carriers exactly equal; kernel {k_ms:.4f} "
-        f"ms/batch = {k_ms / BATCH * 1e3:.3f} us/window; plain "
+        f"ms/batch (CUDA graph replays; with the wrapper's host time, CUDA "
+        f"events: {ev_ms:.4f}) = {k_ms / BATCH * 1e3:.3f} us/window; plain "
         f"{p_ms:.4f} ms/batch = {p_ms / BATCH * 1e3:.3f} us/window; {share}")
+    profiles.append(("2f", f"ehh_area [{CAP_N},{CAP_S}]x{BATCH} by launch "
+                     "(torch.profiler, one call): ",
+                     lambda: ehh_area(*args), k_ms))
 
     # focal on the first / last active site; a window with no active site
     geno, member, smask, _, _ = hprc_batch(rng, 6)
@@ -309,14 +319,26 @@ def phase_ehh_kernel(dev, report):
         geno[wi, :N_HAP] = np.where(rng.random((N_HAP, 1024)) < 2e-4,
                                     1 - g, g)
     smask[:] = True
-    _, big, _ = ehh_case(dev, geno, member, smask, mid_active_focals(smask),
-                         "2f long")
+    _, big, long_args = ehh_case(dev, geno, member, smask,
+                                 mid_active_focals(smask), "2f long")
     if big <= 1 << 24:
         raise SmokeError(f"2f long: largest step sum {big} does not pass "
                          "2^24")
+    long_ms = graph_ms(lambda: ehh_area(*long_args), 10)
+    long_plain = cuda_time_ms(lambda: ehh_area_plain(*long_args), 3)
+
+    # [512, 4096]: the pair walk reads its words from device memory
+    geno, member, smask, _, _ = hprc_batch(rng, 4, cap_s=4096)
+    geno[:, :N_HAP] = np.where(rng.random((4, N_HAP, 4096)) < 0.02, 1,
+                               0).astype(np.int8)
+    smask[:] = True
+    ehh_case(dev, geno, member, smask, mid_active_focals(smask),
+             "2f unstaged")
     say("2f", f"ehh_area edges (first / last active focal, no active "
-        f"site) and [512,1024]x16 (largest sum {big} > 2^24): exactly "
-        "equal")
+        f"site), [512,4096]x4 (words read from device memory) and "
+        f"[512,1024]x16 (largest sum {big} > 2^24): exactly equal; "
+        f"[512,1024]x16 kernel {long_ms:.4f} ms (CUDA graph replays), plain "
+        f"{long_plain:.4f} ms")
     report["ehh_area"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
 
 
@@ -465,7 +487,7 @@ def phase_kernels(dev, report, profiles):
     import numpy as np
     import torch
 
-    from impop_tpu_torch.ops.seedpeel import seed_peel, seed_peel_plain
+    from impop_tpu_torch.ops.seedpeel import seed_gid_plain, seed_peel
     from impop_tpu_torch.ops.windowstat import (window_stats,
                                                 window_stats_plain)
     from impop_tpu_torch.stats.allele import identity_from_alleles
@@ -554,26 +576,47 @@ def phase_kernels(dev, report, profiles):
                      lambda: window_stats(*args_d), d_ms))
     report["window_stats"]["max_abs_err"] = max(err_a, err_b, err_c, err_d)
 
-    # (e) seed_peel at the recompute's shape: one window, 2Q = 20 masks
-    g, m, sm, _, ln = to_dev(dev, *hprc_batch(rng, 4))
-    sim, present = identity_from_alleles(g, m, sm, ln)
-    masks = torch.from_numpy(rng.random((4, 20, CAP_N)) < 0.3).to(dev)
-    got = seed_peel(sim, present, m, masks, THRESHOLD)
-    want = seed_peel_plain(sim, present, m, masks, THRESHOLD)
-    if not torch.equal(got, want):
-        raise SmokeError("2e: seed_peel seeds differ from the plain peel")
-    k_ms = cuda_time_ms(
-        lambda: seed_peel(sim[:1], present[:1], m[:1], masks[:1], THRESHOLD),
-        20)
-    p_ms = cuda_time_ms(
-        lambda: seed_peel_plain(sim[:1], present[:1], m[:1], masks[:1],
-                                THRESHOLD), 5)
-    share = set_bound(report, "seed_peel", k_ms,
-                      nbytes(sim[:1], present[:1], m[:1], masks[:1], got[:1]))
-    say("2e", f"seed_peel [512,512] x 20 masks: seeds equal "
-        f"({int(got.sum())} seeds over 4 windows); kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms per window; {share}")
-    report["seed_peel"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
+    # (e) seed_peel: one window with 2Q = 20 masks (the recompute's
+    # shape), tajd's ten windows with one mask, phase 9's 200 windows with
+    # two panels; seeds and gid against the plain composition
+    lines = []
+    for w, p in ((1, 20), (10, 1), (200, 2)):
+        g, m, sm, _, ln = to_dev(dev, *hprc_batch(rng, w))
+        sim, present = identity_from_alleles(g, m, sm, ln)
+        masks = torch.from_numpy(rng.random((w, p, CAP_N)) < 0.3).to(dev)
+        masks[:, 0] = True
+        peel_args = (sim, present, m, masks, THRESHOLD)
+        seeds, gid = seed_peel(*peel_args)
+        want_seeds, want_gid = seed_gid_plain(*peel_args)
+        if not (torch.equal(seeds, want_seeds) and torch.equal(gid, want_gid)):
+            raise SmokeError(f"2e: seed_peel seeds or gid differ from the "
+                             f"plain composition at [{CAP_N},{CAP_N}]x{w}, "
+                             f"{p} masks")
+        ev_ms = cuda_time_ms(lambda: seed_peel(*peel_args), 20)
+        k_ms = graph_ms(lambda: seed_peel(*peel_args), 20)
+        p_ms = cuda_time_ms(lambda: seed_gid_plain(*peel_args), 5)
+        # link(j, i) reads sim and present at j < i only: the strict upper
+        # triangles are the bytes the function must move
+        upper = w * CAP_N * (CAP_N - 1) // 2 * (sim.element_size()
+                                                 + present.element_size())
+        n_bytes = upper + nbytes(m, masks, seeds, gid)
+        b_ms, by = bound(n_bytes)
+        chain = int(seeds.sum(-1).max())
+        lines.append(f"[{CAP_N},{CAP_N}]x{w}, {p} masks: kernel {k_ms:.4f} "
+                     f"ms (CUDA graph replays; with the wrapper's host time, "
+                     f"CUDA events: {ev_ms:.4f}), plain {p_ms:.4f} ms; "
+                     f"longest seed chain {chain} steps; bound {b_ms:.4f} ms "
+                     f"({by}), {100 * b_ms / k_ms:.1f}% of it")
+        if w == 1:
+            set_bound(report, "seed_peel", k_ms, n_bytes)
+            report["seed_peel"].update(max_abs_err=0.0, ms=k_ms,
+                                       plain_ms=p_ms)
+        if w == 200:
+            profiles.append(("2e", f"seed_peel [{CAP_N},{CAP_N}]x{w}, {p} "
+                             "masks by launch (torch.profiler, one call): ",
+                             lambda a=peel_args: seed_peel(*a), k_ms))
+    say("2e", "seed_peel seeds and gid equal to the plain composition; "
+        + "; ".join(lines))
 
 
 def zv_operands(geno, member, smask):
@@ -1134,16 +1177,19 @@ def time_tajd_step(dev, step):
     id_ms = cuda_time_ms(lambda: pairwise_identity(*args[:3], args[4]), 5)
     say("7", f"tajd device step [{cap_n},{cap_s}]x{w}: {step_ms:.4f} ms, "
         f"of which pairwise_identity {id_ms:.4f} ms")
-    say("7", "tajd device step by kernel (torch.profiler, one step): "
-        + profile_ops(
-            lambda: batch_tajd_from_alleles(*args, THRESHOLD), step_ms))
+    # the seed-peel kernel writes gid: no argmax runs in the step
+    say("7", "tajd device step by kernel (torch.profiler, one step; no "
+        "argmax kernel): " + profile_ops(
+            lambda: batch_tajd_from_alleles(*args, THRESHOLD), step_ms,
+            absent=("argmax",)))
 
 
-def profile_ops(fn, step_ms: float, top: int = 8) -> str:
+def profile_ops(fn, step_ms: float, top: int = 8, absent=()) -> str:
     """Device time of one call of fn (after a warm-up) by kernel: only the
     events the profiler traced on the card count (an operator's row
     repeats the time of the kernels it launched), and their sum against
-    ``step_ms`` gives the card's idle share of the step."""
+    ``step_ms`` gives the card's idle share of the step.  Fails if a
+    kernel's name contains a word of ``absent``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1164,6 +1210,9 @@ def profile_ops(fn, step_ms: float, top: int = 8) -> str:
             rows.append((us, e.key, e.count))
     if not rows:
         return "no device time recorded"
+    for _, key, _ in rows:
+        if any(word in key.lower() for word in absent):
+            raise SmokeError(f"the profile lists {key}")
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     idle = 100.0 * (1.0 - busy / step_ms)
@@ -1486,7 +1535,7 @@ def main() -> int:
               for name, (src, replaces) in sources.items()}
     profiles = []
     phase_kernels(dev, report, profiles)
-    phase_ehh_kernel(dev, report)
+    phase_ehh_kernel(dev, report, profiles)
     phase_weighted_kernels(dev, report)
     phase_identity_kernel(dev, report)
     phase_idgroup_kernel(dev, report)

@@ -147,8 +147,7 @@ __device__ inline void pair_loop(const uint32_t* __restrict__ abits,
   }
 }
 
-// ---- greedy grouping (window_stats_kernel phase B, seed_peel_kernel,
-// identity_group_kernel)
+// ---- greedy grouping (window_stats_kernel phase B, identity_group_kernel)
 
 // Loads mask row `row` (& member) into todo ([nw] words of one warp);
 // returns its member count.

@@ -5,7 +5,8 @@
 //     (identity, S, greedy grouping, group weights, every panel and pair
 //      reduction, seed_risk -- one program per window)
 //   impop_tpu/ops/seedpeel.py    seed_peel_pallas / _kernel
-//     (greedy seed flags for P masks from a given sim / present)
+//     (greedy seed flags for P masks from a given sim / present), here
+//     with the group ids (impop_tpu/stats/grouping.py _gid_from_seeds)
 //
 // The window program (window_stats_kernel: five launches on one stream,
 // many blocks per window in every phase but the serial peel).
@@ -63,6 +64,20 @@
 //
 // What bounds it on this card: phase C's N^2 x rd fp32 FMAs (the value
 // rows) and phase A1's N^2 S / 64 word pairs of two popcounts each.
+//
+// The seed peel (seed_peel: seeds and gid of P masks from a given sim /
+// present, two launches):
+//   S1 seed_link_kernel, one warp per (window, row): the link words
+//      (sim > thr strict in f32, present, both members, bits j > i only)
+//      from 16-byte loads of the row's upper triangle.  Bound by bytes:
+//      about N^2 * 5 / 2 bytes a window.
+//   S2 seed_peel_kernel, one block per (window, 4 masks), one warp per
+//      mask: the link words in shared memory (32 KiB at N = 512; from
+//      device memory above 160 KiB), the undecided members in registers,
+//      one warp-min / AND-NOT step per seed, and gid written by the same
+//      walk (the seed that absorbs a member is its smallest linked seed).
+//      Bound by the chain: the longest mask's seed count times a step's
+//      latency (a warp reduction and a shared-memory load).
 //
 // The C functions return the first CUDA error of their launches; they
 // never synchronise and never allocate.
@@ -499,39 +514,151 @@ size_t products_smem(int n, int s, int xrows, bool x_smem) {
          sizeof(uint32_t) * kRowChunk * (n / 32);
 }
 
-// Seed flags for P masks of one window per block, from a given sim/present.
+// ---- seed peel (seed_peel_pallas), two launches over many blocks
+
+constexpr int kSegCols = 512;     // columns a warp covers per step of the link build
+constexpr int kWalkWarps = 4;     // masks per block of the walk
+
+// Bit e of the result: byte e of the 16 is nonzero.
+__device__ __forceinline__ uint32_t nonzero16(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out = 0u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out |= static_cast<uint32_t>(((w[q] >> (8 * e)) & 0xffu) != 0u) << (4 * q + e);
+  return out;
+}
+
+// S1: the link words of every (window, row), one warp per row i.  Lane l
+// reads columns j .. j + 15 (j = 16 l of a 512-column step) with 16-byte
+// loads of sim, present and member; the two lanes of a 32-column word join
+// their halves by a shuffle.  Columns at or left of i are neither read nor
+// linked (bits j > i only), so a row costs half its bytes.
 __global__ void __launch_bounds__(kThreads)
-seed_peel_kernel(const float* __restrict__ sim, const uint8_t* __restrict__ present,
-                 const uint8_t* __restrict__ member, const uint8_t* __restrict__ pmasks,
-                 float thr, int n, int p_count, uint32_t* link_all, uint8_t* seeds) {
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x;
-  const int NW = n / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* sm = sim + static_cast<size_t>(b) * n * n;
-  const uint8_t* pr = present + static_cast<size_t>(b) * n * n;
+seed_link_kernel(const float* __restrict__ sim, const uint8_t* __restrict__ present,
+                 const uint8_t* __restrict__ member, float thr, int n,
+                 uint32_t* __restrict__ link) {
+  const int b = blockIdx.x, i = blockIdx.y * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const size_t row = static_cast<size_t>(b) * n + i;
+  const float* srow = sim + row * n;
+  const uint8_t* prow = present + row * n;
   const uint8_t* mem = member + static_cast<size_t>(b) * n;
-  const uint8_t* pm = pmasks + static_cast<size_t>(b) * p_count * n;
-  uint32_t* link = link_all + static_cast<size_t>(b) * n * NW;
-  uint8_t* sd = seeds + static_cast<size_t>(b) * p_count * n;
-
-  for (int item = warp; item < n * NW; item += kWarps) {
-    const int i = item / NW, jw = item % NW;
-    const int j = 32 * jw + lane;
-    const size_t e = static_cast<size_t>(i) * n + j;
-    const bool lk = j > i && mem[i] && mem[j] && pr[e] && sm[e] > thr;
-    const uint32_t lw = __ballot_sync(0xffffffffu, lk);
-    if (lane == 0) link[static_cast<size_t>(i) * NW + jw] = lw;
+  uint32_t* lrow = link + row * (n / 32);
+  const bool mi = mem[i] != 0;
+  for (int j0 = 0; j0 < n; j0 += kSegCols) {
+    const int j = j0 + 16 * lane;
+    uint32_t bits = 0u;
+    if (mi && j < n && j + 15 > i) {
+      const uint32_t both = nonzero16(*reinterpret_cast<const uint4*>(prow + j)) &
+                            nonzero16(*reinterpret_cast<const uint4*>(mem + j));
+      const float4* s4 = reinterpret_cast<const float4*>(srow + j);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = s4[q];
+        const float s[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 4 * q + e;
+          bits |= static_cast<uint32_t>(j + c > i && ((both >> c) & 1u) && s[e] > thr) << c;
+        }
+      }
+    }
+    const uint32_t hi = __shfl_down_sync(0xffffffffu, bits, 1);
+    if (!(lane & 1) && j < n) lrow[j >> 5] = bits | (hi << 16);
   }
-  for (size_t e = tid; e < static_cast<size_t>(p_count) * n; e += kThreads) sd[e] = 0;
-  __syncthreads();
+}
 
-  uint32_t* todo = smem + warp * NW;
-  for (int r = warp; r < p_count; r += kWarps) {
-    const int n_r = load_mask_row(pm + static_cast<size_t>(r) * n, mem, NW, todo, lane);
-    peel_row(link, NW, todo, n_r, nullptr, nullptr, sd + static_cast<size_t>(r) * n,
-             nullptr, nullptr, lane);
+// The 32 bits of (mask & member) over 32 members, from 16-byte loads.
+__device__ __forceinline__ uint32_t mask_word(const uint8_t* pm, const uint8_t* mem) {
+  const uint4* p = reinterpret_cast<const uint4*>(pm);
+  const uint4* m = reinterpret_cast<const uint4*>(mem);
+  return (nonzero16(p[0]) & nonzero16(m[0])) | ((nonzero16(p[1]) & nonzero16(m[1])) << 16);
+}
+
+// S2: the greedy walk, one block per (window, kWalkWarps masks), one warp
+// per mask.  The window's link words go to shared memory first (read from
+// device memory when they do not fit).  Lane k keeps the undecided members
+// of words k, k + 32, ... in registers (W words).  A step finds the lowest
+// undecided member i (each lane's __ffs, one __reduce_min_sync): it is a
+// seed; AND-NOT of its link
+// row (bits j > i) absorbs its group, and each absorbed member m gets
+// gid[m] = i, the smallest seed linked to m (a smaller one would have
+// absorbed m first).  One step per seed; nothing else is counted.
+template <int W>
+__global__ void __launch_bounds__(kWalkWarps * 32)
+seed_peel_kernel(const uint32_t* __restrict__ link_all, const uint8_t* __restrict__ member,
+                 const uint8_t* __restrict__ pmasks, int n, int p_count, int link_smem,
+                 uint8_t* __restrict__ seeds, int32_t* __restrict__ gid) {
+  extern __shared__ uint4 slink4[];
+  const int b = blockIdx.x, nw = n / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t* link = link_all + static_cast<size_t>(b) * n * nw;
+  if (link_smem) {
+    const uint4* src = reinterpret_cast<const uint4*>(link);
+    for (int e = tid; e < n * nw / 4; e += kWalkWarps * 32) slink4[e] = src[e];
+    link = reinterpret_cast<const uint32_t*>(slink4);
+    __syncthreads();
   }
+  const int r = blockIdx.y * kWalkWarps + warp;
+  if (r >= p_count) return;
+  const size_t row = static_cast<size_t>(b) * p_count + r;
+  const uint8_t* pm = pmasks + row * n;
+  const uint8_t* mem = member + static_cast<size_t>(b) * n;
+  uint8_t* sd = seeds + row * n;
+  int32_t* gd = gid + row * n;
+
+  uint32_t todo[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int k = 32 * w + lane;
+    todo[w] = k < nw ? mask_word(pm + 32 * k, mem + 32 * k) : 0u;
+  }
+  for (int e = lane; e < n; e += 32) {
+    sd[e] = 0;
+    gd[e] = n;   // outside the mask
+  }
+  __syncwarp();   // orders the fills before the walk's writes
+  while (true) {
+    // the lowest undecided member: each lane's lowest, then one warp min
+    uint32_t mine = 0xffffffffu;
+#pragma unroll
+    for (int w = W - 1; w >= 0; --w)
+      if (todo[w]) mine = 32u * (32 * w + lane) + __ffs(todo[w]) - 1;
+    const uint32_t next = __reduce_min_sync(0xffffffffu, mine);
+    if (next == 0xffffffffu) break;
+    const int i = static_cast<int>(next), kw = i >> 5, bit = i & 31;
+    const uint32_t* lrow = link + static_cast<size_t>(i) * nw;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int k = 32 * w + lane;
+      if (k == kw) todo[w] &= ~(1u << bit);
+      if (k >= kw && k < nw) {   // link row i holds bits j > i only
+        const uint32_t lk = lrow[k];
+        for (uint32_t took = todo[w] & lk; took; took &= took - 1u)
+          gd[32 * k + __ffs(took) - 1] = i;
+        todo[w] &= ~lk;
+      }
+    }
+    if (lane == 0) {
+      sd[i] = 1;
+      gd[i] = i;
+    }
+  }
+}
+
+template <int W>
+int launch_walk(dim3 grid, size_t smem, cudaStream_t st, const uint32_t* link,
+                const uint8_t* member, const uint8_t* pmasks, int n, int p_count,
+                int link_smem, uint8_t* seeds, int32_t* gid) {
+  const int err = set_smem(reinterpret_cast<const void*>(seed_peel_kernel<W>), smem);
+  if (err) return err;
+  seed_peel_kernel<W><<<grid, kWalkWarps * 32, smem, st>>>(link, member, pmasks, n, p_count,
+                                                            link_smem, seeds, gid);
+  return 0;
 }
 
 }  // namespace
@@ -596,16 +723,32 @@ int impop_window_stats(const void* geno, const void* member, const void* smask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n a multiple of 32, at most 32 * 32 * 32; every pointer 16-byte aligned.
 int impop_seed_peel(const void* sim, const void* present, const void* member,
                     const void* pmasks, float thr, int b, int n, int p_count,
-                    void* link, void* seeds, void* stream) {
-  const size_t smem = sizeof(uint32_t) * kWarps * (n / 32);
-  const int err = set_smem(reinterpret_cast<const void*>(seed_peel_kernel), smem);
+                    void* link, void* seeds, void* gid, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* mem = static_cast<const uint8_t*>(member);
+  uint32_t* lk = static_cast<uint32_t*>(link);
+  seed_link_kernel<<<dim3(b, (n + kWarps - 1) / kWarps), kThreads, 0, st>>>(
+      static_cast<const float*>(sim), static_cast<const uint8_t*>(present), mem, thr, n, lk);
+  const size_t link_bytes = sizeof(uint32_t) * static_cast<size_t>(n) * (n / 32);
+  const int link_smem = link_bytes <= kLinkSmemMax;
+  const size_t smem = link_smem ? link_bytes : 0;
+  const dim3 grid(b, (p_count + kWalkWarps - 1) / kWalkWarps);
+  const uint8_t* pm = static_cast<const uint8_t*>(pmasks);
+  uint8_t* sd = static_cast<uint8_t*>(seeds);
+  int32_t* gd = static_cast<int32_t*>(gid);
+  const int nw = n / 32;
+  int err;
+  if (nw <= 32) err = launch_walk<1>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
+  else if (nw <= 64) err = launch_walk<2>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
+  else if (nw <= 128) err = launch_walk<4>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
+  else if (nw <= 256) err = launch_walk<8>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
+  else if (nw <= 512) err = launch_walk<16>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
+  else if (nw <= 1024) err = launch_walk<32>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
+  else err = static_cast<int>(cudaErrorInvalidValue);
   if (err) return err;
-  seed_peel_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sim), static_cast<const uint8_t*>(present),
-      static_cast<const uint8_t*>(member), static_cast<const uint8_t*>(pmasks), thr,
-      n, p_count, static_cast<uint32_t*>(link), static_cast<uint8_t*>(seeds));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -74,9 +74,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.impop_window_stats.argtypes = (
         [_P] * 8 + [_F] + [_I] * 10 + [_P] * 10)
     lib.impop_window_stats.restype = _I
-    lib.impop_seed_peel.argtypes = [_P] * 4 + [_F] + [_I] * 3 + [_P] * 3
+    lib.impop_seed_peel.argtypes = [_P] * 4 + [_F] + [_I] * 3 + [_P] * 4
     lib.impop_seed_peel.restype = _I
-    lib.impop_ehh_area.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 4
+    lib.impop_ehh_area.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 6
     lib.impop_ehh_area.restype = _I
     lib.impop_weighted_identity.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 4
     lib.impop_weighted_identity.restype = _I

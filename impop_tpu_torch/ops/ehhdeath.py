@@ -18,8 +18,12 @@ and the carrier counts, ``[..., 2]`` int32.
 - :func:`ehh_area_plain`: the same sums by a scan over ranks that carries
   each pair's "still identical" flag, in int64.
 - :func:`ehh_area`: the wrapper.  CPU tensors take the plain version; CUDA
-  tensors launch ``ehh_area_kernel`` of ``csrc/ehhdeath.cu`` (one block per
-  window; see the source for its design), or raise.
+  tensors launch ``csrc/ehhdeath.cu`` or raise: ``ehh_pack_kernel`` (32
+  rows per block: rows rank-compacted into 64-bit words, the carrier list
+  of each allele in ascending row order) and ``ehh_pairs_kernel`` (64 x 64
+  tiles of one allele's list, so only same-allele pairs are walked; death
+  ranks by bit scans over words staged in shared memory, int64 sums by
+  integer atomics).  The pair walks bound it; see the source.
 """
 from __future__ import annotations
 
@@ -104,18 +108,21 @@ def _ehh_area_cuda(geno, member, site_mask, focal):
     smk = u8_mask(site_mask, "ehh_area", "site_mask", lead + (s,))
     foc = focal.to(torch.int32).contiguous()
     genc = geno.contiguous()
-    sums = torch.empty((w, 2), dtype=torch.int64, device=dev)
+    sums = torch.zeros((w, 2), dtype=torch.int64, device=dev)  # atomics
     carr = torch.empty((w, 2), dtype=torch.int32, device=dev)
     if w > 0:
-        xc = torch.empty((w, (s + 63) // 64, n), dtype=torch.int64,
+        xc = torch.empty((w, n, (s + 63) // 64), dtype=torch.int64,
                          device=dev)
+        meta = torch.empty((w, 2), dtype=torch.int32, device=dev)
+        lists = torch.empty((w, 2, n), dtype=torch.int32, device=dev)
         lib = load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.impop_ehh_area(genc.data_ptr(), mem.data_ptr(),
                                  smk.data_ptr(), foc.data_ptr(), w, n, s,
-                                 xc.data_ptr(), sums.data_ptr(),
+                                 xc.data_ptr(), meta.data_ptr(),
+                                 lists.data_ptr(), sums.data_ptr(),
                                  carr.data_ptr(), stream)
-        check(lib, err, "ehh_area_kernel")
+        check(lib, err, "ehh_pack_kernel / ehh_pairs_kernel")
         ehh_area.launches += 1
     return sums.reshape(*lead, 2), carr.reshape(*lead, 2)
 

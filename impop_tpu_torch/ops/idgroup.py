@@ -16,7 +16,7 @@ import math
 import torch
 
 from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
-from impop_tpu_torch.ops.seedpeel import seed_peel_plain
+from impop_tpu_torch.ops.seedpeel import seed_gid_plain
 from impop_tpu_torch.stats.allele import segregating_sites
 from impop_tpu_torch.stats.grouping import greedy_group_panels
 
@@ -28,7 +28,7 @@ def identity_group_plain(geno, member, site_mask, pmasks, threshold, length):
     int32, S [...] f32), any device, no kernel."""
     sim, present = pairwise_identity_plain(geno, member, site_mask, length)
     gid = greedy_group_panels(sim, present, member, pmasks, threshold,
-                              peel=seed_peel_plain)
+                              peel=seed_gid_plain)
     s_count = segregating_sites(geno, member, site_mask).to(torch.float32)
     return sim, present, gid, s_count
 

@@ -1,14 +1,22 @@
-"""Greedy seed flags for P masks of a window (port of
-``impop_tpu.ops.seedpeel.seed_peel_pallas``).
+"""Greedy seeds and group ids for P masks of a window (port of
+``impop_tpu.ops.seedpeel.seed_peel_pallas`` and of the gid it feeds,
+``impop_tpu.stats.grouping._gid_from_seeds``).
 
 seed(i) ⟺ i is in the mask and no seed j < i of the same mask links to i,
-with link(j, i) = sim > threshold ∧ present ∧ both members (strict >).
+with link(j, i) = sim > threshold ∧ present ∧ both members (strict >);
+gid(i) = i for a seed, the smallest seed linked to i for any other mask
+member, N outside the mask.
 
-- :func:`seed_peel_plain`: the chunked frontier peel of
+- :func:`seed_peel_plain`: the seeds by the chunked frontier peel of
   ``impop_tpu.stats.grouping.greedy_group_panels`` in PyTorch.
-- :func:`seed_peel`: the wrapper.  CPU tensors take the plain version; CUDA
-  tensors launch ``seed_peel_kernel`` of ``csrc/windowstat.cu`` (the same
-  warp-per-mask sequential walk the window kernel uses), or raise.
+- :func:`seed_gid_plain`: the seeds and their gid (by an argmax over the
+  linked seeds), the plain version of the kernel.
+- :func:`seed_peel`: the wrapper, (seeds, gid).  CPU tensors take the plain
+  version; CUDA tensors launch ``csrc/windowstat.cu``'s
+  ``seed_link_kernel`` (the link words, one warp per row, byte-bound) and
+  ``seed_peel_kernel`` (one warp walks one mask from the link words in
+  shared memory and writes seeds and gid in the same walk; bound by the
+  longest mask's chain of seeds), or raise.
 """
 from __future__ import annotations
 
@@ -16,7 +24,12 @@ import math
 
 import torch
 
-__all__ = ["seed_peel", "seed_peel_plain", "link_matrix"]
+__all__ = ["seed_peel", "seed_peel_plain", "seed_gid_plain", "link_matrix"]
+
+# bound on the [..., P, N, N] candidate mask of _gid_from_seeds per chunk
+_GID_CHUNK_ELEMS = 1 << 27
+# the walk keeps at most 32 words of undecided members in each lane
+_MAX_N = 32 * 32 * 32
 
 
 def link_matrix(sim, present, member, threshold) -> torch.Tensor:
@@ -60,49 +73,92 @@ def seed_peel_plain(sim, present, member, pmasks, threshold,
     return seeds
 
 
-def _seed_peel_cuda(sim, present, member, pmasks, threshold):
-    from impop_tpu_torch.ops._build import check, load_library
+def _gid_from_seeds(seed, elink, pm, n_cap):
+    """gid[..., p, i] = min{ seed j < i : elink[j, i] }; i if seed; N
+    outside the mask.  The first True along j of seed ∧ elink is the
+    smallest linked seed (argmax returns the first maximum)."""
+    lead = seed.shape[:-2]
+    p_count = seed.shape[-2]
+    b = math.prod(lead)
+    seed_b = seed.reshape(b, p_count, n_cap)
+    elink_b = elink.expand(*lead, n_cap, n_cap).reshape(b, n_cap, n_cap)
+    min_seed = torch.empty((b, p_count, n_cap), dtype=torch.int64,
+                           device=seed.device)
+    step = max(1, _GID_CHUNK_ELEMS // max(1, p_count * n_cap * n_cap))
+    for lo in range(0, b, step):
+        cand = seed_b[lo:lo + step, :, :, None] & elink_b[lo:lo + step, None]
+        first = cand.to(torch.uint8).argmax(dim=-2)
+        min_seed[lo:lo + step] = torch.where(cand.any(dim=-2), first, n_cap)
+    order = torch.arange(n_cap, device=seed.device)
+    gid = torch.where(seed, order, min_seed.reshape(*lead, p_count, n_cap))
+    return torch.where(pm, gid, n_cap).to(torch.int32)
 
-    lead = sim.shape[:-2]
+
+def seed_gid_plain(sim, present, member, pmasks, threshold
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seeds [..., P, N] bool, gid [..., P, N] int32), any device, no
+    kernel."""
+    seeds = seed_peel_plain(sim, present, member, pmasks, threshold)
+    elink = link_matrix(sim, present, member, threshold)
+    pm = pmasks & member[..., None, :]
+    return seeds, _gid_from_seeds(seeds, elink, pm, sim.shape[-1])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data is not 16-byte aligned (the
+    kernels read 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _seed_peel_cuda(sim, present, member, pmasks, threshold):
+    from impop_tpu_torch.ops._build import check, load_library, u8_mask
+
+    what = "seed_peel"
+    lead = tuple(sim.shape[:-2])
     n_cap = sim.shape[-1]
     p_count = pmasks.shape[-2]
-    if n_cap % 32 or n_cap == 0:
-        raise ValueError(f"seed_peel: N={n_cap} must be a positive "
-                         "multiple of 32")
-    if pmasks.shape[:-2] != lead or member.shape[:-1] != lead:
-        raise ValueError("seed_peel: leading (window) shapes disagree")
+    if n_cap % 32 or n_cap == 0 or n_cap > _MAX_N:
+        raise ValueError(f"{what}: N={n_cap} must be a positive multiple of "
+                         f"32, at most {_MAX_N}")
+    if sim.shape[-2] != n_cap:
+        raise ValueError(f"{what}: sim has shape {tuple(sim.shape)}, not "
+                         "[..., N, N]")
     dev = sim.device
     for name, t in (("present", present), ("member", member),
                     ("pmasks", pmasks)):
         if t.device != dev:
-            raise ValueError(f"seed_peel: {name} on {t.device}, sim on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, sim on {dev}")
     b = math.prod(lead)
-    simc = sim.to(torch.float32).contiguous().view(b, n_cap, n_cap)
-    presc = present.to(torch.uint8).contiguous().view(b, n_cap, n_cap)
-    memc = member.to(torch.uint8).contiguous().view(b, n_cap)
-    pmc = pmasks.to(torch.uint8).contiguous().view(b, p_count, n_cap)
+    simc = _aligned(sim.to(torch.float32).contiguous())
+    presc = _aligned(u8_mask(present, what, "present", lead + (n_cap, n_cap)))
+    memc = _aligned(u8_mask(member, what, "member", lead + (n_cap,)))
+    pmc = _aligned(u8_mask(pmasks, what, "pmasks", lead + (p_count, n_cap)))
+    # the walk writes every element of both
     seeds = torch.empty((b, p_count, n_cap), dtype=torch.uint8, device=dev)
-    if b == 0 or p_count == 0:
-        return seeds.zero_().view(*lead, p_count, n_cap).bool()
-    link = torch.empty((b, n_cap, n_cap // 32), dtype=torch.int32,
-                       device=dev)
-    lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.impop_seed_peel(
-        simc.data_ptr(), presc.data_ptr(), memc.data_ptr(), pmc.data_ptr(),
-        float(threshold), b, n_cap, p_count, link.data_ptr(),
-        seeds.data_ptr(), stream)
-    check(lib, err, "seed_peel_kernel")
-    seed_peel.launches += 1
-    return seeds.view(*lead, p_count, n_cap).bool()
+    gid = torch.empty((b, p_count, n_cap), dtype=torch.int32, device=dev)
+    if b > 0 and p_count > 0:
+        link = torch.empty((b, n_cap, n_cap // 32), dtype=torch.int32,
+                           device=dev)
+        lib = load_library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.impop_seed_peel(
+            simc.data_ptr(), presc.data_ptr(), memc.data_ptr(),
+            pmc.data_ptr(), float(threshold), b, n_cap, p_count,
+            link.data_ptr(), seeds.data_ptr(), gid.data_ptr(), stream)
+        check(lib, err, "seed_link_kernel / seed_peel_kernel")
+        seed_peel.launches += 1
+    shape = (*lead, p_count, n_cap)
+    return seeds.view(torch.bool).view(shape), gid.view(shape)
 
 
 def seed_peel(sim: torch.Tensor, present: torch.Tensor, member: torch.Tensor,
-              pmasks: torch.Tensor, threshold) -> torch.Tensor:
-    """Greedy seed flags [..., P, N] bool for sim/present [..., N, N],
-    member [..., N] and pmasks [..., P, N]."""
+              pmasks: torch.Tensor, threshold
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy seeds [..., P, N] bool and group ids [..., P, N] int32 (the
+    seed row of each mask member, N elsewhere) for sim/present
+    [..., N, N], member [..., N] and pmasks [..., P, N]."""
     if sim.device.type == "cpu":
-        return seed_peel_plain(sim, present, member, pmasks, threshold)
+        return seed_gid_plain(sim, present, member, pmasks, threshold)
     if sim.device.type == "cuda":
         return _seed_peel_cuda(sim, present, member, pmasks, threshold)
     raise ValueError(f"seed_peel: unsupported device {sim.device}")

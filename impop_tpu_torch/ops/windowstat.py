@@ -22,6 +22,7 @@ import math
 import torch
 
 from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
+from impop_tpu_torch.ops.seedpeel import seed_gid_plain
 from impop_tpu_torch.stats.allele import segregating_sites
 from impop_tpu_torch.stats.panelstats import gdxy_rows, panel_sums
 
@@ -95,14 +96,16 @@ def _dots_on(dev: torch.device, r: int, pq: int, q: int, ia: tuple,
 def window_stats_plain(geno, member, site_mask, pmasks_stack, mask_a,
                        mask_b, threshold, length, pair_a, pair_b,
                        pairs_disjoint: bool) -> dict:
-    """The composition the kernel must equal (any device)."""
+    """The composition the kernel must equal (any device; it reaches no
+    kernel, its grouping included)."""
     r_count = pmasks_stack.shape[-2]
     q = mask_a.shape[-2]
     pq = r_count - (0 if pairs_disjoint else 2 * q)
     ia, ib = gdxy_rows(pair_a, pair_b, pq, pairs_disjoint)
     sim, present = pairwise_identity_plain(geno, member, site_mask, length)
+    gid = seed_gid_plain(sim, present, member, pmasks_stack, threshold)[1]
     out = panel_sums(sim, present, member, pmasks_stack, mask_a, mask_b,
-                     threshold, ia, ib, pq)
+                     threshold, ia, ib, pq, gid=gid)
     out["s"] = segregating_sites(geno, member, site_mask).to(torch.float32)
     return out
 

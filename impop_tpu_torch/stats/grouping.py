@@ -13,17 +13,12 @@ Seeds and gids are bit-identical to the JAX package.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from impop_tpu_torch.ops.seedpeel import link_matrix, seed_peel
+from impop_tpu_torch.ops.seedpeel import seed_peel
 
 __all__ = ["greedy_group", "greedy_group_panels", "group_sizes",
            "rep_weights", "first_pair_winner", "label_components"]
-
-# bound on the [..., P, N, N] candidate mask of _gid_from_seeds per chunk
-_GID_CHUNK_ELEMS = 1 << 27
 
 
 def greedy_group(sim: torch.Tensor, present: torch.Tensor,
@@ -41,38 +36,13 @@ def greedy_group_panels(sim: torch.Tensor, present: torch.Tensor,
     """Greedy groups for P masks sharing one window's matrix.
 
     Args: sim/present [..., N, N], member [..., N], pmasks [..., P, N];
-    ``peel`` finds the seeds: the dispatching ``ops.seedpeel.seed_peel``
-    (the seed-peel kernel on CUDA tensors) by default, ``seed_peel_plain``
-    for a plain composition.
+    ``peel`` gives (seeds, gid): the dispatching ``ops.seedpeel.seed_peel``
+    by default (on CUDA tensors the seed-peel kernel writes gid in its
+    walk), ``seed_gid_plain`` for a plain composition.
     Returns gid [..., P, N] int32: the seed row of each mask member, N for
     rows outside the mask.
     """
-    n_cap = sim.shape[-1]
-    elink = link_matrix(sim, present, member, threshold)
-    pm = pmasks & member[..., None, :]
-    seed = peel(sim, present, member, pmasks, threshold)
-    return _gid_from_seeds(seed, elink, pm, n_cap)
-
-
-def _gid_from_seeds(seed, elink, pm, n_cap):
-    """gid[..., p, i] = min{ seed j < i : elink[j, i] }; i if seed; N
-    outside the mask.  The first True along j of seed ∧ elink is the
-    smallest linked seed (argmax returns the first maximum)."""
-    lead = seed.shape[:-2]
-    p_count = seed.shape[-2]
-    b = math.prod(lead)
-    seed_b = seed.reshape(b, p_count, n_cap)
-    elink_b = elink.expand(*lead, n_cap, n_cap).reshape(b, n_cap, n_cap)
-    min_seed = torch.empty((b, p_count, n_cap), dtype=torch.int64,
-                           device=seed.device)
-    step = max(1, _GID_CHUNK_ELEMS // max(1, p_count * n_cap * n_cap))
-    for lo in range(0, b, step):
-        cand = seed_b[lo:lo + step, :, :, None] & elink_b[lo:lo + step, None]
-        first = cand.to(torch.uint8).argmax(dim=-2)
-        min_seed[lo:lo + step] = torch.where(cand.any(dim=-2), first, n_cap)
-    order = torch.arange(n_cap, device=seed.device)
-    gid = torch.where(seed, order, min_seed.reshape(*lead, p_count, n_cap))
-    return torch.where(pm, gid, n_cap).to(torch.int32)
+    return peel(sim, present, member, pmasks, threshold)[1]
 
 
 def group_sizes(gid: torch.Tensor, member: torch.Tensor) -> torch.Tensor:

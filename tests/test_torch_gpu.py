@@ -27,7 +27,7 @@ from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
                                           pairwise_identity_weighted_plain)
 from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
                                            masked_pair_sums_plain)
-from impop_tpu_torch.ops.seedpeel import seed_peel, seed_peel_plain
+from impop_tpu_torch.ops.seedpeel import seed_gid_plain, seed_peel
 from impop_tpu_torch.ops.windowstat import window_stats, window_stats_plain
 from impop_tpu_torch.parallel.scan import batch_hudson, batch_pi_panels
 from impop_tpu_torch.stats.allele import identity_from_alleles
@@ -101,7 +101,9 @@ def test_window_stats_kernel_matches_plain(cuda_device, disjoint, partial,
     got = window_stats(*args)
     torch.cuda.synchronize()
     assert window_stats.launches == before + 1
+    peel = seed_peel.launches
     want = window_stats_plain(*args)
+    assert seed_peel.launches == peel     # the plain version reaches no kernel
     for k in INT_KEYS:
         assert torch.equal(got[k], want[k]), k
     for k in FLOAT_KEYS:
@@ -112,17 +114,25 @@ def test_window_stats_kernel_matches_plain(cuda_device, disjoint, partial,
 
 
 @pytest.mark.gpu
-def test_seed_peel_kernel_matches_plain(cuda_device):
-    geno, member, smask, pmasks = batch(43, 3, 256, 128, 6, False, False)
+@pytest.mark.parametrize("w,p,n", [
+    (3, 6, 256), (1, 1, 512), (1, 20, 512), (10, 1, 512), (200, 20, 512),
+    # 1152 rows: the walk reads the link words from device memory
+    (1, 20, 1152), (10, 1, 1152), (200, 1, 1152)])
+def test_seed_peel_kernel_matches_plain(cuda_device, w, p, n):
+    """Seeds and gid exactly equal to the plain composition."""
+    geno, member, smask, pmasks = batch(43, w, n, 128, p, False, False)
     g, m, sm, pm = (torch.from_numpy(a).to(cuda_device)
                     for a in (geno, member, smask, pmasks))
     sim, present = identity_from_alleles(
-        g, m, sm, torch.full((3,), LEN, device=cuda_device))
+        g, m, sm, torch.full((w,), LEN, device=cuda_device))
     before = seed_peel.launches
-    got = seed_peel(sim, present, m, pm, THR)
+    seeds, gid = seed_peel(sim, present, m, pm, THR)
     torch.cuda.synchronize()
     assert seed_peel.launches == before + 1
-    assert torch.equal(got, seed_peel_plain(sim, present, m, pm, THR))
+    want_seeds, want_gid = seed_gid_plain(sim, present, m, pm, THR)
+    assert torch.equal(seeds, want_seeds)
+    assert torch.equal(gid, want_gid)
+    assert int(seeds.sum(-1).min()) > 1
 
 
 @pytest.mark.gpu
@@ -161,9 +171,15 @@ def ehh_inputs(seed, w, n, s, noise=0.003, n_classes=6):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("w,n,s,noise,n_classes", [
-    (12, 512, 128, 0.003, 6), (4, 512, 1024, 2e-4, 1), (5, 96, 200, 0.01, 3)])
+    (320, 512, 128, 0.003, 6), (16, 512, 1024, 2e-4, 1),
+    (5, 96, 200, 0.01, 3), (4, 100, 70, 0.01, 3),
+    # 2 x 64 rows of 64 words pass 48 KiB: the pair walk reads the words
+    # from device memory
+    (3, 512, 4096, 2e-4, 2)])
 def test_ehh_area_kernel_matches_plain(cuda_device, w, n, s, noise,
                                        n_classes):
+    """Sums and carriers exactly equal to the plain version, with carrier
+    lists whose lengths are not multiples of the 64-row tile."""
     arrays = ehh_inputs(47, w, n, s, noise, n_classes)
     args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     before = ehh_area.launches
@@ -172,6 +188,7 @@ def test_ehh_area_kernel_matches_plain(cuda_device, w, n, s, noise,
     assert ehh_area.launches == before + 1
     want = ehh_area_plain(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1] % 64 != 0).any())
     if s == 1024:
         assert int(got[0].max()) > 1 << 24
 
