@@ -31,14 +31,22 @@ Phases (one line each; any failure exits non-zero):
          weights (exactly equal), non-integer weights (present equal, sim
          within 1e-5 of the weight mass per bp + 1e-6);
      (h) masked_pair_sums on the stacks the columns scan builds, disjoint
-         and overlapping pairs (rtol 1e-5);
+         and overlapping pairs, with a Wp that is not 0/1 (the fp32
+         branch), the drivers' [512, 512] x 128 with 2 + 2 rows, N = 4160
+         (mask words in device memory) and 128 / 256 / 150 value rows
+         (one and two grid layers) (0/1 rows of Yp exact, the rest rtol
+         1e-5), timed by CUDA graph replay and with the wrapper (CUDA
+         events) beside its bound, the all-fp32 bound and two fp32 bmm on
+         precomputed operands, the time per value row of one layer and of
+         two, profiled by launch after 2j;
      (i) pairwise_identity (unit weights): [512, 2048] x 64, [512, 8192] x 8
          and tajd's [512, 3200] x 10 with kernel, plain and yardstick times
          and a sweep of forced site splits, [1024, 2048] x 4, codes up to 3
          (a member without calls, length 0) and up to 63, ragged [37, 37],
          [37, 1], [1024, 3120] (sim and present exactly equal);
-     (j) identity_group: [512, 128] x 320 with R = 15 and kernel and plain
-         times, cap 256 with overlapping panels (sim, present, gid, S
+     (j) identity_group: [512, 128] x 320 with R = 15, timed as (h) and
+         profiled by launch, cap 256 with overlapping panels, cap 1152,
+         [512, 4096] x 8 (present from OR-ed words) (sim, present, gid, S
          exactly equal)
   3  the port's ``scan`` end to end on a simulated 2 Mb, 466-haplotype
      pangenome (400 windows of 5 kb), then the first 20 windows again on
@@ -342,14 +350,15 @@ def phase_ehh_kernel(dev, report, profiles):
     report["ehh_area"].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
 
 
-def phase_weighted_kernels(dev, report):
+def phase_weighted_kernels(dev, report, profiles):
     import numpy as np
     import torch
 
     from impop_tpu_torch.ops.panelquad import (masked_pair_sums,
                                                masked_pair_sums_plain)
     from impop_tpu_torch.ops.pairdiff import (
-        pairwise_identity_weighted, pairwise_identity_weighted_plain)
+        pairwise_identity, pairwise_identity_weighted,
+        pairwise_identity_weighted_plain)
     from impop_tpu_torch.stats.panelstats import (gdxy_rows,
                                                   panel_mask_stack,
                                                   panel_sums)
@@ -441,7 +450,7 @@ def phase_weighted_kernels(dev, report):
     pairs = [(i, j) for i in range(p) for j in range(i + 1, p)]
     pa, pb = tuple(a for a, _ in pairs), tuple(b for _, b in pairs)
     overlap = torch.from_numpy(rng.random((w_cols, p, CAP_N)) < 0.3).to(dev)
-    worst, timed = 0.0, None
+    cases = []
     for disjoint, pn in ((True, to_dev(dev, panels)[0]), (False, overlap)):
         stack, ma, mb = panel_mask_stack(pn, m_dev, pa, pb, disjoint)
         pq = p + len(pairs)
@@ -454,30 +463,134 @@ def phase_weighted_kernels(dev, report):
 
         panel_sums(sim, pres, m_dev, stack, ma, mb, THRESHOLD, ia, ib, pq,
                    pair_sums=capture)
-        got = masked_pair_sums(*seen["args"])
-        want = masked_pair_sums_plain(*seen["args"])
+        cases.append((f"columns scan, disjoint={disjoint}", seen["args"]))
+    timed = cases[0][1]
+    # a Wp that is not 0/1 (one weight row among the 0/1 rows): the fp32
+    # branch of the kernel's row check
+    wp_vals = timed[3].clone()
+    wp_vals[:, 0] = timed[2][:, 0]
+    cases.append(("Wp not 0/1", (*timed[:3], wp_vals)))
+    # the drivers' shape: [512,512] x 128 with the 2 + 2 rows that
+    # batch_hudson direct hands over (stats/fst.hudson_fst_direct_pairs:
+    # [a; b] for one pair, EUR against AFR)
+    w_drv = 128
+    g_d, m_d, sm_d, pn_d, ln_d = to_dev(dev, *hprc_batch(rng, w_drv))
+    sim_d, pres_d = pairwise_identity(g_d, m_d, sm_d, ln_d)
+    names = list(PANEL_SIZES)
+    ab = torch.stack([pn_d[:, names.index("EUR")] & m_d,
+                      pn_d[:, names.index("AFR")] & m_d], 1).float()
+    drivers = (sim_d, pres_d, ab, ab)
+    cases.append(("drivers (batch_hudson direct)", drivers))
+    # past N = 4096 the mask words live in the wrapper's scratch
+    n_big = 4160
+    big = [torch.from_numpy(a).to(dev) for a in (
+        rng.random((2, n_big, n_big), np.float32),
+        np.triu(rng.random((2, n_big, n_big)) < 0.9),
+        rng.random((2, 2, n_big), np.float32),
+        (rng.random((2, 2, n_big)) < 0.3).astype(np.float32))]
+    big[1] = big[1] | big[1].transpose(1, 2).clone()
+    big[1][:, 5, 7] = False                       # not symmetric
+    cases.append((f"N = {n_big} (mask words in device memory)", tuple(big)))
+    # value rows past one block's 128 (kValueCap): each further 128 rows
+    # take a grid layer that reads sim / present again; 128 and 256 rows
+    # are one and two full layers, 150 + 140 is the tests' shape
+    layers = {}
+    for rd_ in (128, 256, 150):
+        wd_ = rng.random((w_cols, rd_, CAP_N), np.float32)
+        wd_ *= rng.random((w_cols, rd_, CAP_N)) < 0.4
+        wp_ = (rng.random((w_cols, 140, CAP_N)) < 0.3).astype(np.float32)
+        layers[rd_] = (f"{rd_} + 140 rows", (*timed[:2], *to_dev(dev, wd_,
+                                                                  wp_)))
+        cases.append(layers[rd_])
+    worst = 0.0
+    for tag, xs in cases:
+        got = masked_pair_sums(*xs)
+        want = masked_pair_sums_plain(*xs)
         torch.cuda.synchronize()
+        binary = ((xs[3] == 0) | (xs[3] == 1)).all(dim=-1)
+        if not torch.equal(got[1][binary], want[1][binary]):
+            raise SmokeError(f"2h {tag}: masked_pair_sums Yp of 0/1 rows "
+                             "differs from the plain version")
         for g, w in zip(got, want):
             err = float((g - w).abs().max())
             worst = max(worst, err)
             if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
-                raise SmokeError(f"2h: masked_pair_sums beyond rtol {RTOL} "
-                                 f"(disjoint={disjoint}, max abs {err})")
-        if disjoint:
-            timed = seen["args"]
-    k_ms = cuda_time_ms(lambda: masked_pair_sums(*timed), 10)
-    p_ms = cuda_time_ms(lambda: masked_pair_sums_plain(*timed), 5)
-    rows = (timed[2].shape[-2], timed[3].shape[-2])
-    share = set_bound(report, "masked_pair_sums", k_ms,
-                      nbytes(*timed, *masked_pair_sums(*timed)),
-                      fp32=2 * w_cols * CAP_N * CAP_N * sum(rows))
-    say("2h", f"masked_pair_sums [{CAP_N},{CAP_N}]x{w_cols}, {rows[0]} + "
-        f"{rows[1]} rows, disjoint and overlapping pairs: within rtol "
-        f"{RTOL} (max_abs_err {worst:.3e}); kernel {k_ms:.4f} ms/batch = "
-        f"{k_ms / w_cols * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
-        f"= {p_ms / w_cols * 1e3:.3f} us/window; {share}")
-    report["masked_pair_sums"].update(max_abs_err=worst, ms=k_ms,
-                                      plain_ms=p_ms)
+                raise SmokeError(f"2h {tag}: masked_pair_sums beyond rtol "
+                                 f"{RTOL} (max abs {err})")
+    if bool(((wp_vals == 0) | (wp_vals == 1)).all()):
+        raise SmokeError("2h: the Wp with other values is 0/1")
+
+    def sums_bound(xs):
+        """(bytes, fp32 flops, int32 ops, old all-fp32 flops): Yd rows and
+        Wp rows that are not 0/1 as fp32 FMAs, 0/1 rows of Wp as AND +
+        popcount + add per 32 pairs; bytes sim + present + rows +
+        outputs."""
+        s_, p_, wd_, wp_ = xs
+        w_, n_ = s_.shape[0], s_.shape[-1]
+        n_bin = int(((wp_ == 0) | (wp_ == 1)).all(dim=-1).sum())
+        pairs_ = n_ * n_
+        fp32 = 2 * pairs_ * (w_ * wd_.shape[-2] + w_ * wp_.shape[-2] - n_bin)
+        int32 = 3 * (pairs_ // 32) * n_bin
+        old = 2 * w_ * pairs_ * (wd_.shape[-2] + wp_.shape[-2])
+        return nbytes(*xs) + nbytes(*masked_pair_sums(*xs)), fp32, int32, old
+
+    def bmm_pair(xs):
+        """The two fp32 bmm (TF32 off) on precomputed (1 - sim) . mask and
+        mask: a comparison, not the yardstick (the pass that builds them
+        is left out)."""
+        s_, p_, wd_, wp_ = xs
+        eye = torch.eye(s_.shape[-1], dtype=torch.bool, device=s_.device)
+        mask = p_ & ~eye
+        div = torch.where(mask, 1.0 - s_, 0.0)
+        maskf = mask.float()
+        return lambda: (torch.bmm(wd_, div), torch.bmm(wp_, maskf))
+
+    lines, times = [], {}
+    for tag, xs in (cases[0], cases[2], cases[3], layers[128], layers[256]):
+        k_ms = graph_ms(lambda: masked_pair_sums(*xs), 20)
+        ev_ms = cuda_time_ms(lambda: masked_pair_sums(*xs), 20)
+        p_ms = cuda_time_ms(lambda: masked_pair_sums_plain(*xs), 5)
+        bmm_ms = graph_ms(bmm_pair(xs), 10)
+        n_bytes, fp32, int32, old = sums_bound(xs)
+        b_ms, by = bound(n_bytes, fp32=fp32, int32=int32)
+        old_ms, old_by = bound(n_bytes, fp32=old)
+        w_ = xs[0].shape[0]
+        times[tag] = k_ms
+        lines.append(
+            f"{tag}, [{CAP_N},{CAP_N}]x{w_}, {xs[2].shape[-2]} + "
+            f"{xs[3].shape[-2]} rows: kernel {k_ms:.4f} ms/batch (CUDA graph "
+            f"replays; with the wrapper's host time, CUDA events: "
+            f"{ev_ms:.4f}) = {k_ms / w_ * 1e3:.3f} us/window; plain "
+            f"{p_ms:.4f} ms; bound {b_ms:.4f} ms ({by}), "
+            f"{100 * b_ms / k_ms:.1f}% of it (all rows as fp32 FMAs: "
+            f"{old_ms:.4f} ms, {old_by}); two fp32 bmm on precomputed "
+            f"operands {bmm_ms:.4f} ms")
+        if tag == cases[0][0]:
+            share = set_bound(report, "masked_pair_sums", k_ms, n_bytes,
+                              fp32=fp32, int32=int32)
+            report["masked_pair_sums"].update(max_abs_err=worst, ms=k_ms,
+                                              plain_ms=p_ms)
+    say("2h", "masked_pair_sums on the columns scan's stacks (disjoint and "
+        "overlapping pairs), a Wp that is not 0/1, the drivers' "
+        f"[{CAP_N},{CAP_N}]x{w_drv} 2 + 2 rows, N = {n_big} and 128 / 256 / "
+        f"150 value rows + 140 0/1 rows: 0/1 rows of Yp exactly equal, the "
+        f"rest within rtol {RTOL} (max_abs_err {worst:.3e})")
+    for line in lines:
+        say("2h", line)
+    # what the second layer's second read of sim / present costs: the time
+    # per value row of two layers against one, and the read alone at the
+    # card's memory rate
+    t1, t2 = times[layers[128][0]], times[layers[256][0]]
+    reread_ms = bound(nbytes(*timed[:2]))[0]
+    say("2h", f"value rows past 128: one layer {t1 / 128 * 1e3:.3f} us per "
+        f"value row, two layers {t2 / 256 * 1e3:.3f} us ({t2 / t1:.3f}x the "
+        f"time for 2x the rows); the second read of sim / present alone "
+        f"{reread_ms:.4f} ms at {H100_BYTES_PER_S / 1e12} TB/s")
+    say("2h", f"in the report: {share}")
+    for tag, xs in (cases[0], cases[3]):
+        profiles.append(("2h", f"masked_pair_sums {tag} by launch "
+                         "(torch.profiler, one call): ",
+                         lambda xs=xs: masked_pair_sums(*xs), times[tag]))
 
 
 def phase_kernels(dev, report, profiles):
@@ -714,7 +827,7 @@ def phase_identity_kernel(dev, report):
                                        plain_ms=p_ms)
 
 
-def phase_idgroup_kernel(dev, report):
+def phase_idgroup_kernel(dev, report, profiles):
     import numpy as np
     import torch
 
@@ -741,7 +854,8 @@ def phase_idgroup_kernel(dev, report):
         return args, stack.shape[-2]
 
     args, r = case(*hprc_batch(rng, BATCH), True, "2j")
-    k_ms = cuda_time_ms(lambda: identity_group(*args), 10)
+    k_ms = graph_ms(lambda: identity_group(*args), 20)
+    ev_ms = cuda_time_ms(lambda: identity_group(*args), 10)
     p_ms = cuda_time_ms(lambda: identity_group_plain(*args), 3)
     share = set_bound(report, "identity_group", k_ms,
                       nbytes(*args[:4], args[5], *identity_group(*args)),
@@ -750,12 +864,27 @@ def phase_idgroup_kernel(dev, report):
                                                  n_hap=230)
     _, r_b = case(geno, member, smask, rng.random((64, 4, 256)) < 0.4,
                   lengths, False, "2j overlap")
-    say("2j", f"identity_group [{CAP_N},{CAP_S}]x{BATCH} R = {r} and "
-        f"[256,128]x64 overlapping panels R = {r_b}: sim, present, gid and "
-        f"S exactly equal; kernel {k_ms:.4f} ms/batch = "
+    case(*hprc_batch(rng, 4, cap_n=1152), True, "2j 1152")
+    # past kBitsMaxSites = 512 sites the pair blocks take present from
+    # OR-ed words, and pairs that differ at more than 1024 sites take sim
+    # by division, not from the block's table
+    args4 = case(*hprc_batch(rng, 8, cap_s=4096), True, "2j 4096")[0]
+    sim4, pres4 = identity_group(*args4)[:2]
+    if not bool((sim4[pres4] < 1.0 - 1024.0 / WIN_BP).any()):
+        raise SmokeError("2j 4096: no pair differs at more than 1024 sites")
+    say("2j", f"identity_group [{CAP_N},{CAP_S}]x{BATCH} R = {r}, "
+        f"[256,128]x64 overlapping panels R = {r_b}, [1152,{CAP_S}]x4 "
+        f"(link words read from device memory) and [{CAP_N},4096]x8 (present "
+        f"from OR-ed words, pairs past the sim table's 1024 differing "
+        f"sites): sim, present, gid and S "
+        f"exactly equal; kernel {k_ms:.4f} ms/batch (CUDA graph replays; "
+        f"with the wrapper's host time, CUDA events: {ev_ms:.4f}) = "
         f"{k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch = "
         f"{p_ms / BATCH * 1e3:.3f} us/window; {share}")
     report["identity_group"].update(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
+    profiles.append(("2j", f"identity_group [{CAP_N},{CAP_S}]x{BATCH} by "
+                     "launch (torch.profiler, one call): ",
+                     lambda: identity_group(*args), k_ms))
 
 
 def phase_route(dev):
@@ -1536,9 +1665,9 @@ def main() -> int:
     profiles = []
     phase_kernels(dev, report, profiles)
     phase_ehh_kernel(dev, report, profiles)
-    phase_weighted_kernels(dev, report)
+    phase_weighted_kernels(dev, report, profiles)
     phase_identity_kernel(dev, report)
-    phase_idgroup_kernel(dev, report)
+    phase_idgroup_kernel(dev, report, profiles)
     for tag, text, fn, ms in profiles:
         say(tag, text + profile_ops(fn, ms))
 

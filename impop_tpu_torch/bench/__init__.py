@@ -35,10 +35,12 @@ def graph_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def build_variants(source: str, variants: dict, work: str) -> dict:
+def build_variants(source: str, variants: dict, work: str,
+                   extra: tuple = ()) -> dict:
     """{name: ctypes.CDLL} of ``csrc/<source>`` rebuilt once per variant:
     each variant is a list of (old, new) text substitutions on the
-    source, all in flight at once (one nvcc per variant) into ``work``.
+    source, all in flight at once (one nvcc per variant) into ``work``,
+    linked with the unchanged ``csrc/<extra>`` sources it calls into.
     Raises when the source no longer holds a substitution's text or a
     build fails.  The caller sets the entry points' argtypes."""
     import ctypes
@@ -61,7 +63,8 @@ def build_variants(source: str, variants: dict, work: str) -> dict:
             fh.write(text)
         procs[name] = subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-I", _CSRC, "-shared", "-o",
-             os.path.join(work, f"{name}.so"), path],
+             os.path.join(work, f"{name}.so"), path,
+             *(os.path.join(_CSRC, e) for e in extra)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

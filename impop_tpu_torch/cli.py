@@ -769,7 +769,8 @@ def _tajd_batch(args, tiles, kept, region_strings, sample_list, cap_n,
 class GenoSimSource(SimSource):
     """Identity matrices from allele tiles (``.npz`` windows, ``.gfa``
     graphs or native PAF + FASTA extraction), with the arguments of
-    ``impop_tpu.cli.GenoSimSource`` plus ``device``.
+    ``impop_tpu.cli.GenoSimSource`` plus ``device`` (the card unless the
+    caller asks for ``"cpu"``; raises without CUDA).
 
     The integer difference and comparison counts are computed on
     ``device`` by ``stats.allele.pairwise_diff`` (fp32 ``torch.matmul``
@@ -784,12 +785,12 @@ class GenoSimSource(SimSource):
                  geno_dir: Optional[str] = None,
                  paf: Optional[str] = None, fasta: Optional[str] = None,
                  use_native: bool = True, gfa_dir: Optional[str] = None,
-                 identity_mode: str = "events", device="cpu"):
-        import torch
+                 identity_mode: str = "events", device="cuda"):
+        from impop_tpu_torch.device import resolve_device
 
         self.round_digits = round_digits
         self.identity_mode = identity_mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.geno_src = (GenoSource(geno_dir) if geno_dir
                          else GfaDirSource(gfa_dir) if gfa_dir else None)
         self.extractor = None

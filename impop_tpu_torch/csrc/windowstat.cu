@@ -76,6 +76,8 @@
 //      device memory above 160 KiB), the undecided members in registers,
 //      one warp-min / AND-NOT step per seed, and gid written by the same
 //      walk (the seed that absorbs a member is its smallest linked seed).
+//      identity_group (idgroup.cu) launches the same walk on its own link
+//      words, through impop::seed_walk, without the seeds.
 //      Bound by the chain: the longest mask's seed count times a step's
 //      latency (a warp reduction and a shared-memory load).
 //
@@ -89,10 +91,11 @@
 
 namespace {
 
-using impop::load_mask_row;
-using impop::pack_rows;
-using impop::peel_row;
+using impop::any_present;
+using impop::pack_block;
+using impop::pair_counts;
 using impop::set_smem;
+using impop::upper_block;
 using impop::warp_sum;
 using impop::warp_sumf;
 
@@ -147,14 +150,11 @@ __global__ void __launch_bounds__(kThreads) window_pack_kernel(WinParams p) {
   const int N = p.n, S = p.s, SW = p.s / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int xrows = p.rd + p.rp;
-  uint32_t* col_alt = smem;      // [SW]
-  uint32_t* col_ref = smem + SW; // [SW]
   const uint8_t* ma = p.ma + static_cast<size_t>(w) * p.q * N;
   const uint8_t* mb = p.mb + static_cast<size_t>(w) * p.q * N;
   float* x = p.x + static_cast<size_t>(w) * xrows * N;
   uint32_t* abits = p.bits + static_cast<size_t>(w) * 2 * SW * N;
 
-  for (int k = tid; k < SW; k += kThreads) { col_alt[k] = 0u; col_ref[k] = 0u; }
   // X rows: [0, R) weights, [R, R+Q) mask_a, [R+Q, R+2Q) mask_b, zero pad
   // to rd; then [rd, rd+PQ) seeds, mask_a, mask_b, zero pad to rd+rp.
   for (int e = tid; e < xrows * kPackRows; e += kThreads) {
@@ -174,15 +174,9 @@ __global__ void __launch_bounds__(kThreads) window_pack_kernel(WinParams p) {
         0xffffffffu, x[static_cast<size_t>(p.rd + row) * N + i_lo + lane] != 0.0f);
     if (lane == 0) xbits[static_cast<size_t>(row) * (N / 32)] = word;
   }
-  pack_rows(p.geno + static_cast<size_t>(w) * N * S, p.smask + static_cast<size_t>(w) * S,
-            p.member + static_cast<size_t>(w) * N, N, S, i_lo, kPackRows, abits,
-            abits + static_cast<size_t>(SW) * N, col_alt, col_ref, warp, kWarps, lane);
-  __syncthreads();
-  uint32_t* cb = p.colbits + static_cast<size_t>(w) * 2 * SW;
-  for (int k = tid; k < SW; k += kThreads) {
-    if (col_alt[k]) atomicOr(&cb[k], col_alt[k]);
-    if (col_ref[k]) atomicOr(&cb[SW + k], col_ref[k]);
-  }
+  pack_block(p.geno + static_cast<size_t>(w) * N * S, p.smask + static_cast<size_t>(w) * S,
+             p.member + static_cast<size_t>(w) * N, N, S, i_lo, kPackRows, abits, smem,
+             p.colbits + static_cast<size_t>(w) * 2 * SW);
 }
 
 // The largest count of differing sites d whose sim = 1 - d / len (IEEE
@@ -210,6 +204,7 @@ __device__ int link_dmax(int s, float len, float thr) {
 // Lane l owns column j = 32 jw + l and keeps its words in registers; the
 // 32 row words of each site word come in one coalesced load and are
 // broadcast by shuffles.
+template <bool kBits>
 __global__ void __launch_bounds__(kThreads) window_pairs_kernel(WinParams p) {
   __shared__ int s_dmax;
   const int w = blockIdx.x;
@@ -219,14 +214,11 @@ __global__ void __launch_bounds__(kThreads) window_pairs_kernel(WinParams p) {
   if (threadIdx.x == 0) s_dmax = link_dmax(p.s, len, p.thr);
   __syncthreads();
   const int dmax = s_dmax;
-  int bp = blockIdx.y * kWarps + warp;
+  const int bp = blockIdx.y * kWarps + warp;
   if (bp >= NW * (NW + 1) / 2) return;
-  int iw = 0;
-  while (bp >= NW - iw) {
-    bp -= NW - iw;
-    ++iw;
-  }
-  const int jw = iw + bp, i0 = 32 * iw, j = 32 * jw + lane;
+  int iw, jw;
+  upper_block(bp, NW, &iw, &jw);
+  const int i0 = 32 * iw, j = 32 * jw + lane;
   const uint32_t* abits = p.bits + static_cast<size_t>(w) * 2 * SW * N;
   const uint32_t* vbits = abits + static_cast<size_t>(SW) * N;
   const uint8_t* mem = p.member + static_cast<size_t>(w) * N;
@@ -234,25 +226,9 @@ __global__ void __launch_bounds__(kThreads) window_pairs_kernel(WinParams p) {
   uint32_t* link = p.link + static_cast<size_t>(w) * N * NW;
   uint16_t* diff = p.diff + static_cast<size_t>(w) * N * N;
 
-  uint32_t both[32];   // OR of the mutually valid words: present needs only > 0
+  typename impop::PresentForm<kBits>::type both;
   int dn[32];
-#pragma unroll
-  for (int ii = 0; ii < 32; ++ii) {
-    both[ii] = 0u;
-    dn[ii] = 0;
-  }
-  for (int k = 0; k < SW; ++k) {
-    const size_t ko = static_cast<size_t>(k) * N;
-    const uint32_t a_rows = abits[ko + i0 + lane], v_rows = vbits[ko + i0 + lane];
-    const uint32_t aj = abits[ko + j], vj = vbits[ko + j];
-#pragma unroll
-    for (int ii = 0; ii < 32; ++ii) {
-      const uint32_t ai = __shfl_sync(0xffffffffu, a_rows, ii);
-      const uint32_t bw = __shfl_sync(0xffffffffu, v_rows, ii) & vj;
-      both[ii] |= bw;
-      dn[ii] += __popc(bw & (ai ^ aj));
-    }
-  }
+  pair_counts(abits, vbits, N, SW, i0, j, lane, both, dn);
   const bool mj = mem[j] != 0;
   const uint32_t mrows = __ballot_sync(0xffffffffu, mem[i0 + lane] != 0);
   uint32_t mirror = 0u;
@@ -261,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) window_pairs_kernel(WinParams p) {
   for (int ii = 0; ii < 32; ++ii) {
     const int i = i0 + ii;
     const bool mi = (mrows >> ii) & 1u;
-    const bool present = i == j ? mi : (both[ii] != 0u && mi && mj);
+    const bool present = i == j ? mi : (any_present(both, ii) && mi && mj);
     const bool lk = present && j > i && dn[ii] <= dmax;
     const uint32_t d16 = present && i != j ? static_cast<uint32_t>(dn[ii]) : kAbsent;
     diff[static_cast<size_t>(i) * N + j] = static_cast<uint16_t>(d16);
@@ -282,6 +258,61 @@ __global__ void __launch_bounds__(kThreads) window_pairs_kernel(WinParams p) {
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     drow[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2], packed[4 * q + 3]);
+}
+
+// Loads mask row `row` (& member) into todo ([nw] words of one warp);
+// returns its member count.
+__device__ inline int load_mask_row(const uint8_t* __restrict__ row,
+                                    const uint8_t* __restrict__ mem, int nw,
+                                    uint32_t* todo, int lane) {
+  int n_r = 0;
+  for (int k = 0; k < nw; ++k) {
+    const int i = 32 * k + lane;
+    const uint32_t word = __ballot_sync(0xffffffffu, row[i] && mem[i]);
+    if (lane == 0) todo[k] = word;
+    n_r += __popc(word);
+  }
+  __syncwarp();
+  return n_r;
+}
+
+// Greedy seed walk of one mask row by one warp: the next undecided member
+// is a seed and absorbs the undecided members its link row (bits j > i
+// only) reaches.  todo holds the mask's member bits on entry.  For each
+// seed i: wrow[i] = size / max(n_r, 1), seedrow[i] = 1 (if seedrow) and
+// bit i of any_bits.  Returns the number of seeds.
+__device__ inline int peel_row(const uint32_t* __restrict__ link, int nw, uint32_t* todo,
+                               int n_r, float* wrow, float* seedrow, uint32_t* any_bits,
+                               int lane) {
+  const float denom = fmaxf(static_cast<float>(n_r), 1.0f);
+  int groups = 0;
+  for (int k = 0; k < nw; ++k) {
+    while (true) {
+      const uint32_t cand = todo[k];
+      __syncwarp();
+      if (cand == 0u) break;
+      const int b = __ffs(cand) - 1;
+      const int i = 32 * k + b;
+      int absorbed = 0;
+      // link row i holds bits j > i only: words before k are empty
+      for (int k2 = k + lane; k2 < nw; k2 += 32) {
+        uint32_t t = todo[k2];
+        if (k2 == k) t &= ~(1u << b);
+        const uint32_t lk = link[static_cast<size_t>(i) * nw + k2];
+        absorbed += __popc(lk & t);
+        todo[k2] = t & ~lk;
+      }
+      absorbed = warp_sum(absorbed);
+      if (lane == 0) {
+        wrow[i] = __fdiv_rn(static_cast<float>(absorbed + 1), denom);
+        if (seedrow) seedrow[i] = 1.0f;
+        atomicOr(&any_bits[k], 1u << b);
+      }
+      ++groups;
+      __syncwarp();
+    }
+  }
+  return groups;
 }
 
 // ---- B: one warp per grouping row; then S and seed_risk
@@ -315,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) window_peel_kernel(WinParams p) {
     const int n_r = load_mask_row(pm + static_cast<size_t>(r) * N, mem, NW, todo, lane);
     float* seedrow = r < p.pq ? x + static_cast<size_t>(p.rd + r) * N : nullptr;
     const int groups = peel_row(link, NW, todo, n_r, x + static_cast<size_t>(r) * N,
-                                seedrow, nullptr, seeds_any, nullptr, lane);
+                                seedrow, seeds_any, lane);
     if (lane == 0) {
       out[p.r + r] = static_cast<float>(n_r);
       out[2 * p.r + r] = static_cast<float>(groups);
@@ -608,7 +639,7 @@ seed_peel_kernel(const uint32_t* __restrict__ link_all, const uint8_t* __restric
   const size_t row = static_cast<size_t>(b) * p_count + r;
   const uint8_t* pm = pmasks + row * n;
   const uint8_t* mem = member + static_cast<size_t>(b) * n;
-  uint8_t* sd = seeds + row * n;
+  uint8_t* sd = seeds ? seeds + row * n : nullptr;
   int32_t* gd = gid + row * n;
 
   uint32_t todo[W];
@@ -618,7 +649,7 @@ seed_peel_kernel(const uint32_t* __restrict__ link_all, const uint8_t* __restric
     todo[w] = k < nw ? mask_word(pm + 32 * k, mem + 32 * k) : 0u;
   }
   for (int e = lane; e < n; e += 32) {
-    sd[e] = 0;
+    if (sd) sd[e] = 0;
     gd[e] = n;   // outside the mask
   }
   __syncwarp();   // orders the fills before the walk's writes
@@ -644,7 +675,7 @@ seed_peel_kernel(const uint32_t* __restrict__ link_all, const uint8_t* __restric
       }
     }
     if (lane == 0) {
-      sd[i] = 1;
+      if (sd) sd[i] = 1;
       gd[i] = i;
     }
   }
@@ -662,6 +693,27 @@ int launch_walk(dim3 grid, size_t smem, cudaStream_t st, const uint32_t* link,
 }
 
 }  // namespace
+
+int impop::seed_walk(const uint32_t* link, const uint8_t* member, const uint8_t* pmasks, int b,
+                     int n, int p_count, uint8_t* seeds, int32_t* gid, cudaStream_t st) {
+  const size_t link_bytes = sizeof(uint32_t) * static_cast<size_t>(n) * (n / 32);
+  const int link_smem = link_bytes <= kLinkSmemMax;
+  const size_t smem = link_smem ? link_bytes : 0;
+  const dim3 grid(b, (p_count + kWalkWarps - 1) / kWalkWarps);
+  const int nw = n / 32;
+  const auto walk = [&](auto launch) {
+    return launch(grid, smem, st, link, member, pmasks, n, p_count, link_smem, seeds, gid);
+  };
+  int err;
+  if (nw <= 32) err = walk(launch_walk<1>);
+  else if (nw <= 64) err = walk(launch_walk<2>);
+  else if (nw <= 128) err = walk(launch_walk<4>);
+  else if (nw <= 256) err = walk(launch_walk<8>);
+  else if (nw <= 512) err = walk(launch_walk<16>);
+  else if (nw <= 1024) err = walk(launch_walk<32>);
+  else err = static_cast<int>(cudaErrorInvalidValue);
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
 
 extern "C" {
 
@@ -709,7 +761,9 @@ int impop_window_stats(const void* geno, const void* member, const void* smask,
   if (err) return err;
   window_pack_kernel<<<dim3(w, n / kPackRows), kThreads, pack_smem, st>>>(p);
   const int nw = n / 32, word_blocks = nw * (nw + 1) / 2;
-  window_pairs_kernel<<<dim3(w, (word_blocks + kWarps - 1) / kWarps), kThreads, 0, st>>>(p);
+  const dim3 pair_grid(w, (word_blocks + kWarps - 1) / kWarps);
+  if (s <= impop::kBitsMaxSites) window_pairs_kernel<true><<<pair_grid, kThreads, 0, st>>>(p);
+  else window_pairs_kernel<false><<<pair_grid, kThreads, 0, st>>>(p);
   const size_t peel_smem =
       sizeof(uint32_t) * (kWarps + 1) * (n / 32) + (p.link_smem ? link_bytes : 0);
   err = set_smem(reinterpret_cast<const void*>(window_peel_kernel), peel_smem);
@@ -732,24 +786,8 @@ int impop_seed_peel(const void* sim, const void* present, const void* member,
   uint32_t* lk = static_cast<uint32_t*>(link);
   seed_link_kernel<<<dim3(b, (n + kWarps - 1) / kWarps), kThreads, 0, st>>>(
       static_cast<const float*>(sim), static_cast<const uint8_t*>(present), mem, thr, n, lk);
-  const size_t link_bytes = sizeof(uint32_t) * static_cast<size_t>(n) * (n / 32);
-  const int link_smem = link_bytes <= kLinkSmemMax;
-  const size_t smem = link_smem ? link_bytes : 0;
-  const dim3 grid(b, (p_count + kWalkWarps - 1) / kWalkWarps);
-  const uint8_t* pm = static_cast<const uint8_t*>(pmasks);
-  uint8_t* sd = static_cast<uint8_t*>(seeds);
-  int32_t* gd = static_cast<int32_t*>(gid);
-  const int nw = n / 32;
-  int err;
-  if (nw <= 32) err = launch_walk<1>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
-  else if (nw <= 64) err = launch_walk<2>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
-  else if (nw <= 128) err = launch_walk<4>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
-  else if (nw <= 256) err = launch_walk<8>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
-  else if (nw <= 512) err = launch_walk<16>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
-  else if (nw <= 1024) err = launch_walk<32>(grid, smem, st, lk, mem, pm, n, p_count, link_smem, sd, gd);
-  else err = static_cast<int>(cudaErrorInvalidValue);
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
+  return impop::seed_walk(lk, mem, static_cast<const uint8_t*>(pmasks), b, n, p_count,
+                          static_cast<uint8_t*>(seeds), static_cast<int32_t*>(gid), st);
 }
 
 }  // extern "C"

@@ -83,9 +83,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.impop_pairwise_identity.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 4
     lib.impop_pairwise_identity.restype = _I
     lib.impop_identity_group.argtypes = (
-        [_P] * 5 + [_F] + [_I] * 4 + [_P] * 7)
+        [_P] * 5 + [_F] + [_I] * 4 + [_P] * 8)
     lib.impop_identity_group.restype = _I
-    lib.impop_masked_pair_sums.argtypes = [_P] * 4 + [_I] * 4 + [_P] * 3
+    lib.impop_masked_pair_sums.argtypes = [_P] * 4 + [_I] * 4 + [_P] * 6
     lib.impop_masked_pair_sums.restype = _I
     lib.impop_error_string.argtypes = [_I]
     lib.impop_error_string.restype = ctypes.c_char_p

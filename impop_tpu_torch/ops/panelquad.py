@@ -7,12 +7,15 @@
   ``masked_pair_sums_xla``).  It is also the reduction inside the plain
   version of the window kernel, which must never reach a kernel.
 - :func:`masked_pair_sums`: the wrapper.  CPU tensors take the plain
-  version; CUDA tensors launch ``masked_pair_sums_kernel`` of
-  ``csrc/panelquad.cu``, or raise.  The weighted scan calls it on the sim /
-  present of the weighted identity kernel.
+  version; CUDA tensors launch ``csrc/panelquad.cu``'s
+  ``masked_rows_pack_kernel`` (is each Wp row 0/1?  then bit-pack it) and
+  ``masked_pair_sums_kernel`` (one block per window and 64 columns, sim /
+  present read once per column tile), or raise.  The weighted scan, the
+  matrices-out route and the per-statistic drivers call it.
 
-Both sums are value-carrying fp32 ((1 - sim) and group weights), so the
-kernel and the plain version agree to float32 rounding, not bit for bit.
+Yd carries real values ((1 - sim), group weights) in fp32 FMA, so it
+agrees with the plain version to float32 rounding, not bit for bit; a 0/1
+row of Wp is counted by AND + popcount and its Yp is exactly equal.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ import math
 import torch
 
 __all__ = ["masked_pair_sums", "masked_pair_sums_plain"]
+
+# bytes of mask words the kernel keeps in shared memory (kMcolSmemMax)
+_MCOL_SMEM_MAX = 32 * 1024
 
 
 def masked_pair_sums_plain(sim: torch.Tensor, present: torch.Tensor,
@@ -71,13 +77,24 @@ def _masked_pair_sums_cuda(sim, present, wd, wp):
     yd = torch.empty(lead + (rd, n), dtype=torch.float32, device=dev)
     yp = torch.empty(lead + (rp, n), dtype=torch.float32, device=dev)
     if w > 0 and n > 0 and rd + rp > 0:
+        nwc = -(-n // 32)
+        # scratch: the 0/1 flag and packed bits of every Wp row, and each
+        # column tile's mask words where they outgrow the kernel's shared
+        # memory (N > 4096; the kernel writes all it reads)
+        flags = torch.empty((w, rp), dtype=torch.int32, device=dev)
+        wbits = torch.empty((w, rp, nwc), dtype=torch.int32, device=dev)
+        mcol = None
+        if 4 * nwc * 64 > _MCOL_SMEM_MAX:
+            mcol = torch.empty((w, -(-n // 64), nwc, 64), dtype=torch.int32,
+                               device=dev)
         lib = load_library()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.impop_masked_pair_sums(
             simc.data_ptr(), presc.data_ptr(), wdc.data_ptr(),
-            wpc.data_ptr(), w, n, rd, rp, yd.data_ptr(), yp.data_ptr(),
-            stream)
-        check(lib, err, "masked_pair_sums_kernel")
+            wpc.data_ptr(), w, n, rd, rp, flags.data_ptr(), wbits.data_ptr(),
+            None if mcol is None else mcol.data_ptr(), yd.data_ptr(),
+            yp.data_ptr(), stream)
+        check(lib, err, "masked_rows_pack_kernel / masked_pair_sums_kernel")
         masked_pair_sums.launches += 1
     return yd, yp
 

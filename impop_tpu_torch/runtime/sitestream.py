@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from impop_tpu_torch.device import resolve_device
 from impop_tpu_torch.stats.allele import (allele_frequency_spectrum,
                                           pairwise_diff, segregating_sites)
 from impop_tpu_torch.stats.pi import pi_grouped
@@ -57,13 +58,14 @@ class SiteStreamAccumulator:
       afs_max_n: spectrum size (0 disables the spectrum).
       folded: minor-allele (True) or derived-allele (False) spectrum.
       weighted: updates carry per-site weights (column-mode identity).
-      device: where the state lives and every chunk is computed.
+      device: where the state lives and every chunk is computed (the
+        card unless the caller asks for ``"cpu"``; raises without CUDA).
     """
 
     def __init__(self, member, chunk_s: int = 4096, num_alleles: int = 2,
                  afs_max_n: int = 0, folded: bool = True,
-                 weighted: bool = False, device="cpu"):
-        self.device = torch.device(device)
+                 weighted: bool = False, device="cuda"):
+        self.device = resolve_device(device)
         self._member = torch.as_tensor(np.asarray(member, bool)).to(
             self.device)
         self.n_cap = self._member.shape[0]

@@ -9,7 +9,8 @@ Tolerances: integer outputs exact (S, n, num_groups, pairs_used2, cnt_*,
 seed_risk, seeds, gid, EHH step sums and carriers); unit and weighted
 sim / present exact (integer counts, integer weights: every sum is exact
 in float32); quad, sum_*, gdxy and the masked panel sums rtol 1e-5
-(float32 sums in another order).  The batch estimators of
+(float32 sums in another order), the masked sums' 0/1 rows of Wp exact
+(counted by popcount).  The batch estimators of
 ``parallel/scan`` run on the card against the same call on CPU tensors:
 integer fields exact, π and Dxy rtol 1e-5, Fst atol 2e-3.
 """
@@ -148,6 +149,13 @@ def test_wrappers_raise_on_bad_input(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         window_stats(g, m.cpu(), sm, stack, ma, mb, THR, length, (0,), (1,),
                      True)
+    # 1024 words of rows would put 65 600 pair blocks on grid y
+    n_big = 32 * 1024
+    ones = torch.ones((1, n_big), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 32736"):
+        identity_group(torch.zeros((1, n_big, 32), dtype=torch.int8,
+                                   device=cuda_device), ones, ones[:, :32],
+                       ones[:, None], THR, length)
 
 
 def ehh_inputs(seed, w, n, s, noise=0.003, n_classes=6):
@@ -283,6 +291,47 @@ def test_masked_pair_sums_kernel_matches_plain(cuda_device, disjoint):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("w,n,rd,rp,wp_kind", [
+    (4, 37, 1, 1, "01"), (8, 512, 2, 2, "01"), (6, 512, 35, 35, "01"),
+    (3, 512, 55, 55, "01"), (4, 1152, 2, 2, "01"), (2, 1152, 35, 35, "01"),
+    (6, 512, 35, 35, "values"), (3, 100, 55, 55, "values"),
+    (200, 512, 2, 2, "01"), (200, 512, 1, 1, "values"),
+    (3, 256, 0, 3, "01"), (3, 256, 5, 0, "01"),
+    # value rows past one block's 128: a second grid layer
+    (2, 512, 150, 140, "values"),
+    # past N = 4096 the mask words live in the wrapper's scratch
+    (2, 4160, 2, 2, "01")])
+def test_masked_pair_sums_kernel_shapes(cuda_device, w, n, rd, rp, wp_kind):
+    """Any N, the drivers' 1 + 1 and 2 + 2 rows, 35 + 35, 55 + 55, W = 200,
+    an asymmetric present, and Wp 0/1 (popcount rows: Yp exactly equal) or
+    with a row of other values (the fp32 branch: rtol 1e-5); N = 4160 keeps
+    the mask words in device memory."""
+    geno, member, smask, _ = batch(56, w, n, 128, 2, True, False)
+    rng = np.random.default_rng(56)
+    g, m, sm = (torch.from_numpy(a).to(cuda_device)
+                for a in (geno, member, smask))
+    sim, pres = identity_from_alleles(
+        g, m, sm, torch.full((w,), LEN, device=cuda_device))
+    drop = torch.from_numpy(np.triu(rng.random((w, n, n)) < 0.05, 1))
+    pres = pres & ~drop.to(cuda_device)
+    wd = rng.random((w, rd, n)) * (rng.random((w, rd, n)) < 0.4)
+    wp = (rng.random((w, rp, n)) < 0.3).astype(np.float32)
+    if wp_kind == "values":
+        wp[0, rp // 2] = rng.random(n) * 3.0
+    wd, wp = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+              for a in (wd, wp))
+    before = masked_pair_sums.launches
+    yd, yp = masked_pair_sums(sim, pres, wd, wp)
+    torch.cuda.synchronize()
+    assert masked_pair_sums.launches == before + 1
+    want_d, want_p = masked_pair_sums_plain(sim, pres, wd, wp)
+    binary = ((wp == 0) | (wp == 1)).all(dim=-1)
+    assert torch.equal(yp[binary], want_p[binary])
+    torch.testing.assert_close(yp, want_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(yd, want_d, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("w,n,s,max_code,length,splits", [
     (8, 512, 2048, 1, 200_000.0, None), (2, 1024, 256, 1, LEN, None),
     (3, 100, 77, 3, LEN, None), (2, 64, 96, 1, 0.0, None),
@@ -318,8 +367,15 @@ def test_pairwise_identity_kernel_matches_plain(cuda_device, w, n, s,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w,n,s,p,disjoint", [(6, 512, 128, 5, True),
-                                              (4, 256, 128, 4, False)])
+@pytest.mark.parametrize("w,n,s,p,disjoint", [
+    (6, 512, 128, 5, True), (4, 256, 128, 4, False),
+    # the matrices-out shape (R = 15), overlapping panels, and 1152 rows
+    # (the walk reads the link words from device memory)
+    (320, 512, 128, 5, True), (64, 256, 128, 4, False),
+    (3, 1152, 128, 5, True),
+    # past kBitsMaxSites = 512 sites: present from OR-ed words; pairs of
+    # different haplotype classes differ at more than 1024 sites
+    (8, 512, 4096, 5, True)])
 def test_identity_group_kernel_matches_plain(cuda_device, w, n, s, p,
                                              disjoint):
     geno, member, smask, pmasks = batch(52, w, n, s, p, disjoint, False)
@@ -336,6 +392,8 @@ def test_identity_group_kernel_matches_plain(cuda_device, w, n, s, p,
     want = identity_group_plain(g, m, sm, stack, THR, lens)
     for name, a, b in zip(("sim", "present", "gid", "s"), got, want):
         assert torch.equal(a, b), name
+    if s > 1024:
+        assert bool((got[0][got[1]] < 1.0 - 1024.0 / LEN).any())
 
 
 def hprc_sims(seed, w, p, disjoint):

@@ -75,10 +75,8 @@ def test_seed_peel_plain_matches_greedy_group_panels():
 def emulate_seed_peel(sim, present, member, pmasks, thr):
     """numpy twin of ``csrc/windowstat.cu``'s two seed-peel launches on one
     window: S1 packs the link words (bits j > i, both members, present,
-    sim > thr in f32), S2 walks each mask word by word: the lowest
-    undecided member (first nonzero word, then its lowest bit) is a seed,
-    AND-NOT of its link row absorbs, and every absorbed member's gid is
-    that seed.  Returns (seeds [P, N] bool, gid [P, N] int32)."""
+    sim > thr in f32), S2 walks each mask (:func:`walk_link_words`).
+    Returns (seeds [P, N] bool, gid [P, N] int32)."""
     n = sim.shape[0]
     nw = n // 32
     order = np.arange(n)
@@ -87,14 +85,26 @@ def emulate_seed_peel(sim, present, member, pmasks, thr):
     weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
     link = [[int((lk[i, 32 * k:32 * k + 32] * weights).sum())
              for k in range(nw)] for i in range(n)]
-    pm = pmasks & member[None, :]
+    return walk_link_words(link, pmasks & member[None, :])
+
+
+def walk_link_words(link, pm):
+    """numpy twin of ``seed_peel_kernel`` (the seed peel's and
+    identity_group's walk): for each mask, word by word, the lowest
+    undecided member (first nonzero word, then its lowest bit) is a seed,
+    AND-NOT of its link row (``link[i][k]``, bits j > i) absorbs, and every
+    absorbed member's gid is that seed.  Returns (seeds [P, N] bool, gid
+    [P, N] int32, N outside the mask)."""
+    n = pm.shape[1]
+    nw = n // 32
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
     seeds = np.zeros(pm.shape, bool)
     gid = np.full(pm.shape, n, np.int32)
     for r in range(pm.shape[0]):
         todo = [int((pm[r, 32 * k:32 * k + 32] * weights).sum())
                 for k in range(nw)]
         while True:
-            live = [k for k in range(nw) if todo[k]]   # the ballot
+            live = [k for k in range(nw) if todo[k]]   # the warp min
             if not live:
                 break
             kw = live[0]

@@ -3,6 +3,9 @@ True)`` against the JAX package on the CPU backend.
 
 - ``identity_group_plain`` against ``identity_group_pallas`` in interpret
   mode at the shapes of tests/test_ops.py: sim, present, gid and S equal.
+- A numpy twin of the CUDA kernel's algorithm (32-row packing, 32 x 32
+  pair blocks with their mirrors, the walk on link words) against the
+  same interpret run and the plain version: equal.
 - ``fused_window_stats`` returns the JAX 4-tuple; with matrices, sim and
   present are equal to JAX's and S exact; PanelStats holds integers exact,
   π and diversities rtol 1e-5, Fst atol 2e-3 (tests/test_torch_panelstats
@@ -20,6 +23,8 @@ from impop_tpu.ops.idgroup import identity_group_pallas
 from impop_tpu.stats import panelstats as jps
 from impop_tpu_torch.ops.idgroup import identity_group, identity_group_plain
 from impop_tpu_torch.stats import panelstats as tps
+from test_torch_grouping import walk_link_words
+from test_torch_panelquad import pack_words
 from test_torch_panelstats import assert_panelstats
 
 torch.set_num_threads(1)
@@ -164,3 +169,83 @@ def test_fused_panel_stats_given_gid_matches_jax():
     for a, b in zip(with_gid, plain):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
+
+
+def emulate_identity_group(geno, member, smask, pmasks, thr, length):
+    """numpy twin of ``csrc/idgroup.cu`` on one window.
+
+    pack: rows in blocks of 32, each bit-packed into 32-site words of alt
+    and valid bits, the column bitmaps of valid alt / valid ref calls OR-ed
+    over the blocks (S: columns in both).  pairs: each 32 x 32 block on or
+    above the diagonal computes diff = popc(v_i & v_j & (a_i ^ a_j)),
+    present, sim = 1 - diff / max(length, 1) in f32 and link = present &
+    j > i & sim > thr; it writes its tile and the mirror, and the link words
+    of its rows (the mirror's words are 0).  walk: the seed peel's walk on
+    the link words.  Returns (sim, present, gid, S)."""
+    n, s = geno.shape
+    nw = n // 32
+    f32 = np.float32
+    valid = (geno >= 0) & smask[None, :] & member[:, None]
+    alt = valid & (geno > 0)
+    aw, vw = np.zeros((n, s // 32), np.uint64), np.zeros((n, s // 32),
+                                                        np.uint64)
+    col_alt = np.zeros(s // 32, np.uint64)
+    col_ref = np.zeros(s // 32, np.uint64)
+    for i_lo in range(0, n, 32):
+        rows = slice(i_lo, i_lo + 32)
+        aw[rows], vw[rows] = pack_words(alt[rows]), pack_words(valid[rows])
+        col_alt |= np.bitwise_or.reduce(aw[rows], axis=0)
+        col_ref |= np.bitwise_or.reduce(vw[rows] & ~aw[rows], axis=0)
+    s_count = float(np.bitwise_count(col_alt & col_ref).sum())
+
+    length = f32(max(float(length), 1.0))
+    sim = np.full((n, n), np.nan, f32)
+    present = np.zeros((n, n), bool)
+    link = np.zeros((n, nw), np.uint64)
+    for iw in range(nw):
+        for jw in range(iw, nw):
+            ri, rj = slice(32 * iw, 32 * iw + 32), slice(32 * jw, 32 * jw + 32)
+            both = vw[ri, None, :] & vw[None, rj, :]
+            dn = np.bitwise_count(both & (aw[ri, None, :] ^ aw[None, rj, :]))
+            dn = dn.sum(axis=-1)
+            pres = (both != 0).any(axis=-1) & member[ri, None] & member[None, rj]
+            ii, jj = np.meshgrid(np.arange(32 * iw, 32 * iw + 32),
+                                 np.arange(32 * jw, 32 * jw + 32),
+                                 indexing="ij")
+            diag = ii == jj
+            pres = np.where(diag, member[ri, None], pres)
+            tile = np.where(pres, f32(1) - dn.astype(f32) / length, f32(0))
+            tile = np.where(diag & pres, f32(1), tile).astype(f32)
+            lk = pres & (jj > ii) & (tile > f32(thr))
+            sim[ri, rj], present[ri, rj] = tile, pres
+            link[ri, jw] = pack_words(lk)[:, 0]
+            if jw != iw:   # the mirror; its link words stay 0
+                sim[rj, ri], present[rj, ri] = tile.T, pres.T
+    assert not np.isnan(sim).any()
+    words = [[int(w) for w in row] for row in link]
+    gid = walk_link_words(words, pmasks & member[None, :])[1]
+    return sim, present, gid, s_count
+
+
+@pytest.mark.parametrize("seed,overlap", [(40, True), (41, False)])
+def test_kernel_twin_matches_pallas_interpret(seed, overlap):
+    """The twin against ``identity_group_pallas`` in interpret mode and the
+    port's plain version at tests/test_ops.py's shapes: sim, present, gid
+    and S equal."""
+    geno, member, smask, pmasks = window(seed, overlap=overlap)
+    sim, pres, gid, s_count = emulate_identity_group(geno, member, smask,
+                                                     pmasks, THR, LEN)
+    with pltpu.force_tpu_interpret_mode():
+        want = identity_group_pallas(
+            jnp.asarray(geno), jnp.asarray(member), jnp.asarray(smask),
+            jnp.asarray(pmasks), jnp.float32(THR), jnp.float32(LEN),
+            block=128)
+    plain = identity_group_plain(*t(geno, member, smask, pmasks), THR,
+                                 torch.tensor(LEN))
+    for other in ([np.asarray(a) for a in want],
+                  [a.numpy() for a in plain]):
+        np.testing.assert_array_equal(pres, other[1])
+        np.testing.assert_array_equal(sim, other[0])
+        np.testing.assert_array_equal(gid, other[2])
+        assert s_count == float(other[3])
+    assert int((gid < geno.shape[0]).sum()) > 0

@@ -243,12 +243,17 @@ def test_partition_fills_the_card():
         "base", "nodiv", "nomirror", "nostores", "noepi", "nodecode", "nomma",
         "loadsonly")] + [
     ("window_breakdown", "windowstat.cu", v) for v in (
-        "base", "novalue", "nostage", "nomask", "nodots")])
+        "base", "novalue", "nostage", "nomask", "nodots")] + [
+    ("sums_group_variants", "panelquad.cu", v) for v in (
+        "base", "occ3", "stages4", "unroll2", "nofma", "nowords", "nodiv",
+        "noload", "nopop")] + [
+    ("sums_group_variants", "idgroup.cu", v) for v in (
+        "occ3", "orwords", "smemrows", "notab", "nomirror", "nostores")])
 def test_breakdown_variants_match_the_kernel_source(tool, source, variant):
-    """Each variant of ``bench/gram_breakdown.py`` and
-    ``bench/window_breakdown.py`` edits text the kernel source still has
-    (the scripts build the variants on the card only), and the unit
-    identity kernel issues ``wgmma``."""
+    """Each variant of ``bench/gram_breakdown.py``,
+    ``bench/window_breakdown.py`` and ``bench/sums_group_variants.py``
+    edits text the kernel source still has (the scripts build the variants
+    on the card only), and the unit identity kernel issues ``wgmma``."""
     import importlib
     import os
 
@@ -259,7 +264,10 @@ def test_breakdown_variants_match_the_kernel_source(tool, source, variant):
         src = fh.read()
     if source == "pairdiff.cu":
         assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in src
-    for old, new in bench.VARIANTS[variant]:
+    table = (bench.VARIANTS if tool != "sums_group_variants" else
+             bench.SUMS_VARIANTS if source == "panelquad.cu" else
+             bench.GROUP_VARIANTS)
+    for old, new in table[variant]:
         assert src.count(old) >= 1, old
         assert old != new
 

@@ -15,6 +15,7 @@ import torch
 
 from impop_tpu.runtime.sitestream import \
     SiteStreamAccumulator as JaxAccumulator
+from impop_tpu_torch.cli import GenoSimSource
 from impop_tpu_torch.runtime.sitestream import SiteStreamAccumulator
 
 torch.set_num_threads(1)
@@ -65,7 +66,8 @@ def test_stream_matches_jax(chunk, folded):
     j = stream(JaxAccumulator(member, chunk_s=chunk, afs_max_n=n,
                               folded=folded), geno, chunk)
     t = stream(SiteStreamAccumulator(member, chunk_s=chunk, afs_max_n=n,
-                                     folded=folded), geno, chunk)
+                                     folded=folded, device="cpu"),
+               geno, chunk)
     assert_streams_equal(t.finalize(20_000.0, THR),
                          j.finalize(20_000.0, THR), j, t)
 
@@ -76,8 +78,8 @@ def test_weighted_stream_matches_jax():
     weights = weights.astype(np.float32)
     j = stream(JaxAccumulator(member, chunk_s=256, weighted=True), geno, 256,
                weights)
-    t = stream(SiteStreamAccumulator(member, chunk_s=256, weighted=True),
-               geno, 256, weights)
+    t = stream(SiteStreamAccumulator(member, chunk_s=256, weighted=True,
+                                     device="cpu"), geno, 256, weights)
     assert t._diff.dtype == torch.float32
     assert_streams_equal(t.finalize(50_000.0, THR),
                          j.finalize(50_000.0, THR), j, t)
@@ -88,8 +90,8 @@ def test_stream_subset_and_alleles_match_jax():
     geno, member = window(4, max_code=2)
     pim = np.random.default_rng(4).random(geno.shape[0]) < 0.5
     j = stream(JaxAccumulator(member, chunk_s=300, num_alleles=3), geno, 300)
-    t = stream(SiteStreamAccumulator(member, chunk_s=300, num_alleles=3),
-               geno, 300)
+    t = stream(SiteStreamAccumulator(member, chunk_s=300, num_alleles=3,
+                                     device="cpu"), geno, 300)
     got = t.finalize(8000.0, THR, pi_member=pim)
     assert_streams_equal(got, j.finalize(8000.0, THR, pi_member=pim), j, t)
     assert float(got.n) == float((pim & member).sum())
@@ -97,11 +99,11 @@ def test_stream_subset_and_alleles_match_jax():
 
 def test_stream_is_chunk_invariant_and_guards_misuse():
     geno, member = window(5)
-    outs = [stream(SiteStreamAccumulator(member, chunk_s=c), geno, c)
-            .finalize(10_000.0, THR) for c in (128, 700)]
+    outs = [stream(SiteStreamAccumulator(member, chunk_s=c, device="cpu"),
+                   geno, c).finalize(10_000.0, THR) for c in (128, 700)]
     for a, b in zip(outs[0], outs[1]):
         assert torch.equal(a, b)
-    acc = SiteStreamAccumulator(member)
+    acc = SiteStreamAccumulator(member, device="cpu")
     with pytest.raises(ValueError, match="weighted=True"):
         acc.update(geno, np.ones(geno.shape[1], np.float32))
     with pytest.raises(ValueError, match="chunk must be"):
@@ -109,3 +111,15 @@ def test_stream_is_chunk_invariant_and_guards_misuse():
     acc.finalize(1.0, THR)
     with pytest.raises(RuntimeError, match="finalized"):
         acc.update(geno)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: SiteStreamAccumulator(np.ones(8, bool)),
+    lambda: GenoSimSource(None)], ids=["SiteStreamAccumulator",
+                                       "GenoSimSource"])
+def test_library_constructors_default_to_the_card(build, monkeypatch):
+    """Left without a device, both take the card, and without CUDA they
+    raise instead of landing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        build()
