@@ -82,9 +82,21 @@ Phases (one line each; any failure exits non-zero):
      the CPU (integer columns exact, pi / Dxy rtol 1e-5, Fst / Da atol
      2e-3, NA in the same places; afs files identical); then the device
      steps alone, timed and profiled
+  B1 ``ehh`` and ``sfs`` on the 400 windows as .npz tiles: ``ehh -p 250
+     -w 500`` on their alt calls side by side (466 x 20 250: 40 windows
+     and a ragged tail of 250 sites), with and without
+     ``--compat-ehhgfa``, on the card and on the CPU (fields exact, areas
+     rtol 1e-6), and in device batches of 8 windows (text identical);
+     ``ehh --geno-dir`` at 50 focals spread over the tiles, card against
+     CPU, and one focal alone against its rows in the run of 50; ``sfs``
+     with the 5 panels, folded and ``--unfolded``, ``--per-window``: the
+     files identical on the card, the CPU, one device batch and batches
+     of 7 windows; ``spectrum --no-plots`` and ``makewindows``; then
+     ``ehh_area`` timed at the matrix run's batch shape
 
-Each main path (3-4, 5, 6, 7, 8, A1, 9) starts with every kernel launch count at 0
-and fails unless each kernel of that path was launched during it.
+Each main path (3-4, 5, 6, 7, 8, A1, 9, B1) starts with every kernel
+launch count at 0 and fails unless each kernel of that path was launched
+during it.
 
 Every kernel line of phase 2 gives its time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the H100
@@ -280,7 +292,7 @@ def ehh_case(dev, geno, member, smask, focal, tag):
             diff = (g.double() - w.double()).abs().max().item()
             raise SmokeError(f"{tag}: ehh_area {name} differ from the plain "
                              f"version (max abs {diff})")
-    return 0.0, int(got[0].max()), args
+    return 0.0, int(got[0].max()), args   # the largest per-direction sum
 
 
 def phase_ehh_kernel(dev, report, profiles):
@@ -1604,6 +1616,238 @@ def time_stats_step(dev, step):
             + profile_ops(fn, ms))
 
 
+# ------------------------------------------------------------------ B1
+
+EHH_SITES = 20_250            # 40 windows of 500 sites and a tail of 250
+EHH_W, EHH_P = 500, 250       # ehh -w, -p
+EHH_FOCALS = 50
+
+
+def read_rows(path):
+    with open(path) as fh:
+        return [ln.split() for ln in fh if ln.strip()]
+
+
+def compare_ehh_rows(path_a, path_b, tag):
+    """Two ``ehh`` outputs: the same rows with every field but the area
+    equal, areas finite and within rtol 1e-6.  Returns the first's rows."""
+    import math
+
+    a, b = read_rows(path_a), read_rows(path_b)
+    if len(a) != len(b) or not a:
+        raise SmokeError(f"{tag}: {len(a)} vs {len(b)} rows")
+    for ra, rb in zip(a, b):
+        va, vb = float(ra[-1]), float(rb[-1])
+        if ra[:-1] != rb[:-1] or not math.isfinite(va) \
+                or abs(va - vb) > 1e-6 * abs(vb):
+            raise SmokeError(f"{tag}: {ra} vs {rb}")
+    return a
+
+
+def phase_ehh_sfs(dev, tmp, pg, step, smi):
+    """``ehh`` and ``sfs`` on the simulated pangenome as 400 allele tiles
+    of 5 kb, and ``spectrum --no-plots`` / ``makewindows``.  ``ehh``
+    matrix mode reads the tiles' alt calls side by side (466 x 20 250, -p
+    250 -w 500: 40 windows and a ragged tail of 250 sites, in device
+    batches of 2^25 cells and of 8 windows), extraction mode 50 focals
+    spread over the 400 tiles; each on the card and on the CPU.  ``step``
+    receives the matrix run's windows for :func:`time_ehh_batch`."""
+    import numpy as np
+
+    import impop_tpu_torch.cli as torch_cli
+    from impop_tpu_torch.ops.ehhdeath import ehh_area
+
+    t0 = time.perf_counter()
+    spans = [(lo, lo + WIN_BP) for lo in range(0, SCAN_BP, WIN_BP)]
+    tiles = os.path.join(tmp, "b1_tiles")
+    wms = write_tiles(native_extractor(pg), spans, tiles)
+    bed = os.path.join(tmp, "b1.bed")
+    write_bed(bed, spans)
+    if len({wm.geno.shape[0] for wm in wms}) != 1:
+        raise SmokeError("B1: the tiles hold different haplotype counts")
+    whole = np.concatenate([(wm.geno[np.argsort(wm.names)] == 1)
+                            .astype(np.int8) for wm in wms], axis=1)
+    if whole.shape[1] < EHH_SITES:
+        raise SmokeError(f"B1: {whole.shape[1]} sites, below {EHH_SITES}")
+    whole = whole[:, :EHH_SITES]
+    mat = os.path.join(tmp, "b1_matrix.txt")
+    np.savetxt(mat, whole, fmt="%d")
+    say("B1", f"{len(spans)} tiles of {WIN_BP} bp and a {whole.shape[0]} x "
+        f"{whole.shape[1]} alt matrix written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def out(name):
+        return os.path.join(tmp, f"b1.{name}")
+
+    walls = []
+    n_win = -(-EHH_SITES // EHH_W)
+    tail = (str((n_win - 1) * EHH_W), str(EHH_SITES))
+    matrix = ["ehh", "-i", mat, "-p", str(EHH_P), "-w", str(EHH_W)]
+    for compat in (False, True):
+        tag = "ehh --compat-ehhgfa" if compat else "ehh"
+        argv = matrix + (["--compat-ehhgfa"] if compat else [])
+        before = ehh_area.launches
+        wall_g = run_cli(argv + ["-o", out(f"{compat}.gpu"), "--device",
+                                 dev.type], f"{tag} on the card")
+        launches = ehh_area.launches - before
+        wall_c = run_cli(argv + ["-o", out(f"{compat}.cpu"), "--device",
+                                 "cpu"], f"{tag} --device cpu")
+        rows = compare_ehh_rows(out(f"{compat}.gpu"), out(f"{compat}.cpu"),
+                                f"B1 {tag}")
+        if {int(r[0]) for r in rows} != set(range(1, n_win + 1)) \
+                or tuple(rows[-1][1:3]) != tail:
+            raise SmokeError(f"B1 {tag}: windows {rows[0][:3]} .. "
+                             f"{rows[-1][:3]}, not {n_win} ending at "
+                             f"{EHH_SITES}")
+        walls.append(f"{tag} {wall_g:.2f} s on the card ({launches} "
+                     f"launches), {wall_c:.2f} s on the CPU")
+    # device batches of 8 windows: the text of the one-batch run
+    saved = torch_cli._WINDOW_CHUNK_ELEMS
+    torch_cli._WINDOW_CHUNK_ELEMS = 8 * whole.shape[0] * EHH_W
+    try:
+        before = ehh_area.launches
+        wall_b = run_cli(matrix + ["-o", out("b8.gpu"), "--device",
+                                   dev.type],
+                         "ehh in batches of 8 on the card")
+        launches = ehh_area.launches - before
+    finally:
+        torch_cli._WINDOW_CHUNK_ELEMS = saved
+    same_file(out("b8.gpu"), out("False.gpu"),
+              "B1 ehh: batches of 8 windows differ from one batch")
+    if launches != -(-n_win // 8):
+        raise SmokeError(f"B1 ehh in batches of 8: {launches} launches, "
+                         f"not {-(-n_win // 8)}")
+    say("B1", f"ehh -p {EHH_P} -w {EHH_W} on {whole.shape[0]} x "
+        f"{EHH_SITES} ({n_win} windows, the last of "
+        f"{EHH_SITES - int(tail[0])} sites): " + "; ".join(walls)
+        + f"; rows equal (fields exact, areas rtol 1e-6); in {launches} "
+        f"device batches of 8 windows {wall_b:.2f} s, text identical to "
+        f"one batch [{smi}]")
+    step["ehh"] = whole
+
+    # extraction mode: 50 focals over the 400 tiles, then one alone
+    picks = np.linspace(0, len(spans) - 1, EHH_FOCALS).astype(int)
+    focals = [str(spans[k][0] + WIN_BP // 2) for k in picks]
+    base = ["ehh", "--geno-dir", tiles, "-b", bed, "-P", "CHM13#0#"]
+    for fp in focals:
+        base += ["--focal", fp]
+    wall_g = run_cli(base + ["-o", out("x.gpu"), "--device", dev.type],
+                     "ehh --geno-dir on the card")
+    wall_c = run_cli(base + ["-o", out("x.cpu"), "--device", "cpu"],
+                     "ehh --geno-dir --device cpu")
+    rows = compare_ehh_rows(out("x.gpu"), out("x.cpu"), "B1 ehh --geno-dir")
+    if {r[1] for r in rows} != set(focals):
+        raise SmokeError("B1 ehh --geno-dir: a focal has no row")
+    alone = focals[EHH_FOCALS // 3]
+    run_cli(["ehh", "--geno-dir", tiles, "-b", bed, "-P", "CHM13#0#",
+             "--focal", alone, "-o", out("x1.gpu"), "--device", dev.type],
+            "ehh --geno-dir, one focal")
+    want = [r for r in rows if r[1] == alone]
+    if read_rows(out("x1.gpu")) != want:
+        raise SmokeError(f"B1 ehh --geno-dir: focal {alone} alone gives "
+                         f"{read_rows(out('x1.gpu'))}, in the run of "
+                         f"{EHH_FOCALS} {want}")
+    say("B1", f"ehh --geno-dir, {EHH_FOCALS} focals over {len(spans)} "
+        f"tiles: {len(rows)} rows, {wall_g:.2f} s on the card, "
+        f"{wall_c:.2f} s on the CPU, rows equal; focal {alone} alone: "
+        f"the same rows as in the run of {EHH_FOCALS} [{smi}]")
+
+    # sfs: five panels, folded and unfolded, with --per-window; the
+    # command's capacities give the cells of a batch of 7 windows
+    from impop_tpu_torch.hostio import _capacity_for
+
+    panels = [x for p in pg["panels"] for x in ("--panel", p)]
+    cells = len(pg["panels"]) * _capacity_for(
+        [wm.geno.shape[0] for wm in wms]) * max(
+        8, -(-max(wm.geno.shape[1] for wm in wms) // 128) * 128)
+    walls = []
+    for unfolded in (False, True):
+        tag = "sfs --unfolded" if unfolded else "sfs"
+        argv = ["sfs", "-b", bed, "--geno-dir", tiles, "-P", "CHM13#0#",
+                *panels] + (["--unfolded"] if unfolded else [])
+        runs = (("gpu", dev.type, saved), ("cpu", "cpu", saved),
+                ("one", dev.type, 1 << 40), ("b7", dev.type, None))
+        for name, dev_name, elems in runs:
+            torch_cli._WINDOW_CHUNK_ELEMS = elems or 7 * cells
+            try:
+                wall = run_cli(argv + ["-o", out(f"{tag}.{name}"),
+                                       "--per-window",
+                                       out(f"{tag}.{name}.pw"), "--device",
+                                       dev_name], f"{tag} ({name})")
+            finally:
+                torch_cli._WINDOW_CHUNK_ELEMS = saved
+            if name in ("gpu", "cpu"):
+                where = "the card" if name == "gpu" else "the CPU"
+                walls.append(f"{tag} {wall:.2f} s on {where}")
+            for ext in ("", ".pw"):
+                same_file(out(f"{tag}.{name}{ext}"), out(f"{tag}.gpu{ext}"),
+                          f"B1 {tag}: the {name} run's file{ext} differs")
+        if len(read_rows(out(f"{tag}.gpu"))) < 3:
+            raise SmokeError(f"B1 {tag}: empty spectrum")
+    say("B1", f"sfs on {len(spans)} tiles, 5 panels, folded and unfolded: "
+        + "; ".join(walls) + "; table and --per-window identical on the "
+        f"card, the CPU, one device batch and batches of 7 windows [{smi}]")
+
+    # the host commands run where the card is (no matplotlib needed)
+    sites = os.path.join(tmp, "b1_sites.tsv")
+    with open(sites, "w") as fh:
+        fh.write("\t".join(["sample", "chrom", "hap"]
+                           + [f"s{k}" for k in range(40)]) + "\n")
+        for i, row in enumerate(whole[:, :40]):
+            fh.write("\t".join([f"h{i}", "chr1", "1"]
+                               + [str(v) for v in row]) + "\n")
+    run_cli(["spectrum", "--input", sites, "--no-plots", "-o",
+             out("spectrum")], "spectrum --no-plots")
+    run_cli(["makewindows", "--region", f"chr1:0:{SCAN_BP}", "-w",
+             str(WIN_BP), "-o", out("windows.bed")], "makewindows")
+    if read_rows(out("windows.bed")) != read_rows(bed):
+        raise SmokeError(f"B1 makewindows: not the {len(spans)} windows")
+    say("B1", f"spectrum --no-plots ({len(read_rows(out('spectrum'))) - 1} "
+        f"rows) and makewindows (the {len(spans)} windows) ran")
+
+
+def time_ehh_batch(dev, step, smi):
+    """The EHH kernel at the shape of the matrix run's one device batch
+    (41 windows of [466, 500]; in compat mode [466, 501] tiles
+    [R | focal | R]), by CUDA graph replays and with host time by CUDA
+    events, and the whole ``ehh_area_batch`` call (outside the counted
+    path)."""
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.ops.ehhdeath import ehh_area
+    from impop_tpu_torch.stats.ehh import ehh_area_batch, ehh_batch_tiles
+
+    whole = step["ehh"]
+    n, total = whole.shape
+    starts = range(0, total, EHH_W)
+    geno = np.zeros((len(starts), n, EHH_W), np.int8)
+    smask = np.zeros((len(starts), EHH_W), bool)
+    for row, cs in enumerate(starts):
+        part = whole[:, cs:cs + EHH_W]
+        geno[row, :, :part.shape[1]] = part
+        smask[row, :part.shape[1]] = True
+    g, sm = torch.from_numpy(geno).to(dev), torch.from_numpy(smask).to(dev)
+    m = torch.ones((len(starts), n), dtype=torch.bool, device=dev)
+    for compat in (False, True):
+        args = ehh_batch_tiles(g, m, sm, EHH_P - 1, compat)
+        k_ms = graph_ms(lambda: ehh_area(*args), 10)
+        ev_ms = cuda_time_ms(lambda: ehh_area(*args), 10)
+        b_ms = cuda_time_ms(lambda: ehh_area_batch(
+            g, m, sm, EHH_P - 1, compat_right_for_left=compat), 10)
+        sums, carr = ehh_area(*args)
+        c = carr.double()
+        # two walks per pair: right and left of the focal
+        b_ms_min, by = bound(nbytes(*args, sums, carr),
+                             int32=float((c * (c - 1)).sum()))
+        say("B1", f"ehh_area at the ehh run's batch "
+            f"[{n},{args[0].shape[-1]}]x{args[0].shape[0]}"
+            f"{' (compat)' if compat else ''}: {k_ms:.4f} ms on the card "
+            f"(CUDA graph replays), {ev_ms:.4f} ms with the wrapper (CUDA "
+            f"events), ehh_area_batch {b_ms:.4f} ms; bound "
+            f"{b_ms_min:.4f} ms ({by}) [{smi}]")
+
+
 # ------------------------------------------------------------------ driver
 
 
@@ -1697,6 +1941,8 @@ def main() -> int:
              ("pairwise_identity", "seed_peel", "masked_pair_sums")),
             ("9", lambda: phase_stats(dev, tmp, pg, step),
              ("seed_peel", "masked_pair_sums")),
+            ("B1", lambda: phase_ehh_sfs(dev, tmp, pg, step, smi),
+             ("ehh_area",)),
         ]
         for tag, run, needed in paths:
             for fn in kernels.values():
@@ -1712,6 +1958,7 @@ def main() -> int:
             say(tag, f"kernel launches during the path: {counts}")
         time_tajd_step(dev, step)
         time_stats_step(dev, step)
+        time_ehh_batch(dev, step, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -31,8 +31,17 @@ per window (``--sim-dir`` TSVs, allele tiles through ``GenoSimSource``, or
 batches of ``_WINDOW_CHUNK_ELEMS`` sim elements (128 windows at N = 512);
 ``afs`` clusters one similarity TSV into allele classes.
 
+``ehh``: EHH decay areas at a focal site per window, from a haplotype
+matrix (``-i``) or from allele tiles at ``--focal`` positions, on the EHH
+kernel in device batches; areas count active sites only, so a ragged or
+padded window gives the reference script's area.  ``sfs``: per-window,
+per-panel spectra from allele tiles and their genome-wide sum.  The
+host-only commands ``spectrum``, ``extract``, ``gfasim``, ``gfa2vcf``,
+``import-agc``, ``merge-parts``, ``makewindows`` and ``plot`` live in
+``impop_tpu_torch.hostcmds`` and take no ``--device``.
+
 Not ported yet (they raise): ``scan --distributed``, ``--pair-shard on``
-and more than one local GPU (ROADMAP.md Queue 1 item 11).
+and more than one local GPU (ROADMAP.md Queue 1, multi-GPU).
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from impop_tpu_torch import hostcmds
 from impop_tpu_torch.hostio import (DirSimSource, GenoSource, GfaDirSource,
                                     ImpgSimSource, SimilarityMatrix,
                                     SimSource, WindowError, _add_common,
@@ -64,15 +74,16 @@ from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
 
 __all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
            "cmd_hud", "cmd_fst3pi", "cmd_afs", "cmd_panels_hfst",
-           "cmd_panels_tajd", "GenoSimSource", "main"]
+           "cmd_panels_tajd", "cmd_sfs", "cmd_ehh", "GenoSimSource",
+           "main"]
 
 
 def _refuse_unported(args) -> None:
     """Options of the JAX scan this port does not run yet."""
     if args.distributed:
         raise SystemExit("error: --distributed is not ported to "
-                         "impop_tpu_torch yet (ROADMAP.md Queue 1 item 11, "
-                         "multi-host); use `python -m impop_tpu.cli scan` "
+                         "impop_tpu_torch yet (ROADMAP.md Queue 1, multi-GPU "
+                         "and multi-host); use `python -m impop_tpu.cli scan` "
                          "for it")
 
 
@@ -111,7 +122,7 @@ def _open_device(name: str):
             and torch.cuda.device_count() > 1:
         raise SystemExit(
             f"error: {torch.cuda.device_count()} local GPUs visible; the "
-            "multi-GPU scan is not ported yet (ROADMAP.md Queue 1 item 11). "
+            "multi-GPU scan is not ported yet (ROADMAP.md Queue 1). "
             "Pick one with --device cuda:K or CUDA_VISIBLE_DEVICES")
     return dev
 
@@ -972,8 +983,8 @@ def _run_hudson(args, grouped: bool) -> int:
 
     if getattr(args, "pair_shard", "off") == "on":
         raise SystemExit("error: --pair-shard on is not ported to "
-                         "impop_tpu_torch yet (ROADMAP.md Queue 1 item 11, "
-                         "multi-GPU); --pair-shard auto or off compute the "
+                         "impop_tpu_torch yet (ROADMAP.md Queue 1, multi-GPU); "
+                         "--pair-shard auto or off compute the "
                          "replicated [N, N] batch on the one GPU")
     dev = _open_device(args.device)
     regions = read_bed(args.bed)
@@ -1176,6 +1187,282 @@ def cmd_panels_tajd(args) -> int:
     return 0
 
 
+# ------------------------------------------------------------ sfs
+
+
+def cmd_sfs(args) -> int:
+    """Per-window, per-panel site-frequency spectra from allele tiles and
+    their genome-wide sum (the JAX ``sfs``): ``stats/allele.panel_afs`` over
+    device batches of at most ``_WINDOW_CHUNK_ELEMS`` (window, panel, row,
+    site) cells, summed in int64 on the device and fetched once."""
+    import torch
+
+    from impop_tpu_torch.stats.allele import panel_afs
+
+    dev = _open_device(args.device)
+    regions = read_bed(args.bed)
+    geno_src = (GenoSource(args.geno_dir) if args.geno_dir
+                else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
+    fasta_store = _resolve_fasta(args)
+    extractor = (_open_extractor(args.paf, fasta_store)
+                 if args.paf and fasta_store else None)
+    if geno_src is None and extractor is None:
+        raise SystemExit("error: provide --geno-dir, --gfa-dir, "
+                         "--paf + --fasta, or --paf + --agc")
+
+    panel_files = sorted(args.panel or [])
+    panel_names = [_panel_label(p) for p in panel_files] or ["ALL"]
+    panel_lists = [read_panel_file(p) for p in panel_files]
+    p_count = len(panel_names)
+
+    kept, tiles = [], []
+    for reg in regions:
+        rs = reg.region_string(args.prefix)
+        try:
+            if geno_src is not None:
+                g, names, _keys = geno_src.load(rs)
+            else:
+                wm = extractor.extract(rs.rsplit(":", 1)[0],
+                                       reg.start, reg.end)
+                g, names = wm.geno, wm.names
+        except Exception as e:
+            _warn(f"Warning: {rs}: {e}; skipping window")
+            continue
+        order = np.argsort(names)
+        tiles.append((np.asarray(g, np.int8)[order],
+                      [names[i] for i in order]))
+        kept.append((reg, rs))
+
+    out = _out_stream(args.output)
+    try:
+        if not kept:
+            _warn("Warning: no windows could be processed")
+            print("ALLELE_COUNT\t" +
+                  "\t".join(f"SITES_{n}" for n in panel_names), file=out)
+            return 0
+        # capacities and bins over all windows: the table does not depend
+        # on the batch size
+        cap_n = _capacity_for([t[0].shape[0] for t in tiles])
+        cap_s = max(8, ((max(t[0].shape[1] for t in tiles) + 127) // 128)
+                    * 128)
+        max_n = args.max_n or cap_n
+        folded = not args.unfolded
+        step = max(1, _WINDOW_CHUNK_ELEMS // (p_count * cap_n * cap_s))
+        merged = torch.zeros((p_count, max_n + 1), dtype=torch.int64,
+                             device=dev)
+        per_win = []
+        for lo in range(0, len(tiles), step):
+            part = tiles[lo:lo + step]
+            w = len(part)
+            geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
+            member = np.zeros((w, cap_n), bool)
+            smask = np.zeros((w, cap_s), bool)
+            panels = np.zeros((w, p_count, cap_n), bool)
+            for wi, (g, names) in enumerate(part):
+                n, s = g.shape
+                geno[wi, :n, :s] = g
+                member[wi, :n] = True
+                smask[wi, :s] = True
+                if not panel_lists:
+                    panels[wi, :, :n] = True
+                for pi_idx, plist in enumerate(panel_lists):
+                    matched, _ = expand_population(plist, names)
+                    panels[wi, pi_idx, :n] = [nm in matched for nm in names]
+            spectra = panel_afs(
+                *(torch.from_numpy(a).to(dev)
+                  for a in (geno, member, smask, panels)), max_n, folded)
+            merged += spectra.sum(0, dtype=torch.int64)
+            if args.per_window:
+                per_win.append(spectra)
+        merged = merged.cpu().numpy()  # [P, K]
+
+        print("ALLELE_COUNT\t" +
+              "\t".join(f"SITES_{n}" for n in panel_names), file=out)
+        top = max_n // 2 if folded else max_n
+        for k in range(1, top + 1):
+            if merged[:, k].any() or k <= (args.max_n or 0):
+                print(f"{k}\t" + "\t".join(str(int(merged[pi, k]))
+                                           for pi in range(p_count)),
+                      file=out)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+
+    if args.per_window:
+        per_win = torch.cat(per_win).cpu().numpy()
+        with open(args.per_window, "w") as fh:
+            fh.write("REGION\tPANEL\tALLELE_COUNT\tSITES\n")
+            for wi, (reg, rs) in enumerate(kept):
+                for pi_idx, pname in enumerate(panel_names):
+                    hist = per_win[wi, pi_idx]
+                    for k in np.nonzero(hist)[0]:
+                        if k == 0:
+                            continue
+                        fh.write(f"{rs}\t{pname}\t{k}\t{int(hist[k])}\n")
+    return 0
+
+
+# ------------------------------------------------------------ ehh
+
+
+def _ehh_areas(tiles, compat: bool, dev) -> Tuple[np.ndarray, np.ndarray]:
+    """``stats/ehh.ehh_area_batch`` for each (tile [n, s] int8 0/1, focal
+    column): tiles padded with masked columns and non-member rows to the
+    largest, in device batches of at most ``_WINDOW_CHUNK_ELEMS`` int8
+    cells, one EHH kernel launch a batch.  Steps count active sites only,
+    so the padding and the batch size change no area.  Returns (area
+    [W, 2] float32, carriers [W, 2] int32) on the host."""
+    import torch
+
+    from impop_tpu_torch.stats.ehh import ehh_area_batch
+
+    n_cap = max(t.shape[0] for t, _ in tiles)
+    s_cap = max(t.shape[1] for t, _ in tiles)
+    step = max(1, _WINDOW_CHUNK_ELEMS // (n_cap * s_cap))
+    areas, carriers = [], []
+    for lo in range(0, len(tiles), step):
+        part = tiles[lo:lo + step]
+        w = len(part)
+        geno = np.zeros((w, n_cap, s_cap), np.int8)
+        member = np.zeros((w, n_cap), bool)
+        smask = np.zeros((w, s_cap), bool)
+        focal = np.zeros(w, np.int64)
+        for row, (t, fi) in enumerate(part):
+            n, s = t.shape
+            geno[row, :n, :s] = t
+            member[row, :n] = True
+            smask[row, :s] = True
+            focal[row] = fi
+        area, carr = ehh_area_batch(
+            *(torch.from_numpy(a).to(dev)
+              for a in (geno, member, smask, focal)),
+            compat_right_for_left=compat)
+        areas.append(area.cpu().numpy())
+        carriers.append(carr.cpu().numpy())
+    return np.concatenate(areas), np.concatenate(carriers)
+
+
+def _ehh_from_tiles(args, dev) -> int:
+    """Extraction mode: each ``--focal P`` takes the BED window holding P
+    and the variant column nearest P in its allele tile (``--geno-dir``, or
+    extracted with ``--paf`` + ``--fasta`` / ``--agc``).  Each tile keeps
+    its own focal column (no re-centring, unlike the JAX command, whose
+    shared centre makes a focal's area depend on the other focals).
+    Output row: ``region focal_pos site_pos site_key allele REF|ALT
+    carriers area`` (allele 0 = the reference allele of the column)."""
+    if not args.bed or not args.focal:
+        raise SystemExit("error: extraction mode needs -b and --focal "
+                         "(or pass -i for matrix mode)")
+    regions = read_bed(args.bed)
+    geno_src = GenoSource(args.geno_dir) if args.geno_dir else None
+    extractor = None
+    if geno_src is None:
+        fasta_store = _resolve_fasta(args)
+        if args.paf and fasta_store:
+            extractor = _open_extractor(args.paf, fasta_store)
+    if geno_src is None and extractor is None:
+        raise SystemExit("error: provide --geno-dir or --paf + "
+                         "--fasta/--agc")
+
+    tasks = []
+    for fp in args.focal:
+        reg = next((r for r in regions if r.start <= fp < r.end), None)
+        if reg is None:
+            _warn(f"Warning: no BED window contains focal {fp}; skipping")
+            continue
+        tasks.append((reg, reg.region_string(args.prefix), fp))
+
+    tiles, kept = [], []
+    for reg, rs, fp in tasks:
+        try:
+            if geno_src is not None:
+                g, names, keys = geno_src.load(rs)
+                if keys is None:
+                    raise WindowError("allele tile has no site_keys — "
+                                      "positions unavailable")
+                pos = np.asarray([int(k.split(":", 1)[0]) for k in keys])
+            else:
+                wm = extractor.extract(rs.rsplit(":", 1)[0],
+                                       reg.start, reg.end)
+                g, pos, keys = wm.geno, np.asarray(wm.site_pos), wm.site_keys
+        except Exception as e:
+            _warn(f"Warning: skipping focal {fp} ({rs}): {e}")
+            continue
+        if len(pos) == 0:
+            _warn(f"Warning: no variants in {rs}; skipping focal {fp}")
+            continue
+        fi = int(np.argmin(np.abs(pos - fp)))
+        kept.append((rs, fp, int(pos[fi]), keys[fi]))
+        # alt carrier = 1; reference call and uncovered both binarise to 0
+        tiles.append(((np.asarray(g) == 1).astype(np.int8), fi))
+    out = _out_stream(args.output)
+    try:
+        if kept:
+            area, carriers = _ehh_areas(tiles, bool(args.compat_ehhgfa), dev)
+            for row, (rs, fp, used_pos, key) in enumerate(kept):
+                for ai, al in enumerate((0, 1)):
+                    if carriers[row, ai] == 0:
+                        continue
+                    typeal = "REF" if al == 0 else "ALT"
+                    print(rs, fp, used_pos, key, al, typeal,
+                          int(carriers[row, ai]), float(area[row, ai]),
+                          file=out, flush=True)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def cmd_ehh(args) -> int:
+    """EHH decay areas around a focal SNP (the JAX ``ehh``).
+
+    Matrix mode (``-i``): a whitespace-separated haplotype matrix without
+    header, non-zero entries binarised to 1, cut into windows of ``-w``
+    sites; for each allele at site ``-p`` of a window it prints ``window
+    colstart colend allele REF|ALT area`` (REF/ALT from row ``--refpos``).
+    The ragged last window is the columns it has: unlike the JAX command,
+    which pads it and counts the padding as EHH steps, its area is the
+    reference script's.  Without ``-i``: extraction mode
+    (:func:`_ehh_from_tiles`).  ``--compat-ehhgfa`` uses the right half for
+    both directions, as the reference script does.
+    """
+    dev = _open_device(args.device)
+    if not args.input:
+        return _ehh_from_tiles(args, dev)
+    if args.position is None or args.window is None:
+        raise SystemExit("error: matrix mode needs -i, -p and -w")
+    whole = np.loadtxt(args.input)
+    if whole.ndim == 1:
+        whole = whole[None, :]
+    whole = (whole != 0).astype(np.int8)
+    total_sites = whole.shape[1]
+    test_snp = args.position - 1
+    wsize = args.window
+
+    starts = list(range(0, total_sites, wsize))
+    keep = [(wi, cs) for wi, cs in enumerate(starts)
+            if min(cs + wsize, total_sites) - cs > test_snp]
+    out = _out_stream(args.output)
+    try:
+        if keep:
+            area, carriers = _ehh_areas(
+                [(whole[:, cs:cs + wsize], test_snp) for _, cs in keep],
+                bool(args.compat_ehhgfa), dev)
+            for row, (wi, cs) in enumerate(keep):
+                ce = min(cs + wsize, total_sites)
+                ref_allele = int(whole[args.refpos - 1, cs + test_snp])
+                for ai, al in enumerate((0, 1)):
+                    if carriers[row, ai] == 0:
+                        continue  # allele absent at the focal site
+                    typeal = "REF" if al == ref_allele else "ALT"
+                    print(wi + 1, cs, ce, al, typeal,
+                          float(area[row, ai]), file=out, flush=True)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA), cuda:K or "
@@ -1322,6 +1609,61 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", "--length", type=int)
     _add_device(p)
     p.set_defaults(func=cmd_panels_tajd)
+
+    p = sub.add_parser("sfs", help="site-frequency spectrum from allele "
+                                   "tiles (per-panel, genome-wide merge)")
+    p.add_argument("-b", "--bed", required=True)
+    p.add_argument("--geno-dir")
+    p.add_argument("--gfa-dir")
+    p.add_argument("--paf")
+    p.add_argument("--fasta")
+    p.add_argument("--agc")
+    p.add_argument("--agc-bin", default="agc")
+    p.add_argument("--panel", action="append", default=[],
+                   help="panel list file (repeatable); default: all rows")
+    p.add_argument("-P", "--prefix", default="CHM13#0#")
+    p.add_argument("-o", "--output")
+    p.add_argument("--unfolded", action="store_true",
+                   help="derived-allele spectrum (default: folded minor)")
+    p.add_argument("--max-n", type=int, default=None,
+                   help="histogram bins (default: haplotype capacity)")
+    p.add_argument("--per-window",
+                   help="also write per-window spectra to this TSV")
+    _add_device(p)
+    p.set_defaults(func=cmd_sfs)
+
+    p = sub.add_parser("ehh", help="EHH decay around a focal SNP (ehhgfa)")
+    p.add_argument("-i", "--input",
+                   help="haplotype matrix file (whitespace, no header); "
+                        "omit to feed from allele tiles (--geno-dir or "
+                        "--paf) with -b + --focal")
+    p.add_argument("-p", "--position", type=int,
+                   help="1-based focal SNP position within the window "
+                        "(matrix mode)")
+    p.add_argument("-w", "--window", type=int,
+                   help="window width in sites (matrix mode)")
+    p.add_argument("--refpos", type=int, default=1,
+                   help="1-based reference haplotype row (matrix mode)")
+    p.add_argument("-b", "--bed", help="window BED (extraction mode)")
+    p.add_argument("-P", "--prefix", default="CHM13#0#")
+    p.add_argument("--geno-dir",
+                   help="directory of per-window allele tiles (.npz)")
+    p.add_argument("--paf")
+    p.add_argument("--fasta")
+    p.add_argument("--agc", help="AGC archive (one-time cached conversion)")
+    p.add_argument("--agc-bin", default="agc")
+    p.add_argument("--focal", type=int, action="append",
+                   help="genomic focal position (repeatable; extraction "
+                        "mode picks the window containing it and the "
+                        "nearest variant column)")
+    p.add_argument("-o", "--output")
+    p.add_argument("--compat-ehhgfa", action="store_true",
+                   help="reproduce wip/ehhgfa.py's use of the right half "
+                        "for both directions")
+    _add_device(p)
+    p.set_defaults(func=cmd_ehh)
+
+    hostcmds.add_parsers(sub)
     return ap
 
 

@@ -13,9 +13,10 @@
 //     rank > fi where xb differs (else n_act) and death_l the last rank
 //     < fi where it differs (else -1);
 //     steps = max(min(death_r, n_act) - fi - 1, 0) + max(fi - 1 - death_l, 0);
-//   - out: sums[w, a] = sum of steps over the carrier pairs of allele a
-//     (int64: C(N, 2) * S passes 2^24 at N = 512, S = 128), and the
-//     carrier counts carr[w, a].
+//   - out: sums[w, d, a] = sum over the carrier pairs of allele a of the
+//     steps of direction d (0: left, max(fi - 1 - death_l, 0); 1: right,
+//     the rest), int64 (C(N, 2) * S passes 2^24 at N = 512, S = 128), and
+//     the carrier counts carr[w, a].
 //
 // The TPU kernel decodes the death ranks from the f32 exponents of
 // bit-weighted bf16 Grams, because Mosaic has no bit scan; on Hopper the
@@ -40,10 +41,10 @@
 //      when 2 x 64 x nw words pass 48 KiB); a thread takes 4 x 4 pairs and
 //      finds death_r by __ffsll over the words above fi and death_l by
 //      __clzll below it, reading only as many words as it takes.  A
-//      thread sums its death ranks (32 bits) and turns them into steps in
-//      an int64; then a block sum and one 64-bit integer atomicAdd into
-//      sums[w, a] (the wrapper zeroes sums; integer sums are the same in
-//      any order).
+//      thread sums its death ranks (32 bits) and turns them into steps of
+//      each direction in an int64; then a block sum of each and one
+//      64-bit integer atomicAdd each into sums[w, d, a] (the wrapper
+//      zeroes sums; integer sums are the same in any order).
 //
 // What bounds it on this card: P2's pair walks (C(n_0, 2) + C(n_1, 2) per
 // window, a few shared-memory loads and bit scans each); P1 reads the
@@ -81,7 +82,7 @@ struct EhhParams {
   unsigned long long* xc;    // [W, N, ceil(S/64)] alt bits by rank
   int32_t* meta;             // [W, 2] fi, n_act
   int32_t* lists;            // [W, 2, N] carriers of each allele, ascending
-  unsigned long long* sums;  // [W, 2] zeroed
+  unsigned long long* sums;  // [W, 2 directions, 2 alleles] zeroed
   int32_t* carr;             // [W, 2]
 };
 
@@ -251,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) ehh_pack_kernel(EhhParams p) {
 __global__ void __launch_bounds__(kThreads) ehh_pairs_kernel(EhhParams p, int staged) {
   extern __shared__ unsigned long long swords[];   // [2, kTile, nwp] when staged
   __shared__ int s_rows[2][kTile];
-  __shared__ unsigned long long s_part[kWarps];
+  __shared__ unsigned long long s_part[2][kWarps];   // [left, right]
   const int w = blockIdx.x, N = p.n, SW64 = (p.s + 63) / 64;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int py = tid / 16, qx = tid % 16;
@@ -345,8 +346,8 @@ __global__ void __launch_bounds__(kThreads) ehh_pairs_kernel(EhhParams p, int st
         }
       }
     }
-    long long steps = static_cast<long long>(dsum) - static_cast<long long>(dcnt) * (fi + 1) +
-                      static_cast<long long>(__popc(pend)) * right_rest;   // death_r = n_act
+    const long long steps_r = static_cast<long long>(dsum) - static_cast<long long>(dcnt) * (fi + 1) +
+                              static_cast<long long>(__popc(pend)) * right_rest;   // death_r = n_act
     // left of the focal: ranks 0 .. fi - 1; a death at rank d adds
     // fi - 1 - d >= 0
     dsum = 0;
@@ -370,18 +371,21 @@ __global__ void __launch_bounds__(kThreads) ehh_pairs_kernel(EhhParams p, int st
         }
       }
     }
-    steps += static_cast<long long>(dcnt) * (fi - 1) - dsum +
-             static_cast<long long>(__popc(pend)) * fi;   // death_l = -1
-    unsigned long long acc = static_cast<unsigned long long>(steps);
+    const long long steps_l = static_cast<long long>(dcnt) * (fi - 1) - dsum +
+                              static_cast<long long>(__popc(pend)) * fi;   // death_l = -1
 
-    acc = warp_sum_u64(acc);
-    if (lane == 0) s_part[warp] = acc;
+    const unsigned long long acc_l = warp_sum_u64(static_cast<unsigned long long>(steps_l));
+    const unsigned long long acc_r = warp_sum_u64(static_cast<unsigned long long>(steps_r));
+    if (lane == 0) {
+      s_part[0][warp] = acc_l;
+      s_part[1][warp] = acc_r;
+    }
     __syncthreads();
-    if (tid == 0) {
+    if (tid < 2) {   // thread d adds direction d
       unsigned long long tot = 0ull;
 #pragma unroll
-      for (int v = 0; v < kWarps; ++v) tot += s_part[v];
-      if (tot) atomicAdd(&p.sums[2 * w + a], tot);
+      for (int v = 0; v < kWarps; ++v) tot += s_part[tid][v];
+      if (tot) atomicAdd(&p.sums[(2 * w + tid) * 2 + a], tot);
     }
   }
 }

@@ -8,6 +8,7 @@ similarity-matrix sequence identifiers like
 """
 from __future__ import annotations
 
+import bisect
 import os
 from typing import Iterable, List, Sequence, Set, Tuple, Union
 
@@ -56,19 +57,22 @@ def expand_population(
     """Expand panel identifiers to concrete sequence names.
 
     Returns (matched sequence names, panel identifiers with no match),
-    mirroring reference h-fst.py:64-82.
+    mirroring reference h-fst.py:64-82.  The names that start with a
+    prefix are one run of the sorted names, found by binary search.
     """
-    all_seqs = list(all_sequences)
+    ranked = sorted(all_sequences)
     expanded: Set[str] = set()
     missing: List[str] = []
     for raw_id in raw_ids:
         prefix = canonicalize_identifier(raw_id)
         if not prefix:
             continue
-        matches = {seq for seq in all_seqs if seq.startswith(prefix)}
-        if matches:
-            expanded.update(matches)
-        else:
+        k = bisect.bisect_left(ranked, prefix)
+        hit = k
+        while hit < len(ranked) and ranked[hit].startswith(prefix):
+            expanded.add(ranked[hit])
+            hit += 1
+        if hit == k:
             missing.append(raw_id)
     return expanded, missing
 

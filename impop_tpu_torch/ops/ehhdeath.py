@@ -11,9 +11,10 @@ pair i < j of carriers of one allele the step count is
     max(min(first differing rank > fi, n_act) - fi - 1, 0)
       + max(fi - 1 - last differing rank < fi (else -1), 0)
 
-and the outputs are the step sums per allele, ``[..., 2]`` int64 (C(N, 2)
-* S passes 2^24 at N = 512, S = 128, so no float accumulator is exact),
-and the carrier counts, ``[..., 2]`` int32.
+and the outputs are the step sums per direction (left: the second term,
+right: the first) and allele, ``[..., 2, 2]`` int64 (C(N, 2) * S passes
+2^24 at N = 512, S = 128, so no float accumulator is exact), and the
+carrier counts, ``[..., 2]`` int32.
 
 - :func:`ehh_area_plain`: the same sums by a scan over ranks that carries
   each pair's "still identical" flag, in int64.
@@ -22,8 +23,8 @@ and the carrier counts, ``[..., 2]`` int32.
   rows per block: rows rank-compacted into 64-bit words, the carrier list
   of each allele in ascending row order) and ``ehh_pairs_kernel`` (64 x 64
   tiles of one allele's list, so only same-allele pairs are walked; death
-  ranks by bit scans over words staged in shared memory, int64 sums by
-  integer atomics).  The pair walks bound it; see the source.
+  ranks by bit scans over words staged in shared memory, both directions
+  in one walk, int64 sums by integer atomics).  The pair walks bound it; see the source.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ __all__ = ["ehh_area", "ehh_area_plain"]
 def ehh_area_plain(geno: torch.Tensor, member: torch.Tensor,
                    site_mask: torch.Tensor, focal: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sums [..., 2] int64, carriers [..., 2] int32), any device."""
+    """(sums [..., 2, 2] int64, carriers [..., 2] int32), any device."""
     lead = geno.shape[:-2]
     n, s = geno.shape[-2:]
     dev = geno.device
@@ -68,8 +69,8 @@ def ehh_area_plain(geno: torch.Tensor, member: torch.Tensor,
             & upper)
     carr_i = carriers.to(torch.int64)
 
-    sums = torch.zeros((w, 2), dtype=torch.int64, device=dev)
-    for sign in (1, -1):
+    sums = torch.zeros((w, 2, 2), dtype=torch.int64, device=dev)
+    for d, sign in enumerate((-1, 1)):
         # right: ranks fi+1 .. n_act-1; left: ranks fi-1 .. 0
         alive = same.clone()
         for t in range(1, s + 1):
@@ -81,8 +82,8 @@ def ehh_area_plain(geno: torch.Tensor, member: torch.Tensor,
             x = torch.gather(xc, -1, idx)[..., 0]                # [W, N]
             alive &= x[:, :, None] == x[:, None, :]
             per_row = (alive & ok[:, None, None]).sum(-1, dtype=torch.int64)
-            sums += (carr_i * per_row[:, None, :]).sum(-1)
-    return sums.reshape(*lead, 2), carr.reshape(*lead, 2)
+            sums[:, d] += (carr_i * per_row[:, None, :]).sum(-1)
+    return sums.reshape(*lead, 2, 2), carr.reshape(*lead, 2)
 
 
 def _ehh_area_cuda(geno, member, site_mask, focal):
@@ -108,7 +109,7 @@ def _ehh_area_cuda(geno, member, site_mask, focal):
     smk = u8_mask(site_mask, "ehh_area", "site_mask", lead + (s,))
     foc = focal.to(torch.int32).contiguous()
     genc = geno.contiguous()
-    sums = torch.zeros((w, 2), dtype=torch.int64, device=dev)  # atomics
+    sums = torch.zeros((w, 2, 2), dtype=torch.int64, device=dev)  # atomics
     carr = torch.empty((w, 2), dtype=torch.int32, device=dev)
     if w > 0:
         xc = torch.empty((w, n, (s + 63) // 64), dtype=torch.int64,
@@ -124,7 +125,7 @@ def _ehh_area_cuda(geno, member, site_mask, focal):
                                  carr.data_ptr(), stream)
         check(lib, err, "ehh_pack_kernel / ehh_pairs_kernel")
         ehh_area.launches += 1
-    return sums.reshape(*lead, 2), carr.reshape(*lead, 2)
+    return sums.reshape(*lead, 2, 2), carr.reshape(*lead, 2)
 
 
 def ehh_area(geno: torch.Tensor, member: torch.Tensor,
@@ -136,7 +137,8 @@ def ehh_area(geno: torch.Tensor, member: torch.Tensor,
       geno:      [..., N, S] int8 calls (1 alt; anything else is allele 0)
       member:    [..., N] bool;  site_mask: [..., S] bool
       focal:     [...] int focal column (raw, uncompacted index)
-    Returns (sums [..., 2] int64, carriers [..., 2] int32), alleles (0, 1).
+    Returns (sums [..., 2, 2] int64 indexed [direction (left, right),
+    allele], carriers [..., 2] int32), alleles (0, 1).
     """
     if geno.device.type == "cpu":
         return ehh_area_plain(geno, member, site_mask, focal)

@@ -1,5 +1,5 @@
-"""Output tables (the port's copy of ``impop_tpu/report/tables.py``; the
-trend plots are not ported yet)."""
+"""Output tables (the port's copy of ``impop_tpu/report/tables.py``); the
+trend plots are ``impop_tpu_torch.report.plots``, imported on use."""
 from impop_tpu_torch.report.tables import (
     format_pica_output,
     pi_table_header,

@@ -126,19 +126,21 @@ def test_ehh_area_plain_matches_pallas_interpret(where):
             jnp.asarray(xc), jnp.asarray(carr_f),
             jnp.float32(int(sm[:focal].sum())), jnp.float32(n_act)))
     # integer sums below 2^24: exact in the kernel's float32
-    np.testing.assert_array_equal(sums.numpy().astype(np.float32), want)
+    np.testing.assert_array_equal(
+        sums.sum(-2).numpy().astype(np.float32), want)
     np.testing.assert_array_equal(carr.numpy(), carr_f.sum(1))
 
 
 def oracle_sums(geno, member, smask, focal):
     """int64 numpy oracle: per pair, the first / last differing compacted
-    site around the focal rank."""
+    site around the focal rank.  Returns (sums [2 directions (left,
+    right), 2 alleles], carriers [2])."""
     xb = (geno == 1)[:, smask]
     n_act = xb.shape[1]
     fi = int(smask[:max(focal, 0)].sum())
     call = geno[:, focal] == 1 if 0 <= focal < geno.shape[1] else \
         np.zeros(geno.shape[0], bool)
-    sums = np.zeros(2, np.int64)
+    sums = np.zeros((2, 2), np.int64)
     carr = np.zeros(2, np.int64)
     for a in (0, 1):
         rows = np.nonzero(member & (call == bool(a)))[0]
@@ -151,9 +153,8 @@ def oracle_sums(geno, member, smask, focal):
         first = np.where(right.any(-1), right.argmax(-1) + fi + 1, n_act)
         left = np.concatenate([stop, d[:, :, :fi]], axis=-1)[:, :, ::-1]
         last = np.where(left.any(-1), fi - 1 - left.argmax(-1), -1)
-        steps = (np.maximum(first - fi - 1, 0)
-                 + np.maximum(fi - 1 - last, 0)).astype(np.int64)
-        sums[a] = np.triu(steps, 1).sum()
+        sums[0, a] = np.triu(np.maximum(fi - 1 - last, 0), 1).sum()
+        sums[1, a] = np.triu(np.maximum(first - fi - 1, 0), 1).sum()
     return sums, carr
 
 
@@ -219,10 +220,11 @@ def emulate_ehh_kernel(geno, member, smask, focal, tile=64):
     list positions on or above the diagonal of each allele's list and
     finds each pair's death ranks word by word: the first nonzero XOR
     word above fi (lowest bit) and the last below fi (highest bit).
-    Returns (sums [W, 2] int64, carriers [W, 2] int64)."""
+    Returns (sums [W, 2 directions (left, right), 2 alleles] int64,
+    carriers [W, 2] int64)."""
     w_count, n, s = geno.shape
     sw = -(-s // 32)
-    sums = np.zeros((w_count, 2), np.int64)
+    sums = np.zeros((w_count, 2, 2), np.int64)
     carr = np.zeros((w_count, 2), np.int64)
     for w in range(w_count):
         g, sm, f = geno[w], smask[w], int(focal[w])
@@ -301,9 +303,10 @@ def emulate_ehh_kernel(geno, member, smask, focal, tile=64):
                     death_l = np.where(hit_l.any(-1),
                                        64 * kl + _high_bit(wl | (wl == 0)),
                                        -1)
-                    steps = (np.maximum(np.minimum(death_r, n_act) - fi - 1, 0)
-                             + np.maximum(fi - 1 - death_l, 0))
-                    sums[w, a] += int(steps[valid].sum())
+                    right = np.maximum(np.minimum(death_r, n_act) - fi - 1, 0)
+                    left = np.maximum(fi - 1 - death_l, 0)
+                    sums[w, 0, a] += int(left[valid].sum())
+                    sums[w, 1, a] += int(right[valid].sum())
     return sums, carr
 
 
@@ -337,11 +340,13 @@ def test_ehh_kernel_emulation_matches_plain_and_jax():
     np.testing.assert_array_equal(sums, want_s.numpy())
     np.testing.assert_array_equal(carr, want_c.numpy())
     assert carr[4, 1] == 0 and carr[5, 0] == 0 and sums[3].sum() == 0
-    assert (sums[[0, 1, 2]] > 0).all()
+    assert (sums[[0, 1, 2]].sum(1) > 0).all()
+    # focal on the first / last active site: no left / right steps
+    assert (sums[0, 0] == 0).all() and (sums[1, 1] == 0).all()
     a_j, c_j = jax_areas((geno == 1).astype(np.int8), member, smask, focal)
     np.testing.assert_array_equal(carr, c_j)
     denom = np.maximum(carr * (carr - 1) / 2, 1).astype(np.float32)
-    np.testing.assert_allclose(sums.astype(np.float32) / denom, a_j,
+    np.testing.assert_allclose(sums.sum(1).astype(np.float32) / denom, a_j,
                                rtol=1e-6, atol=0)
 
 
@@ -368,13 +373,13 @@ def test_ehh_kernel_emulation_matches_pallas_interpret(where):
             jnp.asarray(xc), jnp.asarray(carr_f),
             jnp.float32(int(sm[:focal].sum())), jnp.float32(n_act)))
     assert carr.min() > 64          # each list spans more than one tile
-    np.testing.assert_array_equal(sums[0].astype(np.float32), want)
+    np.testing.assert_array_equal(sums[0].sum(0).astype(np.float32), want)
     np.testing.assert_array_equal(carr[0], carr_f.sum(1))
 
 
 def test_ehh_kernel_emulation_int64_past_2_24():
-    """Long identical runs past 2^24 in one sum: the kernel's algorithm
-    equals the int64 oracle."""
+    """Long identical runs past 2^24 in one sum (the left one: the focal
+    sits far right): the kernel's algorithm equals the int64 oracle."""
     rng = np.random.default_rng(13)
     n, s = 192, 2048
     base = rng.integers(0, 2, size=s).astype(np.int8)
@@ -384,9 +389,9 @@ def test_ehh_kernel_emulation_int64_past_2_24():
     member[0, 100:104] = False
     smask = np.ones((1, s), bool)
     smask[0, 5::89] = False
-    focal = np.asarray([1200], np.int32)
+    focal = np.asarray([1600], np.int32)
     sums, carr = emulate_ehh_kernel(geno, member, smask, focal)
-    want_s, want_c = oracle_sums(geno[0], member[0], smask[0], 1200)
+    want_s, want_c = oracle_sums(geno[0], member[0], smask[0], 1600)
     assert int(sums.max()) > 1 << 24
     np.testing.assert_array_equal(sums[0], want_s)
     np.testing.assert_array_equal(carr[0], want_c)

@@ -490,3 +490,123 @@ def test_route_above_the_window_kernel_cap(cuda_device):
                                    atol=1e-9)
         diff = torch.nan_to_num((res_g.fst - res_w.fst).abs(), nan=0.0)
         assert float(diff.max()) <= 2e-3
+
+
+def ehh_batch_inputs(seed, w, n, s, masked_tail):
+    """Binarised windows of a few haplotype classes; with ``masked_tail``
+    each window's last columns inactive (a ragged window padded)."""
+    rng = np.random.default_rng(seed)
+    geno = np.zeros((w, n, s), np.int8)
+    for wi in range(w):
+        base = rng.integers(0, 2, size=(4, s)).astype(np.int8)
+        g = base[rng.integers(0, 4, size=n)]
+        geno[wi] = np.where(rng.random((n, s)) < 0.01, 1 - g, g)
+    member = np.ones((w, n), bool)
+    member[:, n - n // 8:] = False
+    smask = np.ones((w, s), bool)
+    if masked_tail:
+        for wi in range(w):
+            smask[wi, s - 1 - wi % max(s // 2, 1):] = False
+    focal = np.asarray([(0, s // 3, s // 2, s - 1)[wi % 4] for wi in range(w)])
+    if masked_tail:
+        focal = np.minimum(focal, smask.sum(1) - 1)
+    return geno, member, smask, focal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,s,masked_tail", [
+    (9, 12, 500, False), (6, 466, 500, False), (2, 1024, 300, False),
+    (8, 466, 500, True), (5, 12, 1, False)])
+@pytest.mark.parametrize("compat", [False, True])
+def test_ehh_area_batch_on_card_matches_plain(cuda_device, monkeypatch, w,
+                                              n, s, masked_tail, compat):
+    """``stats/ehh.ehh_area_batch`` on CUDA tensors launches the EHH
+    kernel once and never its plain version, and equals the same call on
+    CPU tensors (the plain version): carriers exact, areas rtol 1e-6.
+    N = 12 is under one 32-row pack block; the compat tile [R | focal | R]
+    with the focal on the last site is the focal alone (S = 1)."""
+    import impop_tpu_torch.ops.ehhdeath as ehhdeath
+    from impop_tpu_torch.stats.ehh import ehh_area_batch
+
+    arrays = ehh_batch_inputs(61, w, n, s, masked_tail)
+    want = ehh_area_batch(*(torch.from_numpy(a) for a in arrays),
+                          compat_right_for_left=compat)
+
+    def no_plain(*_):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(ehhdeath, "ehh_area_plain", no_plain)
+    before = ehh_area.launches
+    got = ehh_area_batch(*(torch.from_numpy(a).to(cuda_device)
+                           for a in arrays), compat_right_for_left=compat)
+    torch.cuda.synchronize()
+    assert ehh_area.launches == before + 1
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=0)
+    assert bool((want[0] > 0).any()) or s == 1
+
+
+@pytest.mark.gpu
+def test_ehh_and_sfs_commands_on_card_match_cpu(cuda_device, tmp_path):
+    """``ehh`` (matrix mode with a ragged tail, both modes, and extraction
+    mode at two focals) and ``sfs`` (with two panels, folded and
+    unfolded, ``--per-window``) with ``--device cuda`` write the files of
+    ``--device cpu``."""
+    from impop_tpu_torch.cli import main
+    from impop_tpu_torch.extract import NativeExtractor
+    from impop_tpu_torch.hostio import simulate
+
+    rng = np.random.default_rng(62)
+    mat = tmp_path / "m.txt"
+    np.savetxt(mat, rng.integers(0, 2, size=(40, 1234)), fmt="%d")
+    sim = simulate(str(tmp_path), ref_len=6000, n_haps=20, seed=63,
+                   site_pool=60, span=(0, 6000))
+    bed = tmp_path / "w.bed"
+    bed.write_text("chr1\t0\t2000\nchr1\t2000\t4000\nchr1\t4000\t6000\n")
+    tiles = tmp_path / "tiles"
+    tiles.mkdir()
+    ex = NativeExtractor(sim.paf_path, sim.fasta_path)
+    focals = []
+    for lo in (0, 2000, 4000):
+        wm = ex.extract(sim.ref_name, lo, lo + 2000)
+        np.savez(tiles / f"CHM13#0#chr1:{lo}-{lo + 2000}.npz",
+                 geno=wm.geno, names=np.asarray(wm.names),
+                 site_keys=np.asarray(wm.site_keys))
+        focals += ["--focal", str(int(wm.site_pos[len(wm.site_pos) // 2]))]
+    names = sorted({"{}_hap{}".format(*str(n).split("#")[:2])
+                    for n in wm.names if not str(n).startswith("CHM13")})
+    (tmp_path / "pA").write_text("\n".join(names[:12]) + "\n")
+    (tmp_path / "pB").write_text("\n".join(names[8:]) + "\n")
+    runs = {
+        "ehh": ["ehh", "-i", str(mat), "-p", "30", "-w", "100"],
+        "ehh_compat": ["ehh", "-i", str(mat), "-p", "30", "-w", "100",
+                       "--compat-ehhgfa"],
+        "ehh_tiles": ["ehh", "--geno-dir", str(tiles), "-b", str(bed),
+                      "-P", "CHM13#0#", *focals],
+        "sfs": ["sfs", "-b", str(bed), "--geno-dir", str(tiles), "-P",
+                "CHM13#0#", "--panel", str(tmp_path / "pA"), "--panel",
+                str(tmp_path / "pB")],
+        "sfs_unfolded": ["sfs", "-b", str(bed), "--geno-dir", str(tiles),
+                         "-P", "CHM13#0#", "--unfolded"],
+    }
+    for tag, argv in runs.items():
+        texts = []
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{tag}.{dev}"
+            extra = (["--per-window", f"{out}.pw"] if tag.startswith("sfs")
+                     else [])
+            before = ehh_area.launches
+            assert main(argv + ["-o", str(out), "--device", dev, *extra]) == 0
+            if dev == "cuda" and tag.startswith("ehh"):
+                assert ehh_area.launches > before
+            texts.append(out.read_text()
+                         + (open(f"{out}.pw").read() if extra else ""))
+        assert len(texts[1].splitlines()) > 2, tag
+        if tag.startswith("sfs"):
+            assert texts[0] == texts[1], tag
+            continue
+        rows = [[ln.split() for ln in t.splitlines()] for t in texts]
+        assert [r[:-1] for r in rows[0]] == [r[:-1] for r in rows[1]], tag
+        np.testing.assert_allclose([float(r[-1]) for r in rows[0]],
+                                   [float(r[-1]) for r in rows[1]],
+                                   rtol=1e-6, atol=0)

@@ -2,7 +2,8 @@
 every module of impop_tpu_torch in a fresh interpreter, and running a tiny
 ``scan`` and ``tajd`` through ``python -m impop_tpu_torch.cli`` on the CPU,
 must leave ``jax`` and every ``impop_tpu`` / ``impop_tpu.*`` module out of
-``sys.modules`` (the machine with the card has no JAX at all).  Also: the
+``sys.modules`` (the machine with the card has no JAX at all); so must
+``ehh`` (matrix and extraction mode), ``sfs`` and ``makewindows``.  Also: the
 device helper never moves to the CPU by itself, and nothing builds a kernel
 at import time."""
 from __future__ import annotations
@@ -17,13 +18,15 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "impop_tpu_torch", "impop_tpu_torch.cli", "impop_tpu_torch.device",
-    "impop_tpu_torch.hostio", "impop_tpu_torch.scanstep",
+    "impop_tpu_torch.hostio", "impop_tpu_torch.hostcmds",
+    "impop_tpu_torch.scanstep",
     "impop_tpu_torch.io", "impop_tpu_torch.io.bed", "impop_tpu_torch.io.bgzf",
     "impop_tpu_torch.io.panels", "impop_tpu_torch.io.simtsv",
     "impop_tpu_torch.extract", "impop_tpu_torch.extract.agc",
     "impop_tpu_torch.extract.gfa", "impop_tpu_torch.extract.pyfallback",
     "impop_tpu_torch.extract.simulate", "impop_tpu_torch.report",
-    "impop_tpu_torch.report.tables", "impop_tpu_torch.bench",
+    "impop_tpu_torch.report.tables", "impop_tpu_torch.report.plots",
+    "impop_tpu_torch.bench",
     "impop_tpu_torch.bench.gram_breakdown",
     "impop_tpu_torch.ops._build", "impop_tpu_torch.ops.ehhdeath",
     "impop_tpu_torch.ops.idgroup", "impop_tpu_torch.ops.pairdiff",
@@ -58,15 +61,17 @@ def test_port_imports_without_jax():
             + "".join(f"import {m}\n" for m in MODULES)
             + "import impop_tpu_torch.ops._build as b\n"
             + "assert b._lib is None, 'kernel library loaded at import'\n"
+            + "assert 'matplotlib' not in sys.modules, 'matplotlib at import'\n"
             + FORBIDDEN)
     proc = _run_clean(code, REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_cli_runs_without_jax(tmp_path):
-    """``scan`` (native PAF + FASTA extraction) and ``tajd`` (allele
-    tiles), each as ``python -m impop_tpu_torch.cli ... --device cpu``,
-    with inputs made by the port's own simulator."""
+    """``scan`` (native PAF + FASTA extraction), ``tajd`` and ``sfs``
+    (allele tiles), ``ehh`` (a matrix, and PAF + FASTA at a focal) and
+    ``makewindows``, each as ``python -m impop_tpu_torch.cli ...
+    --device cpu``, with inputs made by the port's own simulator."""
     code = f"""import runpy, sys
 import numpy as np
 from impop_tpu_torch.hostio import simulate
@@ -84,12 +89,22 @@ for k in range(2):
     np.savez(tmp + f'/tiles/chr1:{{1500 * k}}-{{1500 * (k + 1)}}.npz',
              geno=rng.integers(-1, 2, (9, 40)).astype(np.int8),
              names=np.array([f'HG{{j:05d}}#1#c' for j in range(9)]))
+np.savetxt(tmp + '/m.txt', rng.integers(0, 2, (8, 35)), fmt='%d')
 runs = [
     ['scan', '-b', tmp + '/w.bed', '--paf', sim.paf_path, '--fasta',
      sim.fasta_path, '-P', 'CHM13#0#', '--panel', tmp + '/agc.A',
      '--panel', tmp + '/agc.B', '-o', tmp + '/scan.tsv', '--device', 'cpu'],
     ['tajd', '-b', tmp + '/w.bed', '-P', '', '--geno-dir', tmp + '/tiles',
      '-o', tmp + '/tajd.tsv', '--device', 'cpu'],
+    ['sfs', '-b', tmp + '/w.bed', '-P', '', '--geno-dir', tmp + '/tiles',
+     '-o', tmp + '/sfs.tsv', '--device', 'cpu'],
+    ['ehh', '-i', tmp + '/m.txt', '-p', '3', '-w', '10', '-o',
+     tmp + '/ehh.tsv', '--device', 'cpu'],
+    ['ehh', '--paf', sim.paf_path, '--fasta', sim.fasta_path, '-b',
+     tmp + '/w.bed', '-P', 'CHM13#0#', '--focal', '700', '--focal', '2200',
+     '-o', tmp + '/ehhx.tsv', '--device', 'cpu'],
+    ['makewindows', '--region', 'chr1:0:3000', '-w', '1000', '-o',
+     tmp + '/mw.bed'],
 ]
 for argv in runs:
     sys.argv = ['impop_tpu_torch.cli'] + argv
@@ -97,9 +112,12 @@ for argv in runs:
         runpy.run_module('impop_tpu_torch.cli', run_name='__main__')
     except SystemExit as e:
         assert not e.code, (argv[0], e.code)
-for name in ('scan.tsv', 'tajd.tsv'):
+for name in ('scan.tsv', 'tajd.tsv', 'mw.bed'):
     rows = open(tmp + '/' + name).read().splitlines()
     assert len(rows) == 3, (name, rows)
+for name, least in (('sfs.tsv', 2), ('ehh.tsv', 6), ('ehhx.tsv', 2)):
+    rows = open(tmp + '/' + name).read().splitlines()
+    assert len(rows) >= least, (name, rows)
 """ + FORBIDDEN
     proc = _run_clean(code, str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr

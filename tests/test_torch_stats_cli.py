@@ -374,5 +374,5 @@ def test_pair_shard_on_is_refused(inputs, method):
     argv = base("hud", inputs, "geno") + [
         "-m", method, "-A", str(inputs / "popA.txt"), "-B",
         str(inputs / "popB.txt"), "--pair-shard", "on", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="Queue 1 item 11"):
+    with pytest.raises(SystemExit, match="Queue 1, multi-GPU"):
         torch_main(argv)
