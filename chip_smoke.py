@@ -94,7 +94,25 @@ Phases (one line each; any failure exits non-zero):
      of 7 windows; ``spectrum --no-plots`` and ``makewindows``; then
      ``ehh_area`` timed at the matrix run's batch shape
 
-Each main path (3-4, 5, 6, 7, 8, A1, 9, B1) starts with every kernel
+  C1 the multi-device and multi-host paths on the one card: the scan's
+     first 320 windows as one device batch (plain, then ``--identity-mode
+     columns --ehh --afs``) through ``scan``, and the batch the command
+     stepped again on [cuda:0] x 2 and x 4 (``scanstep.scan_step_over``)
+     against one ``scan_step`` (integers exact, pi/D/EHH rtol 1e-5, Fst
+     atol 2e-3; bitwise equality reported), once under the sync debug
+     mode "error", timed at 1, 2 and 4 entries; the exact FSTG recompute
+     (``scanstep.scan_step_fstg_exact_over``) on [cuda:0] x 4 for
+     windows in every shard against the whole batch's, its identity
+     kernel launched by the split call; ``scan --distributed
+     --afs`` in two processes on the card (gloo, ranks 0 and 1, one GPU
+     each) merged by ``merge-parts`` / ``--sum`` against the tables of
+     phases 3 and 5; ``pair_sharded_direct_stats`` on [cuda:0] x 4 at N =
+     2048, S = 128, Q = 10 against the replicated [2048, 2048] identity,
+     and ``hfst --pair-shard on`` against ``off`` on 1200-row tiles;
+     ``site_sharded_window_stats`` on a (2, 2) grid against (1, 1) at
+     [512, 8192] x 8; ``parallel.dryrun.dryrun_multidevice(8, cuda:0)``
+
+Each main path (3-4, 5, 6, 7, 8, A1, 9, B1, C1) starts with every kernel
 launch count at 0 and fails unless each kernel of that path was launched
 during it.
 
@@ -1848,6 +1866,353 @@ def time_ehh_batch(dev, step, smi):
             f"{b_ms_min:.4f} ms ({by}) [{smi}]")
 
 
+# ------------------------------------------------------------------ C1
+
+C1_WINDOWS = 320              # one packed scan batch
+PAIR_N, PAIR_S, PAIR_Q = 2048, 128, 10
+PAIR_CLI_ROWS = 1200          # above --pair-shard auto's 1024
+LONG_W, LONG_S = 8, 8192
+
+
+def compare_scan_rows(got, want, lay, tag) -> bool:
+    """Packed scan rows: S, n, seed_risk, EHH carriers and AFS bins equal;
+    π, D and EHH areas rtol 1e-5; Fst columns atol 2e-3; NaN at the same
+    places.  Returns whether the rows are bitwise equal."""
+    import numpy as np
+
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    if g.shape != w.shape:
+        raise SmokeError(f"{tag}: rows {g.shape} vs {w.shape}")
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise SmokeError(f"{tag}: NaN at other places")
+    e, a = lay["ehh"], lay["afs"]
+    exact = [lay["s"], lay["n"], lay["risk"], *range(e + 2, a),
+             *range(a, g.shape[1])]
+    rel = [*range(lay["pi"], lay["fst"]), *range(e, min(e + 2, a))]
+    fst = list(range(lay["fst"], lay["s"]))
+    ok = np.isfinite(w)
+    checks = (
+        ("integer columns", np.array_equal(g[:, exact], w[:, exact])),
+        ("pi / D / EHH areas", np.allclose(g[:, rel][ok[:, rel]],
+                                           w[:, rel][ok[:, rel]],
+                                           rtol=1e-5, atol=1e-6)),
+        ("Fst", np.allclose(g[:, fst][ok[:, fst]], w[:, fst][ok[:, fst]],
+                            rtol=0.0, atol=2e-3)))
+    for what, good in checks:
+        if not good:
+            raise SmokeError(f"{tag}: {what} differ")
+    return bool(np.array_equal(np.nan_to_num(g, nan=7.0),
+                               np.nan_to_num(w, nan=7.0)))
+
+
+def c1_split_scan(dev, tmp, pg, step):
+    """``scan`` over the first 320 windows as one device batch (plain,
+    then ``--identity-mode columns --ehh --afs``); the batch the command
+    handed to ``scan_step_over`` again on [cuda:0] x 2 and x 4 against one
+    ``scan_step``, and once under the sync debug mode "error"; then the
+    exact FSTG recompute (``scan_step_fstg_exact_over``) on [cuda:0] x 4
+    for windows in every shard against ``scan_step_fstg_exact`` on the
+    whole batch, its identity kernel counted over the split call alone.
+    ``step`` receives the batches for :func:`time_multidevice`."""
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch import scanstep
+    from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
+                                              pairwise_identity_weighted)
+
+    bed = os.path.join(tmp, "c1.bed")
+    write_bed(bed, [(lo, lo + WIN_BP)
+                    for lo in range(0, C1_WINDOWS * WIN_BP, WIN_BP)])
+    base = list(pg["base"])
+    base[2] = bed
+    real = scanstep.scan_step_over
+    for tag, flags in (("plain", []),
+                       ("columns --ehh --afs",
+                        ["--identity-mode", "columns", "--ehh", "--afs",
+                         os.path.join(tmp, "c1.afs")])):
+        seen = []
+
+        def record(shards, *args, **kwargs):
+            seen.append((shards, args, kwargs))
+            return real(shards, *args, **kwargs)
+
+        scanstep.scan_step_over = record
+        try:
+            t0 = time.perf_counter()
+            run_scan(base + flags + ["--batch", str(C1_WINDOWS), "-o",
+                                     os.path.join(tmp, "c1.tsv"),
+                                     "--device", dev.type], f"C1 scan {tag}")
+            wall = time.perf_counter() - t0
+        finally:
+            scanstep.scan_step_over = real
+        if len(seen) != 1 or len(seen[0][0]) != 1:
+            raise SmokeError(f"C1 {tag}: the scan made {len(seen)} steps")
+        (flat,), args, kwargs = seen[0]
+        w = kwargs["n_rows"]
+        lay = scanstep.row_layout(args[2], len(args[3]), args[7])
+        one = scanstep.scan_step(flat, *args)
+        shards = {k: scanstep.shard_wire(flat, [flat.device] * k)
+                  for k in (1, 2, 4)}
+        same = []
+        for k in (2, 4):
+            got = scanstep.scan_step_over(shards[k], *args, n_rows=w)
+            same.append(compare_scan_rows(got, one, lay,
+                                          f"C1 {tag} x {k}"))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scanstep.scan_step_over(shards[4], *args, n_rows=w)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rows = [0, w // 4 - 1, w // 4, w // 2 + 1, 3 * w // 4 + 2, w - 1]
+        kw = dict(use_weights=args[6], use_ehh=args[7])
+        want_x = scanstep.scan_step_fstg_exact(flat, *args[:5], rows=rows,
+                                               **kw)
+        ident = pairwise_identity_weighted if args[6] else pairwise_identity
+        before = ident.launches
+        got_x = scanstep.scan_step_fstg_exact_over(shards[4], *args[:5], rows,
+                                                   **kw)
+        ident_launches = ident.launches - before
+        if ident_launches == 0:
+            raise SmokeError(f"C1 {tag}: the split exact recompute launched "
+                             f"no {ident.__name__}")
+        gx, wx = got_x.cpu().numpy(), want_x.cpu().numpy()
+        if gx.shape != wx.shape or not np.array_equal(np.isnan(gx),
+                                                      np.isnan(wx)):
+            raise SmokeError(f"C1 {tag}: split exact FSTG {gx.shape} vs "
+                             f"{wx.shape} or NaN at other places")
+        if not np.allclose(np.nan_to_num(gx), np.nan_to_num(wx), rtol=0.0,
+                           atol=2e-3):
+            raise SmokeError(f"C1 {tag}: split exact FSTG differs")
+        same_x = np.array_equal(gx, wx, equal_nan=True)
+        step.setdefault("c1_scan", []).append((tag, shards, args, w))
+        say("C1", f"split scan {tag}: [{args[0]},{args[1]}]x{w}, "
+            f"{args[2]} panels / {len(args[3])} pairs (scan {wall:.2f} s "
+            f"wall); [cuda:0] x 2 and x 4 equal one scan_step (integers "
+            f"exact, pi/D/EHH rtol 1e-5, Fst atol 2e-3), bitwise "
+            f"{'yes' if all(same) else 'no'}; the sync debug mode found no "
+            "synchronising call in the split step; exact FSTG of windows "
+            f"{rows} on [cuda:0] x 4 equals the whole batch's (atol 2e-3, "
+            f"bitwise {'yes' if same_x else 'no'}), {ident.__name__} "
+            f"launched {ident_launches} times by the split call")
+
+
+def c1_distributed(tmp, pg):
+    """``scan --distributed --afs`` in two processes on the one card (two
+    one-GPU hosts of a gloo group), then ``merge-parts`` and ``merge-parts
+    --sum``: the table of phase 3 and the spectrum of phase 5."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out, afs = os.path.join(tmp, "dist.tsv"), os.path.join(tmp, "dist.afs")
+    argv = [sys.executable, "-m", "impop_tpu_torch.cli", *pg["base"],
+            "--afs", afs, "-o", out, "--batch", "64", "--device", "cuda",
+            "--distributed"]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="0", LOCAL_RANK="0",
+                   RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append((time.perf_counter(), subprocess.Popen(
+            argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    walls = []
+    try:
+        for t0, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            walls.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise SmokeError(f"C1 scan --distributed rank exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    run_cli(["merge-parts", out], "merge-parts")
+    run_cli(["merge-parts", afs, "--sum"], "merge-parts --sum")
+    header, rows = read_table(out)
+    header3, rows3 = read_table(os.path.join(tmp, "3.gpu.tsv"))
+    if header != header3:
+        raise SmokeError("C1 distributed: header differs from phase 3's")
+    compare_tables(header, rows, rows3, "C1 distributed vs phase 3")
+    same_file(afs, os.path.join(tmp, "5.gpu.afs"),
+              "C1 distributed: merged spectrum differs from phase 5's")
+    with open(out) as fa, open(os.path.join(tmp, "3.gpu.tsv")) as fb:
+        identical = fa.read() == fb.read()
+    say("C1", f"scan --distributed: 2 ranks x {pg['n_win'] // 2} windows "
+        f"on cuda:0, walls {walls[0]:.2f} / {walls[1]:.2f} s; merge-parts: "
+        f"the {len(rows)}-row table of phase 3 (integers exact, pi/D rtol "
+        f"1e-5, Fst atol 2e-3; text identical: "
+        f"{'yes' if identical else 'no'}), merge-parts --sum: the spectrum "
+        "file of phase 5, identical")
+
+
+def c1_pair_shard(dev, tmp, step):
+    """``pair_sharded_direct_stats`` on [cuda:0] x 4 at N = 2048 against
+    the replicated [N, N] identity, then ``hfst --pair-shard on`` against
+    ``off`` on 1200-row tiles."""
+    import numpy as np
+    import numpy.testing as npt
+    import torch
+
+    from impop_tpu_torch.hostio import _open_extractor, simulate
+    from impop_tpu_torch.parallel.mesh import make_mesh
+    from impop_tpu_torch.parallel.pairspace import pair_sharded_direct_stats
+    from impop_tpu_torch.stats.allele import (identity_from_alleles,
+                                              segregating_sites)
+    from impop_tpu_torch.stats.fst import hudson_fst_direct_pairs
+
+    rng = np.random.default_rng(23)
+    classes = rng.integers(0, 2, size=(12, PAIR_S)).astype(np.int8)
+    g = classes[rng.integers(0, 12, size=PAIR_N)]
+    g = np.where(rng.random(g.shape) < 0.002, 1 - g, g).astype(np.int8)
+    g[rng.random(g.shape) < 0.01] = -1
+    member = np.ones(PAIR_N, bool)
+    member[-40:] = False
+    smask = np.ones(PAIR_S, bool)
+    smask[-9:] = False
+    edges = np.linspace(0, PAIR_N - 40, 6).astype(int)
+    pairs = [(i, j) for i in range(5) for j in range(i + 1, 5)]
+    ma = np.zeros((PAIR_Q, PAIR_N), bool)
+    mb = np.zeros((PAIR_Q, PAIR_N), bool)
+    for q, (i, j) in enumerate(pairs):
+        ma[q, edges[i]:edges[i + 1]] = True
+        mb[q, edges[j]:edges[j + 1]] = True
+    t = [torch.from_numpy(a).to(dev) for a in (g, member, smask, ma, mb)]
+    fn = pair_sharded_direct_stats(make_mesh(data=4, devices=[dev] * 4))
+    got = fn(*t, float(WIN_BP))
+
+    def replicated():
+        sim, present = identity_from_alleles(t[0], t[1], t[2],
+                                             float(WIN_BP))
+        return hudson_fst_direct_pairs(sim, present, t[3], t[4])
+
+    ref = replicated()
+    try:
+        for k, f in enumerate(("pi_a", "pi_b", "dxy")):
+            npt.assert_allclose(got[k].cpu().numpy(),
+                                getattr(ref, f).cpu().numpy(), rtol=1e-5,
+                                atol=1e-7)
+        npt.assert_allclose(got[3].cpu().numpy(), ref.fst.cpu().numpy(),
+                            rtol=0, atol=2e-3)
+    except AssertionError as e:
+        raise SmokeError(f"C1 pair shard: {e}") from None
+    want_s = int(segregating_sites(t[0], t[1], t[2]))
+    if int(got[4]) != want_s:
+        raise SmokeError(f"C1 pair shard: S {int(got[4])} vs {want_s}")
+    step["c1_pair"] = (lambda: fn(*t, float(WIN_BP)), replicated)
+    say("C1", f"pair shard [cuda:0] x 4 at N = {PAIR_N}, S = {PAIR_S}, "
+        f"Q = {PAIR_Q}: pi/dxy rtol 1e-5, Fst atol 2e-3, S = {want_s} equal "
+        f"to the replicated [{PAIR_N}, {PAIR_N}] path")
+
+    sim_dir = os.path.join(tmp, "pairsim")
+    os.makedirs(sim_dir)
+    span = 4 * WIN_BP
+    sim = simulate(sim_dir, ref_len=span, n_haps=PAIR_CLI_ROWS - 1,
+                   site_pool=span // 60, seed=31, span=(0, span))
+    spans = [(lo, lo + WIN_BP) for lo in range(0, span, WIN_BP)]
+    tiles = os.path.join(sim_dir, "tiles")
+    wms = write_tiles(_open_extractor(sim.paf_path, sim.fasta_path), spans,
+                      tiles)
+    if wms[0].geno.shape[0] != PAIR_CLI_ROWS:
+        raise SmokeError(f"C1 pair shard: {wms[0].geno.shape[0]} rows")
+    bed = os.path.join(sim_dir, "w.bed")
+    write_bed(bed, spans)
+    samples = sorted({h.name.split("#")[0] for h in sim.haplotypes})
+    pop = {}
+    for name, part in (("A", samples[:150]), ("B", samples[150:300])):
+        pop[name] = os.path.join(sim_dir, f"pop{name}.txt")
+        with open(pop[name], "w") as fh:
+            fh.write("\n".join(part) + "\n")
+    walls = {}
+    for mode in ("on", "off"):
+        walls[mode] = run_cli(
+            ["hfst", "-b", bed, "--geno-dir", tiles, "-P", "CHM13#0#",
+             "-A", pop["A"], "-B", pop["B"], "--pair-shard", mode, "-o",
+             os.path.join(sim_dir, f"{mode}.tsv"), "--device", dev.type],
+            f"hfst --pair-shard {mode}")
+    rows = compare_stat_tables(os.path.join(sim_dir, "on.tsv"),
+                               os.path.join(sim_dir, "off.tsv"),
+                               "C1 hfst --pair-shard", rows=len(spans))
+    say("C1", f"hfst --pair-shard on vs off: {len(rows)} windows of "
+        f"{PAIR_CLI_ROWS} rows agree (pi/Dxy rtol 1e-5, Fst/Da atol 2e-3); "
+        f"walls {walls['on']:.2f} / {walls['off']:.2f} s")
+
+
+def c1_long_window(dev, step):
+    """``site_sharded_window_stats`` on a (2, 2) grid of cuda:0 against a
+    (1, 1) grid at [512, 8192] x 8."""
+    import numpy as np
+    import torch
+
+    from impop_tpu_torch.parallel.longwindow import site_sharded_window_stats
+    from impop_tpu_torch.parallel.mesh import make_mesh
+
+    arrays = long_batch(np.random.default_rng(29), LONG_W, cap_s=LONG_S)
+    t = to_dev(dev, *arrays)
+    grid = site_sharded_window_stats(make_mesh(2, 2, [dev] * 4), CAP_N)
+    one = site_sharded_window_stats(make_mesh(1, 1, [dev]), CAP_N)
+    (pi, s, d), (pi1, s1, d1) = grid(*t, THRESHOLD), one(*t, THRESHOLD)
+    if not torch.equal(s, s1):
+        raise SmokeError(f"C1 long window: S {s.tolist()} vs {s1.tolist()}")
+    if not torch.allclose(pi, pi1, rtol=1e-5, atol=1e-9):
+        raise SmokeError(f"C1 long window: pi {pi.tolist()} vs "
+                         f"{pi1.tolist()}")
+    if not torch.allclose(d.nan_to_num(9.0), d1.nan_to_num(9.0), rtol=0,
+                          atol=2e-3):
+        raise SmokeError(f"C1 long window: D {d.tolist()} vs {d1.tolist()}")
+    step["c1_long"] = (lambda: grid(*t, THRESHOLD),
+                       lambda: one(*t, THRESHOLD))
+    pi_same = "equal" if torch.equal(pi, pi1) else "rtol 1e-5"
+    say("C1", f"long window (2, 2) grid of cuda:0 at [{CAP_N}, {LONG_S}] x "
+        f"{LONG_W}: S equal, pi {pi_same}, D atol 2e-3 against (1, 1)")
+
+
+def phase_multidevice(dev, tmp, pg, step):
+    """C1: the multi-device and multi-host paths on the one card."""
+    from impop_tpu_torch.parallel.dryrun import dryrun_multidevice
+
+    t0 = time.perf_counter()
+    c1_split_scan(dev, tmp, pg, step)
+    c1_distributed(tmp, pg)
+    c1_pair_shard(dev, tmp, step)
+    c1_long_window(dev, step)
+    report = dryrun_multidevice(8, "cuda:0")
+    say("C1", "dryrun_multidevice(8, cuda:0) passed: largest differences "
+        + ", ".join(f"{k} {v}" for k, v in report.items())
+        + f"; C1 took {time.perf_counter() - t0:.1f} s")
+
+
+def time_multidevice(step, smi):
+    """C1's timings, outside the counted path: the split scan step at 1, 2
+    and 4 entries of cuda:0 (CUDA events, and the card's busy share of
+    one step by torch.profiler), the pair shard against the replicated
+    path, and the long window's (2, 2) grid against (1, 1)."""
+    from impop_tpu_torch import scanstep
+
+    for tag, shards, args, w in step["c1_scan"]:
+        fns = {k: (lambda sh=sh: scanstep.scan_step_over(sh, *args,
+                                                         n_rows=w))
+               for k, sh in shards.items()}
+        ms = {k: cuda_time_ms(fn, 10) for k, fn in fns.items()}
+        say("C1", f"split scan step {tag} [{args[0]},{args[1]}]x{w}: "
+            + ", ".join(f"x {k} {v:.4f} ms" for k, v in ms.items())
+            + f" (CUDA events; {smi}); x 1 by kernel: "
+            + profile_ops(fns[1], ms[1], top=4) + "; x 4 by kernel: "
+            + profile_ops(fns[4], ms[4], top=4))
+    pair, replicated = step["c1_pair"]
+    grid, one = step["c1_long"]
+    say("C1", f"pair shard [cuda:0] x 4 at N = {PAIR_N}: "
+        f"{cuda_time_ms(pair, 10):.4f} ms, replicated "
+        f"{cuda_time_ms(replicated, 10):.4f} ms; long window [{CAP_N}, "
+        f"{LONG_S}] x {LONG_W}: (2, 2) {cuda_time_ms(grid, 5):.4f} ms, "
+        f"(1, 1) {cuda_time_ms(one, 5):.4f} ms (CUDA events; {smi})")
+
+
 # ------------------------------------------------------------------ driver
 
 
@@ -1943,6 +2308,10 @@ def main() -> int:
              ("seed_peel", "masked_pair_sums")),
             ("B1", lambda: phase_ehh_sfs(dev, tmp, pg, step, smi),
              ("ehh_area",)),
+            ("C1", lambda: phase_multidevice(dev, tmp, pg, step),
+             ("window_stats", "seed_peel", "ehh_area",
+              "pairwise_identity_weighted", "masked_pair_sums",
+              "pairwise_identity")),
         ]
         for tag, run, needed in paths:
             for fn in kernels.values():
@@ -1959,6 +2328,7 @@ def main() -> int:
         time_tajd_step(dev, step)
         time_stats_step(dev, step)
         time_ehh_batch(dev, step, smi)
+        time_multidevice(step, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -13,7 +13,9 @@ to find:
 - impop_tpu_torch.ops      : hand-written CUDA kernels (csrc/*.cu), each
                              beside its plain PyTorch version
 - impop_tpu_torch.scanstep : the scan's wire decode + per-batch device step
-- impop_tpu_torch.parallel : batched per-statistic estimators
+- impop_tpu_torch.parallel : batched per-statistic estimators and the
+                             multi-device layer (device mesh, window,
+                             site and pair-space splits, multi-host)
 - impop_tpu_torch.runtime  : result journal, stage timers, site streaming
                              and the similarity-window batcher
 - impop_tpu_torch.cli      : ``scan``, ``tajd`` and the per-statistic

@@ -40,8 +40,12 @@ host-only commands ``spectrum``, ``extract``, ``gfasim``, ``gfa2vcf``,
 ``import-agc``, ``merge-parts``, ``makewindows`` and ``plot`` live in
 ``impop_tpu_torch.hostcmds`` and take no ``--device``.
 
-Not ported yet (they raise): ``scan --distributed``, ``--pair-shard on``
-and more than one local GPU (ROADMAP.md Queue 1, multi-GPU).
+Several devices: ``scan --device cuda`` splits each batch over every
+local GPU (``scanstep.scan_step_over``); ``scan --distributed`` gives each
+process of a ``torch.distributed`` group its contiguous share of the
+windows and ``.partK`` outputs (``merge-parts`` joins them);
+``hfst`` / ``hud --pair-shard on`` split the pair space of each window over
+the local devices (``parallel.pairspace``).
 """
 from __future__ import annotations
 
@@ -78,15 +82,6 @@ __all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
            "main"]
 
 
-def _refuse_unported(args) -> None:
-    """Options of the JAX scan this port does not run yet."""
-    if args.distributed:
-        raise SystemExit("error: --distributed is not ported to "
-                         "impop_tpu_torch yet (ROADMAP.md Queue 1, multi-GPU "
-                         "and multi-host); use `python -m impop_tpu.cli scan` "
-                         "for it")
-
-
 def _read_ehh_targets(path: Optional[str]) -> Dict[str, list]:
     """--ehh-focal: "chrom pos" lines (``#`` comments skipped)."""
     targets: Dict[str, list] = {}
@@ -113,34 +108,38 @@ def _write_afs(path: str, afs_total: np.ndarray, panel_names: List[str]
 
 
 def _open_device(name: str):
-    import torch
-
+    """The one device of a single-device command: ``cuda`` is the current
+    GPU, as the JAX commands take the default device."""
     from impop_tpu_torch.device import resolve_device
 
-    dev = resolve_device(name)
-    if dev.type == "cuda" and dev.index is None \
-            and torch.cuda.device_count() > 1:
-        raise SystemExit(
-            f"error: {torch.cuda.device_count()} local GPUs visible; the "
-            "multi-GPU scan is not ported yet (ROADMAP.md Queue 1). "
-            "Pick one with --device cuda:K or CUDA_VISIBLE_DEVICES")
-    return dev
+    return resolve_device(name)
 
 
 def cmd_scan(args) -> int:
-    """Fused scan with a result journal for idempotent resume."""
+    """Fused scan with a result journal for idempotent resume.
+
+    The batch is split over every local device (``--device cuda``: every
+    GPU; ``cuda:K`` or ``cpu``: that one), as the JAX scan shards it over
+    every local chip.  With ``--distributed`` each process scans its
+    contiguous share of the windows (``host_window_range``) into
+    ``<file>.partK`` outputs for ``merge-parts``."""
     import torch
 
-    from impop_tpu_torch.scanstep import (batch_to_device, row_layout,
-                                          scan_step, scan_step_fstg_exact)
+    from impop_tpu_torch.parallel.distributed import (finalize,
+                                                      host_window_range,
+                                                      maybe_initialize,
+                                                      process_devices)
+    from impop_tpu_torch.scanstep import (row_layout,
+                                          scan_step_fstg_exact_over,
+                                          scan_step_over, shard_wire)
 
-    _refuse_unported(args)
+    rank, world = maybe_initialize(args.distributed)
     timers = StageTimers()
     setup = timers.stage("setup")
     setup.__enter__()
 
-    dev = _open_device(args.device)
-    if dev.type == "cuda":
+    devs = process_devices(args.device)
+    if devs[0].type == "cuda":
         from impop_tpu_torch.ops._build import load_library
 
         with timers.stage("setup.build"):
@@ -148,6 +147,12 @@ def cmd_scan(args) -> int:
 
     with timers.stage("setup.bed"):
         regions = read_bed(args.bed)
+    if world > 1:
+        lo, hi = host_window_range(len(regions), rank, world)
+        regions = regions[lo:hi]
+        for attr in ("output", "journal", "afs", "timing_json"):
+            if getattr(args, attr, None):
+                setattr(args, attr, f"{getattr(args, attr)}.part{rank}")
     geno_src = (GenoSource(args.geno_dir) if args.geno_dir
                 else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
     with timers.stage("setup.open"):
@@ -369,8 +374,8 @@ def cmd_scan(args) -> int:
                         focals.astype("<u4").view(np.uint8).reshape(w, 4))
                 disjoint = disjoint_of(panels)
             with timers.stage("h2d"):
-                dev_flat = batch_to_device(flat, dev)
-            return dev_flat, kept, failures, disjoint, (cap_n, cap_s)
+                wire = (shard_wire(flat, devs), w)
+            return wire, kept, failures, disjoint, (cap_n, cap_s)
 
         def prepare_tiles(extracted, n_chunks):
             """Pad + fused pack + H2D for tiles from --geno-dir/--gfa-dir or
@@ -412,8 +417,8 @@ def cmd_scan(args) -> int:
                 flat = pack_scan_batch(geno, member, smask, panels, lengths,
                                        wts, use_weights, focals)
             with timers.stage("h2d"):
-                dev_flat = batch_to_device(flat, dev)
-            return dev_flat, kept, failures, disjoint, (cap_n, cap_s)
+                wire = (shard_wire(flat, devs), w)
+            return wire, kept, failures, disjoint, (cap_n, cap_s)
 
         native_path = (geno_src is None and extractor is not None
                        and hasattr(extractor, "extract_batch_open"))
@@ -513,7 +518,7 @@ def cmd_scan(args) -> int:
                 print(row, file=out)
                 n_done += 1
 
-        def exact_fstg(packed, kept, dev_flat, caps):
+        def exact_fstg(packed, kept, shards, caps):
             """Windows flagged seed_risk re-run their grouped Fst through
             the exact first-found-pair program; only their FSTG changes."""
             if not with_pairs:
@@ -522,8 +527,8 @@ def cmd_scan(args) -> int:
             if risk.size == 0:
                 return packed
             with timers.stage("device.exact"):
-                exact = scan_step_fstg_exact(
-                    dev_flat, caps[0], caps[1], p_count, pair_key, thr,
+                exact = scan_step_fstg_exact_over(
+                    shards, caps[0], caps[1], p_count, pair_key, thr,
                     rows=[int(r) for r in risk], use_weights=use_weights,
                     use_ehh=want_ehh).cpu().numpy()
             packed = packed.copy()
@@ -534,10 +539,9 @@ def cmd_scan(args) -> int:
             with timers.stage("fetch"):
                 packed_all = cout.cpu().numpy()   # the barrier
             off = 0
-            for kept_b, dev_flat_b, caps_b in metas:
-                w_b = dev_flat_b.shape[0]
+            for kept_b, (shards_b, w_b), caps_b in metas:
                 packed_b = exact_fstg(packed_all[off:off + w_b], kept_b,
-                                      dev_flat_b, caps_b)
+                                      shards_b, caps_b)
                 with timers.stage("emit"):
                     emit_rows(packed_b, kept_b)
                 off += w_b
@@ -546,8 +550,8 @@ def cmd_scan(args) -> int:
         # device and fetched as one array, one group behind the dispatch
         # front so the device computes while the host drains and emits
         drain_group = max(1, int(args.drain_group or 4))
-        group: list = []        # [(out_dev, kept, dev_flat, caps)]
-        pending_out = None      # (cout, [(kept, dev_flat, caps)...])
+        group: list = []        # [(out_dev, kept, wire, caps)]
+        pending_out = None      # (cout, [(kept, wire, caps)...])
 
         def flush_group():
             nonlocal pending_out, group
@@ -566,21 +570,22 @@ def cmd_scan(args) -> int:
             top_up()
             while inflight:
                 with timers.stage("wait_input"):
-                    (dev_flat, kept, failures, disjoint,
+                    (wire, kept, failures, disjoint,
                      caps) = inflight.popleft().result()
                 top_up()
                 for rs, err in failures:
                     _warn(f"Warning: {rs}: {err}; recording NA")
                     journal.record_failure(rs, err)
                     n_failed += 1
-                if dev_flat is None:
+                if wire is None:
                     continue
                 with timers.stage("device"):
-                    out_dev = scan_step(dev_flat, caps[0], caps[1], p_count,
-                                        pair_key, thr, disjoint, use_weights,
-                                        want_ehh, want_afs, afs_bins,
-                                        afs_folded)
-                group.append((out_dev, kept, dev_flat, caps))
+                    shards, w_rows = wire
+                    out_dev = scan_step_over(
+                        shards, caps[0], caps[1], p_count, pair_key, thr,
+                        disjoint, use_weights, want_ehh, want_afs, afs_bins,
+                        afs_folded, n_rows=w_rows)
+                group.append((out_dev, kept, wire, caps))
                 if len(group) >= drain_group:
                     flush_group()
             flush_group()
@@ -604,6 +609,8 @@ def cmd_scan(args) -> int:
 
         with open(args.timing_json, "w") as fh:
             json.dump(timers.to_json(), fh)
+    if args.distributed:
+        finalize()
     return 0
 
 
@@ -975,17 +982,152 @@ def _two_panels(args):
                                "B": tuple(read_panel_file(args.pop_b))})
 
 
+def _load_geno_windows(args, regions):
+    """Allele-tile windows (geno, sorted names) for the pair-shard path."""
+    geno_src = (GenoSource(args.geno_dir)
+                if getattr(args, "geno_dir", None) else None)
+    extractor = None
+    if geno_src is None:
+        fasta_store = _resolve_fasta(args)
+        if args.paf and fasta_store:
+            extractor = _open_extractor(args.paf, fasta_store)
+    if geno_src is None and extractor is None:
+        return None
+    kept, tiles, rss = [], [], []
+    for reg in regions:
+        rs = reg.region_string(args.prefix)
+        try:
+            if geno_src is not None:
+                g, names, _ = geno_src.load(rs)
+            else:
+                wm = extractor.extract(rs.rsplit(":", 1)[0],
+                                       reg.start, reg.end)
+                g, names = wm.geno, wm.names
+        except Exception as e:
+            print(f"Warning: skipping window {rs}: {e}", file=sys.stderr)
+            continue
+        order = np.argsort(names)
+        tiles.append((np.asarray(g, np.int8)[order],
+                      [names[i] for i in order]))
+        kept.append(reg)
+        rss.append(rs)
+    return kept, tiles, rss
+
+
+def _run_hudson_pair_sharded(args, devs, force: bool) -> Optional[int]:
+    """Direct-method Hudson with the pair space split by row blocks over
+    the local devices (``parallel.pairspace``): each device forms only its
+    [N/D, N] block of pairwise differences and the partial sums merge on
+    the first device, so the [N, N] identity exists nowhere.  The table
+    and its float64 host derivations are the replicated path's; only the
+    f32 summation order differs.
+
+    Returns None when ``force`` is False and every window is below the
+    sharding threshold (the caller takes the replicated batch path).
+    """
+    from impop_tpu_torch.parallel.mesh import make_mesh
+    from impop_tpu_torch.parallel.pairspace import pair_sharded_direct_stats
+
+    regions = read_bed(args.bed)
+    loaded = _load_geno_windows(args, regions)
+    if loaded is None:
+        if force:
+            raise SystemExit("error: --pair-shard on needs an allele "
+                             "source (--geno-dir or --paf + --fasta/--agc)")
+        return None
+    kept, tiles, region_strings = loaded
+    max_n = max((g.shape[0] for g, _ in tiles), default=0)
+    if not force and max_n < 1024:
+        return None
+
+    if getattr(args, "round", None) is not None:
+        _warn("Warning: --pair-shard computes masked pair sums without "
+              "materialising per-pair similarities, so -r rounding does "
+              "not apply (use the replicated path for -r parity)")
+    n_dev = len(devs)
+    pair_fn = pair_sharded_direct_stats(make_mesh(data=n_dev, devices=devs))
+    pop_a = read_panel_file(args.pop_a)
+    pop_b = read_panel_file(args.pop_b)
+
+    # every window padded to shared caps: rows to a multiple of the
+    # devices, sites to the lane width
+    cap_n = _capacity_for([max_n])
+    cap_n = ((cap_n + n_dev - 1) // n_dev) * n_dev
+    cap_s = max(128, max((g.shape[1] for g, _ in tiles), default=1))
+    cap_s = ((cap_s + 127) // 128) * 128
+
+    out = _out_stream(args.output)
+    try:
+        print(tables.HFST_HEADER, file=out)
+        for reg, (g, names), rs in zip(kept, tiles, region_strings):
+            n, s = g.shape
+            gp = np.full((cap_n, cap_s), -1, np.int8)
+            gp[:n, :s] = g
+            member = np.zeros(cap_n, bool)
+            member[:n] = True
+            smask = np.zeros(cap_s, bool)
+            smask[:s] = True
+            if args.exact_names:
+                in_a = set(pop_a)
+                in_b = set(pop_b)
+                sel_a = np.asarray([nm in in_a for nm in names], bool)
+                sel_b = np.asarray([nm in in_b for nm in names], bool)
+            else:
+                m_a, _ = expand_population(pop_a, names)
+                m_b, _ = expand_population(pop_b, names)
+                sel_a = np.asarray([nm in m_a for nm in names], bool)
+                sel_b = np.asarray([nm in m_b for nm in names], bool)
+            overlap = sel_a & sel_b          # h-fst.py:181-185 strip
+            mask_a = np.zeros((1, cap_n), bool)
+            mask_b = np.zeros((1, cap_n), bool)
+            mask_a[0, :n] = sel_a & ~overlap
+            mask_b[0, :n] = sel_b & ~overlap
+            res = pair_fn(gp, member, smask, mask_a, mask_b,
+                          float(reg.length))
+            pi_a, pi_b, dxy = (float(r[0]) for r in res[:3])
+            pi_xy = 0.5 * (pi_a + pi_b)
+            fst = (dxy - pi_xy) / dxy if dxy > 0 else 0.0
+            da = dxy - pi_xy
+            inv = 1.0 / reg.length
+            print(tables.hfst_row(
+                rs, reg.length, fst,
+                pi_a * inv, pi_b * inv, pi_xy * inv, dxy * inv, da * inv,
+            ), file=out)
+            if args.log_dir:
+                _write_window_log(
+                    args.log_dir, rs, "FST Calculation",
+                    {"region": rs, "method": "direct (pair-sharded)",
+                     "devices": n_dev,
+                     "pi_a": pi_a, "pi_b": pi_b, "pi_xy": pi_xy,
+                     "dxy": dxy, "fst": fst, "da": da,
+                     "per_site_length": reg.length})
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
 def _run_hudson(args, grouped: bool) -> int:
     """run_h-fst.sh / run_hud.sh: Hudson Fst of panels A and B per window,
     direct or grouped; Fst and Da from the f32 sums in float64 on the
-    host."""
+    host.  ``--pair-shard on`` (or ``auto`` with several local devices and
+    1024 haplotypes or more) takes the direct method through the pair-space
+    split over the local devices."""
+    from impop_tpu_torch.device import local_devices
     from impop_tpu_torch.parallel.scan import batch_hudson
 
-    if getattr(args, "pair_shard", "off") == "on":
-        raise SystemExit("error: --pair-shard on is not ported to "
-                         "impop_tpu_torch yet (ROADMAP.md Queue 1, multi-GPU); "
-                         "--pair-shard auto or off compute the "
-                         "replicated [N, N] batch on the one GPU")
+    ps_mode = getattr(args, "pair_shard", "off")
+    if ps_mode != "off" and not grouped:
+        devs = local_devices(args.device)
+        if ps_mode == "on" or len(devs) > 1:
+            done = _run_hudson_pair_sharded(args, devs,
+                                            force=(ps_mode == "on"))
+            if done is not None:
+                return done
+    elif ps_mode == "on" and grouped:
+        raise SystemExit("error: --pair-shard supports the direct method "
+                         "only (the grouped estimators need the global "
+                         "[N, N] grouping recurrence)")
     dev = _open_device(args.device)
     regions = read_bed(args.bed)
     src = _make_sim_source(args, dev)
@@ -1465,7 +1607,8 @@ def cmd_ehh(args) -> int:
 
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without CUDA), cuda:K or "
+                   help="cuda (default; raises without CUDA; scan and "
+                        "--pair-shard take every local GPU), cuda:K or "
                         "cpu (the plain PyTorch path)")
 
 
@@ -1512,7 +1655,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain-group", type=int, default=4,
                    help="device batches concatenated per result fetch")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet")
+                   help="multi-host: join the gloo process group from "
+                        "torchrun's environment (MASTER_ADDR, MASTER_PORT, "
+                        "RANK, WORLD_SIZE) and scan this rank's contiguous "
+                        "share of the windows into <file>.partK outputs")
     _add_device(p)
     p.add_argument("--profile-dir",
                    help="write a torch.profiler Chrome trace to this "
@@ -1580,8 +1726,10 @@ def build_parser() -> argparse.ArgumentParser:
         if name in ("hfst", "hud"):
             p.add_argument("--pair-shard", choices=["auto", "on", "off"],
                            default="auto",
-                           help="on is not ported yet (multi-GPU); auto "
-                                "and off compute the replicated batch")
+                           help="split the [N, N] pair space by row blocks "
+                                "over the local devices (direct method, "
+                                "allele sources only); auto = when N >= "
+                                "1024 and more than one device is attached")
         _add_device(p)
         p.set_defaults(func=fn)
 

@@ -419,12 +419,18 @@ int impop_ehh_area(const void* geno, const void* member, const void* smask, cons
   // tiles of one window: T(t0) + T(t1) <= T(t0 + t1), t0 + t1 <= ceil(N / kTile) + 1
   const int tmax = (n + kTile - 1) / kTile + 1;
   const int tiles_max = tmax * (tmax + 1) / 2;
-  static int sms = 0;   // asked once, outside any graph capture that follows
+  // SM count of the current device, asked once per device, outside any graph
+  // capture that follows; devices past the table are asked every call
+  constexpr int kMaxDevices = 64;
+  static int sms_of[kMaxDevices] = {};
+  int dev = 0;
+  err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return err;
+  int sms = dev < kMaxDevices ? sms_of[dev] : 0;
   if (sms == 0) {
-    int dev = 0;
-    err = static_cast<int>(cudaGetDevice(&dev));
-    if (!err) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
     if (err) return err;
+    if (dev < kMaxDevices) sms_of[dev] = sms;
   }
   const int per_window = (kPairBlocksPerSm * sms + w - 1) / w;
   const int gy = per_window < 1 ? 1 : (per_window > tiles_max ? tiles_max : per_window);

@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from impop_tpu_torch.device import on_device
+
 __all__ = ["ehh_area", "ehh_area_plain"]
 
 
@@ -117,12 +119,13 @@ def _ehh_area_cuda(geno, member, site_mask, focal):
         meta = torch.empty((w, 2), dtype=torch.int32, device=dev)
         lists = torch.empty((w, 2, n), dtype=torch.int32, device=dev)
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.impop_ehh_area(genc.data_ptr(), mem.data_ptr(),
-                                 smk.data_ptr(), foc.data_ptr(), w, n, s,
-                                 xc.data_ptr(), meta.data_ptr(),
-                                 lists.data_ptr(), sums.data_ptr(),
-                                 carr.data_ptr(), stream)
+        with on_device(dev):   # the launch goes to the current device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.impop_ehh_area(genc.data_ptr(), mem.data_ptr(),
+                                     smk.data_ptr(), foc.data_ptr(), w, n, s,
+                                     xc.data_ptr(), meta.data_ptr(),
+                                     lists.data_ptr(), sums.data_ptr(),
+                                     carr.data_ptr(), stream)
         check(lib, err, "ehh_pack_kernel / ehh_pairs_kernel")
         ehh_area.launches += 1
     return sums.reshape(*lead, 2, 2), carr.reshape(*lead, 2)

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from impop_tpu_torch.device import on_device
 from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
 from impop_tpu_torch.ops.seedpeel import _aligned, seed_gid_plain
 from impop_tpu_torch.stats.allele import segregating_sites
@@ -74,13 +75,14 @@ def _identity_group_cuda(geno, member, site_mask, pmasks, threshold, length):
         colbits = torch.zeros((w, 2, s // 32), dtype=torch.int32, device=dev)
         link = torch.empty((w, n, n // 32), dtype=torch.int32, device=dev)
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.impop_identity_group(
-            genc.data_ptr(), mem.data_ptr(), smk.data_ptr(), pmk.data_ptr(),
-            lens.data_ptr(), float(threshold), w, n, s, r_count,
-            bits.data_ptr(), colbits.data_ptr(), link.data_ptr(),
-            sim.data_ptr(), pres.data_ptr(), gid.data_ptr(),
-            s_count.data_ptr(), stream)
+        with on_device(dev):   # the launch goes to the current device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.impop_identity_group(
+                genc.data_ptr(), mem.data_ptr(), smk.data_ptr(),
+                pmk.data_ptr(), lens.data_ptr(), float(threshold), w, n, s,
+                r_count, bits.data_ptr(), colbits.data_ptr(),
+                link.data_ptr(), sim.data_ptr(), pres.data_ptr(),
+                gid.data_ptr(), s_count.data_ptr(), stream)
         check(lib, err, "idgroup_pack_kernel / idgroup_pairs_kernel / "
               "seed_peel_kernel")
         identity_group.launches += 1

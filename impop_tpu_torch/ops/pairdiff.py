@@ -46,6 +46,7 @@ import math
 
 import torch
 
+from impop_tpu_torch.device import on_device
 from impop_tpu_torch.stats.allele import (_valid, identity_epilogue,
                                           pairwise_diff_biallelic)
 
@@ -213,19 +214,19 @@ def _launch(entry, kernel, geno, member, site_mask, length, weights=None,
     pres = torch.empty(lead + (n, n), dtype=torch.uint8, device=dev)
     if w > 0 and n > 0:
         kt = KT_UNIT if weights is None else KT_WEIGHTED
-        index = dev.index if dev.index is not None else \
-            torch.cuda.current_device()
+        # a tensor's CUDA device always carries its index
         _, pairs, ks, chunk = identity_partition(w, n, s, kt,
-                                                 _sm_count(index), splits)
+                                                 _sm_count(dev.index), splits)
         scratch = (torch.empty(ks * w * pairs * 128 * 256, dtype=torch.int32,
                                device=dev) if ks > 1 else None)
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in (genc, mem, smk) + wts + (lens,)]
-        err = getattr(lib, entry)(
-            *ptrs, w, n, s, ks, chunk,
-            scratch.data_ptr() if scratch is not None else None,
-            sim.data_ptr(), pres.data_ptr(), stream)
+        with on_device(dev):   # the launch goes to the current device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, entry)(
+                *ptrs, w, n, s, ks, chunk,
+                scratch.data_ptr() if scratch is not None else None,
+                sim.data_ptr(), pres.data_ptr(), stream)
         check(lib, err, kernel)
     return sim, pres.view(torch.bool)
 

@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from impop_tpu_torch.device import on_device
+
 __all__ = ["masked_pair_sums", "masked_pair_sums_plain"]
 
 # bytes of mask words the kernel keeps in shared memory (kMcolSmemMax)
@@ -88,12 +90,13 @@ def _masked_pair_sums_cuda(sim, present, wd, wp):
             mcol = torch.empty((w, -(-n // 64), nwc, 64), dtype=torch.int32,
                                device=dev)
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.impop_masked_pair_sums(
-            simc.data_ptr(), presc.data_ptr(), wdc.data_ptr(),
-            wpc.data_ptr(), w, n, rd, rp, flags.data_ptr(), wbits.data_ptr(),
-            None if mcol is None else mcol.data_ptr(), yd.data_ptr(),
-            yp.data_ptr(), stream)
+        with on_device(dev):   # the launch goes to the current device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.impop_masked_pair_sums(
+                simc.data_ptr(), presc.data_ptr(), wdc.data_ptr(),
+                wpc.data_ptr(), w, n, rd, rp, flags.data_ptr(),
+                wbits.data_ptr(), None if mcol is None else mcol.data_ptr(),
+                yd.data_ptr(), yp.data_ptr(), stream)
         check(lib, err, "masked_rows_pack_kernel / masked_pair_sums_kernel")
         masked_pair_sums.launches += 1
     return yd, yp

@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from impop_tpu_torch.device import on_device
+
 __all__ = ["seed_peel", "seed_peel_plain", "seed_gid_plain", "link_matrix"]
 
 # bound on the [..., P, N, N] candidate mask of _gid_from_seeds per chunk
@@ -140,11 +142,12 @@ def _seed_peel_cuda(sim, present, member, pmasks, threshold):
         link = torch.empty((b, n_cap, n_cap // 32), dtype=torch.int32,
                            device=dev)
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.impop_seed_peel(
-            simc.data_ptr(), presc.data_ptr(), memc.data_ptr(),
-            pmc.data_ptr(), float(threshold), b, n_cap, p_count,
-            link.data_ptr(), seeds.data_ptr(), gid.data_ptr(), stream)
+        with on_device(dev):   # the launch goes to the current device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.impop_seed_peel(
+                simc.data_ptr(), presc.data_ptr(), memc.data_ptr(),
+                pmc.data_ptr(), float(threshold), b, n_cap, p_count,
+                link.data_ptr(), seeds.data_ptr(), gid.data_ptr(), stream)
         check(lib, err, "seed_link_kernel / seed_peel_kernel")
         seed_peel.launches += 1
     shape = (*lead, p_count, n_cap)

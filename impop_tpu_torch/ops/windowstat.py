@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from impop_tpu_torch.device import on_device
 from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
 from impop_tpu_torch.ops.seedpeel import seed_gid_plain
 from impop_tpu_torch.stats.allele import segregating_sites
@@ -165,14 +166,16 @@ def _window_stats_cuda(geno, member, site_mask, pmasks_stack, mask_a,
         partial = torch.empty((w, t, -(-n_cap // _COL_TILE)),
                               dtype=torch.float32, device=dev)
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.impop_window_stats(
-            genc.data_ptr(), mem.data_ptr(), smk.data_ptr(), pmk.data_ptr(),
-            mak.data_ptr(), mbk.data_ptr(), lens.data_ptr(), dots.data_ptr(),
-            float(threshold), w, n_cap, s_cap, r_count, pq, q, t,
-            rd, rp, lay["n_out"], bits.data_ptr(), colbits.data_ptr(),
-            pres.data_ptr(), link.data_ptr(), diff.data_ptr(), x.data_ptr(),
-            xbits.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
+        with on_device(dev):   # the launch goes to the current device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.impop_window_stats(
+                genc.data_ptr(), mem.data_ptr(), smk.data_ptr(),
+                pmk.data_ptr(), mak.data_ptr(), mbk.data_ptr(),
+                lens.data_ptr(), dots.data_ptr(), float(threshold), w, n_cap,
+                s_cap, r_count, pq, q, t, rd, rp, lay["n_out"],
+                bits.data_ptr(), colbits.data_ptr(), pres.data_ptr(),
+                link.data_ptr(), diff.data_ptr(), x.data_ptr(),
+                xbits.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
         check(lib, err, "window_stats_kernel")
         window_stats.launches += 1
     sizes = {"quad": r_count, "n": r_count, "num_groups": r_count,

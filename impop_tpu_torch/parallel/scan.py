@@ -1,17 +1,22 @@
-"""Batched window statistics (port of :mod:`impop_tpu.parallel.scan`
-without ``shard_batch``, which waits for the multi-GPU port).
+"""Batched window statistics (port of :mod:`impop_tpu.parallel.scan`).
 
 The JAX package vmaps one window (and one panel); here the window axis W
 and the panel or pair axis are batch dimensions of one call: one grouping
 call (the seed-peel kernel on CUDA tensors) and one masked-sums call (the
 masked-sums kernel) for every window, panel and pair of a batch.
+
+:func:`shard_batch` splits a batch over the ``data`` axis of a mesh and
+:func:`batch_over` runs an estimator on every shard, each on its device,
+and gathers the results in window order.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, List, NamedTuple, Sequence
 
 import torch
 
+from impop_tpu_torch.device import on_device
+from impop_tpu_torch.parallel.mesh import Mesh, gather_windows, split_windows
 from impop_tpu_torch.stats.allele import (AlleleWindowStats,
                                           allele_window_stats,
                                           identity_from_alleles,
@@ -19,10 +24,12 @@ from impop_tpu_torch.stats.allele import (AlleleWindowStats,
 from impop_tpu_torch.stats.fst import (FstResult, fst_3pi,
                                        hudson_fst_direct_pairs,
                                        hudson_fst_grouped_pairs)
+from impop_tpu_torch.stats.panelstats import take
 from impop_tpu_torch.stats.pi import PiResult, pi_grouped, pi_grouped_panels
 from impop_tpu_torch.stats.tajima import tajimas_d
 
-__all__ = ["WindowBatch", "batch_pi_panels", "HudsonBatchResult",
+__all__ = ["WindowBatch", "shard_batch", "batch_over", "batch_pi_panels",
+           "HudsonBatchResult",
            "batch_hudson", "Fst3PiBatchResult", "batch_fst_3pi_panels",
            "batch_allele_stats", "TajdBatchResult",
            "batch_tajd_from_alleles"]
@@ -41,6 +48,38 @@ class WindowBatch(NamedTuple):
     panels: torch.Tensor    # [W, P, N] bool
 
 
+def shard_batch(batch: WindowBatch, mesh: Mesh) -> List[WindowBatch]:
+    """One WindowBatch per ``data`` shard of ``mesh``, each on its device:
+    contiguous window chunks, padded with inert all-zero windows to a
+    multiple of the axis size."""
+    fields = [split_windows(a, mesh) for a in batch]
+    return [WindowBatch(*parts) for parts in zip(*fields)]
+
+
+def _gather(results: Sequence, n: int):
+    """Per-shard results (tensors, or named tuples of them, nested) in
+    window order on the first shard's device, cut to ``n`` windows."""
+    first = results[0]
+    if isinstance(first, torch.Tensor):
+        return gather_windows(results, n)
+    return type(first)(*(_gather(parts, n) for parts in zip(*results)))
+
+
+def batch_over(fn: Callable, batch: WindowBatch, mesh: Mesh, *args,
+               **kwargs):
+    """``fn(sim, present, member, panels, *args, **kwargs)`` (one of the
+    batch estimators here) on every ``data`` shard of ``batch``, each
+    queued on its own device, then the results gathered in window order
+    on the first device."""
+    n = batch.sim.shape[0]
+    shards = shard_batch(batch, mesh)
+    results = []
+    for shard in shards:
+        with on_device(shard.sim.device):
+            results.append(fn(*shard, *args, **kwargs))
+    return _gather(results, n)
+
+
 def batch_pi_panels(sim, present, member, panels, threshold) -> PiResult:
     """pica2 π for every (window, panel): PiResult of [W, P] fields.
     panels[w, p] is ANDed with member[w]; an empty panel gives π = 0 and
@@ -53,8 +92,12 @@ class HudsonBatchResult(NamedTuple):
     grouped: FstResult    # fields [W, Q]
 
 
-def _pair_index(pairs: Sequence[int] | torch.Tensor, device) -> torch.Tensor:
-    return torch.as_tensor(pairs, dtype=torch.int64, device=device)
+def _host_pairs(pairs: Sequence[int] | torch.Tensor) -> List[int]:
+    """Pair indices as host ints (indexing with them copies nothing to the
+    device, ``stats.panelstats.take``)."""
+    if isinstance(pairs, torch.Tensor):
+        return pairs.tolist()
+    return [int(i) for i in pairs]
 
 
 def batch_hudson(sim, present, member, panels, pair_a, pair_b, threshold,
@@ -68,10 +111,9 @@ def batch_hudson(sim, present, member, panels, pair_a, pair_b, threshold,
     in one pass, over chunks of windows that bound its [w, 2Q, N, N]
     temporaries.  Without ``with_grouped``, ``grouped`` repeats ``direct``.
     """
-    ia = _pair_index(pair_a, sim.device)
-    ib = _pair_index(pair_b, sim.device)
-    mask_a = panels[..., ia, :] & member[..., None, :]
-    mask_b = panels[..., ib, :] & member[..., None, :]
+    ia, ib = _host_pairs(pair_a), _host_pairs(pair_b)
+    mask_a = take(panels, ia, -2) & member[..., None, :]
+    mask_b = take(panels, ib, -2) & member[..., None, :]
     overlap = mask_a & mask_b
     mask_a, mask_b = mask_a & ~overlap, mask_b & ~overlap
     direct = hudson_fst_direct_pairs(sim, present, mask_a, mask_b)
@@ -102,14 +144,13 @@ def batch_fst_3pi_panels(sim, present, member, panels, pair_a, pair_b,
     A ∪ B (pica2 semantics) and Fst = (πC − πAB) / πC.  Each panel's π is
     computed once for all the pairs it is in: the P panels and the Q pair
     unions go through one :func:`pi_grouped_panels` call."""
-    ia = _pair_index(pair_a, sim.device)
-    ib = _pair_index(pair_b, sim.device)
-    unions = panels[..., ia, :] | panels[..., ib, :]
+    ia, ib = _host_pairs(pair_a), _host_pairs(pair_b)
+    unions = take(panels, ia, -2) | take(panels, ib, -2)
     all_masks = torch.cat([panels, unions], dim=-2)
     pis = pi_grouped_panels(sim, present, member, all_masks,
                             float(threshold)).pi
     p_count = panels.shape[-2]
-    pi_a, pi_b = pis[..., :p_count][..., ia], pis[..., :p_count][..., ib]
+    pi_a, pi_b = take(pis, ia, -1), take(pis, ib, -1)
     pi_c = pis[..., p_count:]
     return Fst3PiBatchResult(pi_a, pi_b, pi_c, 0.5 * (pi_a + pi_b),
                              fst_3pi(pi_a, pi_b, pi_c))

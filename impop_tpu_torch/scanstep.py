@@ -12,31 +12,34 @@ row per window as the JAX step:
 with Q' = max(1, number of pairs) and the EHH block [area_ref, area_alt,
 carriers_ref, carriers_alt].  Unit weights run the whole-window kernel;
 column-mode weights run the weighted identity and masked-sum kernels.
+
+Over several devices (the JAX scan's ``shard_map`` over every local chip,
+``impop_tpu.cli._shard_windows``): :func:`shard_wire` splits the wire batch
+into contiguous row chunks, one per device, padded with all-zero rows (no
+members, length 0: inert); :func:`scan_step_over` queues the step of each
+chunk on its device and gathers the rows back in window order on the
+first device.  No window's statistics depend on another's, so the rows
+equal the one-device step's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from impop_tpu_torch.device import on_device
 from impop_tpu_torch.hostio import _scan_buf_layout
+from impop_tpu_torch.parallel.mesh import gather_windows, split_rows
 from impop_tpu_torch.stats.allele import (identity_from_alleles, panel_afs,
                                           segregating_sites)
 from impop_tpu_torch.stats.ehh import ehh_area_dynamic
 from impop_tpu_torch.stats.fst import hudson_fst_grouped_pairs
 from impop_tpu_torch.stats.panelstats import (fused_panel_stats,
-                                              fused_window_stats)
+                                              fused_window_stats, take)
 from impop_tpu_torch.stats.tajima import tajimas_d
 
-__all__ = ["batch_to_device", "wire_unpack", "scan_step",
-           "scan_step_fstg_exact", "row_layout"]
-
-
-def batch_to_device(flat: np.ndarray, device) -> torch.Tensor:
-    """The packed wire batch [W, K] uint8 onto ``device``."""
-    if flat.dtype != np.uint8 or flat.ndim != 2:
-        raise ValueError(f"wire batch must be uint8 [W, K], got {flat.dtype} "
-                         f"{flat.shape}")
-    return torch.from_numpy(np.ascontiguousarray(flat)).to(device)
+__all__ = ["wire_unpack", "scan_step",
+           "scan_step_fstg_exact", "row_layout", "shard_wire",
+           "scan_step_over", "scan_step_fstg_exact_over"]
 
 
 def _bits(seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -121,7 +124,7 @@ def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
                   pi_panel / length[:, None])
     fst = res.hudson.fst
     fstg = res.hudson_grouped.fst if pair_key else torch.zeros_like(fst)
-    pi_ab = 0.5 * (pi_panel[:, list(pair_a)] + pi_panel[:, list(pair_b)])
+    pi_ab = 0.5 * (take(pi_panel, pair_a, 1) + take(pi_panel, pair_b, 1))
     nz = pi_c != 0
     f3 = torch.where(nz, (pi_c - pi_ab) / torch.where(nz, pi_c, 1.0),
                      torch.nan)
@@ -159,8 +162,8 @@ def scan_step_fstg_exact(flat: torch.Tensor, cap_n: int, cap_s: int,
         sim, present = identity_from_alleles(
             geno[wi], member[wi], smask[wi], length[wi],
             site_weights=None if wts is None else wts[wi])
-        ma = panels[wi, list(pair_a)] & member[wi]
-        mb = panels[wi, list(pair_b)] & member[wi]
+        ma = take(panels[wi], pair_a, 0) & member[wi]
+        mb = take(panels[wi], pair_b, 0) & member[wi]
         ov = ma & mb
         res = hudson_fst_grouped_pairs(sim, present, ma & ~ov, mb & ~ov,
                                        threshold)
@@ -169,3 +172,48 @@ def scan_step_fstg_exact(flat: torch.Tensor, cap_n: int, cap_s: int,
         return torch.zeros((0, len(pair_a)), dtype=torch.float32,
                            device=flat.device)
     return torch.stack(out)
+
+
+def shard_wire(flat, devices) -> list:
+    """The wire batch [W, K] uint8 (numpy or a tensor) as contiguous row
+    chunks, one on each of ``devices`` (which may repeat), after padding
+    with all-zero rows to a multiple of their count."""
+    if flat.dtype not in (np.uint8, torch.uint8) or flat.ndim != 2:
+        raise ValueError(f"wire batch must be uint8 [W, K], got {flat.dtype} "
+                         f"{tuple(flat.shape)}")
+    return split_rows(flat, list(devices))
+
+
+def scan_step_over(shards, *step_args, n_rows=None) -> torch.Tensor:
+    """:func:`scan_step` (``step_args``: its arguments after the batch) on
+    every chunk of :func:`shard_wire`, each queued on its own device, then
+    the packed rows in window order on the first chunk's device, cut to
+    ``n_rows`` (the batch before padding)."""
+    outs = []
+    for flat in shards:
+        with on_device(flat.device):
+            outs.append(scan_step(flat, *step_args))
+    return gather_windows(outs, n_rows)
+
+
+def scan_step_fstg_exact_over(shards, cap_n: int, cap_s: int, p_count: int,
+                              pair_key: tuple, threshold: float, rows,
+                              use_weights: bool = False,
+                              use_ehh: bool = False) -> torch.Tensor:
+    """:func:`scan_step_fstg_exact` for the windows ``rows`` (ascending
+    indices into the batch before padding) of a batch split by
+    :func:`shard_wire`: each chunk's rows on its device, the results in
+    the order of ``rows`` on the first chunk's device."""
+    rows = [int(r) for r in rows]
+    if rows != sorted(rows):
+        raise ValueError("scan_step_fstg_exact_over: rows must ascend")
+    size = shards[0].shape[0]
+    outs = []
+    for k, flat in enumerate(shards):
+        local = [r - k * size for r in rows if k * size <= r < (k + 1) * size]
+        if local or (k == 0 and not rows):
+            with on_device(flat.device):
+                outs.append(scan_step_fstg_exact(
+                    flat, cap_n, cap_s, p_count, pair_key, threshold,
+                    rows=local, use_weights=use_weights, use_ehh=use_ehh))
+    return gather_windows(outs)

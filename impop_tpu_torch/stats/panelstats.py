@@ -22,7 +22,7 @@ from impop_tpu_torch.stats.fst import FstResult, _assemble
 from impop_tpu_torch.stats.grouping import greedy_group_panels, group_sizes
 
 __all__ = ["PanelStats", "panel_mask_stack", "fused_panel_stats",
-           "fused_window_stats", "panel_sums", "gdxy_rows"]
+           "fused_window_stats", "panel_sums", "gdxy_rows", "take"]
 
 
 class PanelStats(NamedTuple):
@@ -36,18 +36,30 @@ class PanelStats(NamedTuple):
     seed_risk: torch.Tensor      # [...] bool: two group seeds lack data
 
 
+def take(t: torch.Tensor, idx, dim: int) -> torch.Tensor:
+    """``t`` indexed along ``dim`` by the host ints ``idx``, as
+    ``t[..., idx, ...]``: a slice for a run of consecutive ints, else one
+    stack of selects.  A list index would be copied to a CUDA tensor's
+    device, and that copy waits for the device's stream, which keeps the
+    host from queuing work on the other devices of a split batch."""
+    idx = [int(i) for i in idx]
+    if not idx or idx == list(range(idx[0], idx[0] + len(idx))):
+        return t.narrow(dim, idx[0] if idx else 0, len(idx))
+    return torch.stack([t.select(dim, i) for i in idx], dim=dim)
+
+
 def panel_mask_stack(pmasks, member, pair_a, pair_b, pairs_disjoint):
     """(all_masks [..., R, N], mask_a [..., Q, N], mask_b [..., Q, N]):
     panels, pair unions and, unless pairs are disjoint, both
     overlap-stripped Hudson sides.  R = P+Q (disjoint) or P+3Q."""
-    ia, ib = list(pair_a), list(pair_b)
-    mask_a = pmasks[..., ia, :] & member[..., None, :]
-    mask_b = pmasks[..., ib, :] & member[..., None, :]
+    pa, pb = take(pmasks, pair_a, -2), take(pmasks, pair_b, -2)
+    mask_a = pa & member[..., None, :]
+    mask_b = pb & member[..., None, :]
     if not pairs_disjoint:
         ov = mask_a & mask_b
         mask_a = mask_a & ~ov
         mask_b = mask_b & ~ov
-    unions = pmasks[..., ia, :] | pmasks[..., ib, :]
+    unions = pa | pb
     parts = [pmasks, unions] if pairs_disjoint else [pmasks, unions, mask_a,
                                                       mask_b]
     return torch.cat(parts, dim=-2), mask_a, mask_b
@@ -118,7 +130,7 @@ def panel_sums(sim, present, member, all_masks, mask_a, mask_b, threshold,
         "sum_aa": rowdot(yd_a, a_f), "cnt_aa": rowdot(yp_a, a_f),
         "sum_bb": rowdot(yd_b, b_f), "cnt_bb": rowdot(yp_b, b_f),
         "sum_ab": rowdot(yd_a, b_f), "cnt_ab": rowdot(yp_a, b_f),
-        "gdxy": rowdot(yd[..., list(ia), :], w_all[..., list(ib), :]),
+        "gdxy": rowdot(take(yd, ia, -2), take(w_all, ib, -2)),
         "seed_risk": risk.to(f32),
     }
 
@@ -143,13 +155,13 @@ def _assemble_from_kernel(out: dict, pq: int, q: int, pair_a, pair_b,
     dxy = mean(out["sum_ab"], out["cnt_ab"])
 
     ia, ib = gdxy_rows(pair_a, pair_b, pq, pairs_disjoint)
-    n_a, n_b = out["n"][..., ia], out["n"][..., ib]
+    n_a, n_b = take(out["n"], ia, -1), take(out["n"], ib, -1)
     bessel_a = torch.where(n_a > 1, n_a / torch.clamp(n_a - 1.0, min=1.0),
                            0.0)
     bessel_b = torch.where(n_b > 1, n_b / torch.clamp(n_b - 1.0, min=1.0),
                            0.0)
-    gpi_a = out["quad"][..., ia] * bessel_a
-    gpi_b = out["quad"][..., ib] * bessel_b
+    gpi_a = take(out["quad"], ia, -1) * bessel_a
+    gpi_b = take(out["quad"], ib, -1) * bessel_b
     return PanelStats(
         pi, n, num_groups, pairs_used, pairs_total - pairs_used,
         _assemble(pi_a, pi_b, dxy),

@@ -262,9 +262,14 @@ def test_journal_resume_with_afs_across_packages(paf_inputs, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [["--distributed"]])
-def test_unported_options_refuse(paf_inputs, flag):
+def test_unported_options_refuse(paf_inputs, flag, monkeypatch):
+    """``--distributed`` runs (tests/test_torch_distributed.py); without a
+    process group's environment it refuses, naming what it needs."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     _, argv = paf_inputs
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="MASTER_ADDR, MASTER_PORT, RANK, "
+                                         "WORLD_SIZE"):
         torch_main(argv() + flag + ["--device", "cpu"])
 
 

@@ -610,3 +610,128 @@ def test_ehh_and_sfs_commands_on_card_match_cpu(cuda_device, tmp_path):
         np.testing.assert_allclose([float(r[-1]) for r in rows[0]],
                                    [float(r[-1]) for r in rows[1]],
                                    rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------------------ several devices
+
+
+def other_device() -> int:
+    """A current device that is not cuda:0 where the host has one; with a
+    single card, cuda:0 itself (the call still runs inside a device
+    context with tensors on an explicit cuda:0)."""
+    return 1 if torch.cuda.device_count() > 1 else 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [
+    "window_stats", "seed_peel", "ehh_area", "pairwise_identity",
+    "pairwise_identity_weighted", "masked_pair_sums", "identity_group"])
+def test_wrappers_launch_on_their_tensors_device(cuda_device, kernel):
+    """Each wrapper launches on the device of its tensors (cuda:0) while
+    the current device is another: results equal the plain versions."""
+    dev0 = torch.device("cuda", 0)
+    geno, member, smask, pmasks = batch(61, 3, 128, 128, 3, True, False)
+    g, m, sm, pm = (torch.from_numpy(a).to(dev0)
+                    for a in (geno, member, smask, pmasks))
+    lens = torch.full((3,), LEN, device=dev0)
+    pa, pb = (0, 0, 1), (1, 2, 2)
+    stack, ma, mb = panel_mask_stack(pm, m, pa, pb, True)
+    sim, pres = pairwise_identity_plain(g, m, sm, lens)
+    wts = torch.from_numpy(weighted_inputs(61, 3, 128, 128)[3]).to(dev0)
+    ehh = [torch.from_numpy(a).to(dev0)
+           for a in ehh_inputs(61, 3, 128, 128)]
+    wd = torch.rand((3, 4, 128), generator=torch.Generator().manual_seed(1)
+                    ).to(dev0)
+    wp = (wd > 0.5).to(torch.float32)
+    cases = {
+        "window_stats": (window_stats, window_stats_plain,
+                         (g, m, sm, stack, ma, mb, THR, lens, pa, pb, True)),
+        "seed_peel": (seed_peel, seed_gid_plain, (sim, pres, m, pm, THR)),
+        "ehh_area": (ehh_area, ehh_area_plain, ehh),
+        "pairwise_identity": (pairwise_identity, pairwise_identity_plain,
+                              (g, m, sm, lens)),
+        "pairwise_identity_weighted": (
+            pairwise_identity_weighted, pairwise_identity_weighted_plain,
+            (g, m, sm, lens, wts)),
+        "masked_pair_sums": (masked_pair_sums, masked_pair_sums_plain,
+                             (sim, pres, wd, wp)),
+        "identity_group": (identity_group, identity_group_plain,
+                           (g, m, sm, stack, THR, lens)),
+    }
+    fn, plain, args = cases[kernel]
+    before = fn.launches
+    with torch.cuda.device(other_device()):
+        got = fn(*args)
+        torch.cuda.synchronize(dev0)
+    assert fn.launches == before + 1
+    want = plain(*args)
+    if isinstance(got, dict):
+        got, want = (tuple(x[k] for k in sorted(got)) for x in (got, want))
+    for a, b in zip(got, want):
+        assert a.device == dev0
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True)])
+def test_split_scan_on_repeated_device_matches_one(cuda_device, flags):
+    """scan_step_over on [cuda:0] x 2 (and x 4) gives the rows of one
+    scan_step, bitwise (no kernel mixes windows); after one warm-up the
+    split step makes no synchronising call (torch.cuda sync debug mode
+    "error"): no host read serialises the devices of a split batch.  The
+    exact FSTG recompute of windows in every shard, split, launches its
+    identity kernel and gives the whole batch's values bitwise."""
+    from impop_tpu_torch.hostio import pack_scan_batch
+    from impop_tpu_torch.scanstep import (scan_step, scan_step_fstg_exact,
+                                          scan_step_fstg_exact_over,
+                                          scan_step_over, shard_wire)
+
+    use_weights, use_ehh, want_afs = flags
+    geno, member, smask, pmasks = batch(62, 7, 512, 128, 5, True, False)
+    wts = weighted_inputs(62, 7, 512, 128)[3]
+    focals = np.full(7, 40, np.uint32)
+    flat = pack_scan_batch(geno, member, smask, pmasks,
+                           np.full(7, 5000, np.uint32), wts, use_weights,
+                           focals if use_ehh else None)
+    pairs = tuple((i, j) for i in range(5) for j in range(i + 1, 5))
+    args = (512, 128, 5, pairs, THR, True, use_weights, use_ehh, want_afs,
+            512, True)
+    dev0 = torch.device("cuda", 0)
+    one = scan_step(torch.from_numpy(flat).to(dev0), *args)
+    for k in (2, 4):
+        shards = shard_wire(flat, [dev0] * k)
+        got = scan_step_over(shards, *args, n_rows=7)
+        assert torch.equal(got.nan_to_num(9.0), one.nan_to_num(9.0))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = scan_step_over(shards, *args, n_rows=7)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(again.nan_to_num(9.0), one.nan_to_num(9.0))
+        rows = [0, 3, 6]                  # in the first and last shards
+        ident = (pairwise_identity_weighted if use_weights
+                 else pairwise_identity)
+        before = ident.launches
+        exact = scan_step_fstg_exact_over(shards, *args[:5], rows,
+                                          use_weights=use_weights,
+                                          use_ehh=use_ehh)
+        assert ident.launches > before
+        want = scan_step_fstg_exact(torch.from_numpy(flat).to(dev0),
+                                    *args[:5], rows=rows,
+                                    use_weights=use_weights, use_ehh=use_ehh)
+        assert torch.equal(exact.nan_to_num(9.0), want.nan_to_num(9.0))
+
+
+@pytest.mark.gpu
+def test_dryrun_multidevice_on_card(cuda_device):
+    """Every multi-device path on a (4, 2) grid of cuda:0 against one
+    device, through the real kernels."""
+    from impop_tpu_torch.parallel.dryrun import dryrun_multidevice
+
+    peel, sums = seed_peel.launches, masked_pair_sums.launches
+    report = dryrun_multidevice(8, "cuda:0")
+    assert report["scan_step_over bitwise"] is True
+    assert seed_peel.launches > peel and masked_pair_sums.launches > sums

@@ -3,12 +3,14 @@ every module of impop_tpu_torch in a fresh interpreter, and running a tiny
 ``scan`` and ``tajd`` through ``python -m impop_tpu_torch.cli`` on the CPU,
 must leave ``jax`` and every ``impop_tpu`` / ``impop_tpu.*`` module out of
 ``sys.modules`` (the machine with the card has no JAX at all); so must
-``ehh`` (matrix and extraction mode), ``sfs`` and ``makewindows``.  Also: the
-device helper never moves to the CPU by itself, and nothing builds a kernel
-at import time."""
+``ehh`` (matrix and extraction mode), ``sfs`` and ``makewindows``, and the
+two processes of a ``scan --distributed`` on the CPU.  Also: the device
+helper never moves to the CPU by itself, and nothing builds a kernel at
+import time."""
 from __future__ import annotations
 
 import os
+import socket
 import subprocess
 import sys
 
@@ -32,7 +34,11 @@ MODULES = [
     "impop_tpu_torch.ops.idgroup", "impop_tpu_torch.ops.pairdiff",
     "impop_tpu_torch.ops.panelquad", "impop_tpu_torch.ops.seedpeel",
     "impop_tpu_torch.ops.windowstat", "impop_tpu_torch.parallel",
-    "impop_tpu_torch.parallel.scan", "impop_tpu_torch.runtime.batcher",
+    "impop_tpu_torch.parallel.scan", "impop_tpu_torch.parallel.mesh",
+    "impop_tpu_torch.parallel.distributed",
+    "impop_tpu_torch.parallel.longwindow",
+    "impop_tpu_torch.parallel.pairspace", "impop_tpu_torch.parallel.dryrun",
+    "impop_tpu_torch.runtime.batcher",
     "impop_tpu_torch.runtime.journal", "impop_tpu_torch.runtime.profiling",
     "impop_tpu_torch.runtime.sitestream", "impop_tpu_torch.stats.allele",
     "impop_tpu_torch.stats.api", "impop_tpu_torch.stats.diversity",
@@ -47,6 +53,51 @@ FORBIDDEN = ("bad = sorted(m for m in sys.modules if m in ('jax', 'impop_tpu')"
              " or m.startswith(('jax.', 'impop_tpu.')))\n"
              "print('forbidden:', bad)\n"
              "sys.exit(1 if bad else 0)\n")
+
+
+# the CLI as ``python -c``, then the check of sys.modules
+RUN_CLI = ("import runpy, sys\n"
+           "sys.argv = ['impop_tpu_torch.cli'] + sys.argv[1:]\n"
+           "try:\n"
+           "    runpy.run_module('impop_tpu_torch.cli', run_name='__main__')\n"
+           "except SystemExit as e:\n"
+           "    if e.code:\n"
+           "        raise\n" + FORBIDDEN)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, world=2, timeout=300):
+    """``argv`` in ``world`` processes of one gloo group on this host;
+    returns their stdout.  A process that does not end within
+    ``timeout`` seconds fails the test."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RUN_CLI, *argv], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("distributed scan timed out")
+        assert p.returncode == 0, out + err
+        assert "forbidden: []" in out, out
+        outs.append(out)
+    return outs
 
 
 def _run_clean(code, cwd):
@@ -134,3 +185,22 @@ def test_resolve_device_never_falls_back():
         resolve_device("cuda")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_distributed_scan_runs_without_jax(tmp_path):
+    """``scan --distributed --device cpu`` in two processes of one gloo
+    group, on windows made by the port's simulator: each process writes
+    its part and loads neither ``jax`` nor ``impop_tpu``."""
+    from impop_tpu_torch.hostio import simulate
+
+    sim = simulate(str(tmp_path), ref_len=3000, n_haps=6, seed=5,
+                   site_pool=20, span=(0, 3000))
+    bed = tmp_path / "w.bed"
+    bed.write_text("chr1\t0\t1000\nchr1\t1000\t2000\nchr1\t2000\t3000\n")
+    out = tmp_path / "scan.tsv"
+    run_ranks(["scan", "-b", str(bed), "--paf", sim.paf_path, "--fasta",
+               sim.fasta_path, "-P", "CHM13#0#", "-o", str(out),
+               "--device", "cpu", "--distributed"])
+    rows = [len((tmp_path / f"scan.tsv.part{k}").read_text().splitlines())
+            for k in range(2)]
+    assert rows == [3, 2]                 # a header and 2 + 1 windows

@@ -16,12 +16,17 @@ import torch
 
 from impop_tpu.cli import (_scan_step, _scan_step_fstg_exact,
                            pack_scan_batch)
-from impop_tpu_torch.scanstep import (batch_to_device, row_layout,
+from impop_tpu_torch.scanstep import (row_layout, shard_wire,
                                       scan_step, scan_step_fstg_exact,
                                       wire_unpack)
 
 torch.set_num_threads(1)
 THR = 0.999
+
+
+def on_cpu(flat):
+    """The wire batch as the scan hands it to the step on one device."""
+    return shard_wire(flat, [torch.device("cpu")])[0]
 
 
 def one_device():
@@ -90,7 +95,7 @@ def assert_rows(got, want, p_count, n_pairs, want_ehh=False):
 
 def test_wire_unpack_inverts_pack():
     flat, (geno, member, smask, panels, lengths, _, _), _ = batch(1)
-    g, m, sm, pn, ln, wt, fc = wire_unpack(batch_to_device(flat, "cpu"), 128,
+    g, m, sm, pn, ln, wt, fc = wire_unpack(on_cpu(flat), 128,
                                            128, 4)
     np.testing.assert_array_equal(g.numpy(), geno)
     np.testing.assert_array_equal(m.numpy(), member)
@@ -103,7 +108,7 @@ def test_wire_unpack_inverts_pack():
 def test_wire_unpack_weights_and_focal():
     flat, (geno, _, _, _, _, wts, focals), _ = batch(
         5, use_weights=True, use_ehh=True)
-    dev_flat = batch_to_device(flat, "cpu")
+    dev_flat = on_cpu(flat)
     g, _, _, _, _, wt, fc = wire_unpack(dev_flat, 128, 128, 4, True, True)
     np.testing.assert_array_equal(g.numpy(), geno)
     np.testing.assert_array_equal(wt.numpy(), wts)
@@ -119,7 +124,7 @@ def test_scan_step_matches_jax(disjoint, partial, p):
     step = _scan_step(128, 128, p, pairs, THR, False, False, 512, True,
                       disjoint and bool(pairs), one_device())
     want = np.asarray(step(flat))
-    got = scan_step(batch_to_device(flat, "cpu"), 128, 128, p, pairs, THR,
+    got = scan_step(on_cpu(flat), 128, 128, p, pairs, THR,
                     disjoint and bool(pairs)).numpy()
     assert_rows(got, want, p, len(pairs))
     if partial:
@@ -136,7 +141,7 @@ def test_scan_step_options_match_jax(weights, ehh, afs, disjoint, folded):
     step = _scan_step(128, 128, 4, pairs, THR, weights, afs, 60, folded,
                       disjoint, one_device(), ehh)
     want = np.asarray(step(flat))
-    got = scan_step(batch_to_device(flat, "cpu"), 128, 128, 4, pairs, THR,
+    got = scan_step(on_cpu(flat), 128, 128, 4, pairs, THR,
                     disjoint, weights, ehh, afs, 60, folded).numpy()
     assert_rows(got, want, 4, len(pairs), ehh)
 
@@ -149,7 +154,7 @@ def test_fstg_exact_weighted_step_matches_jax(ehh):
                            use_weights=True, use_ehh=ehh)
     step = _scan_step_fstg_exact(128, 128, 4, pairs, THR, True, one_device())
     want = np.asarray(step(flat))
-    dev_flat = batch_to_device(flat, "cpu")
+    dev_flat = on_cpu(flat)
     got = scan_step_fstg_exact(dev_flat, 128, 128, 4, pairs, THR,
                                use_weights=True, use_ehh=ehh).numpy()
     np.testing.assert_allclose(got, want, atol=2e-3)
@@ -164,9 +169,9 @@ def test_fstg_exact_step_matches_jax():
     step = _scan_step_fstg_exact(128, 128, 4, pairs, THR, False,
                                  one_device())
     want = np.asarray(step(flat))
-    got = scan_step_fstg_exact(batch_to_device(flat, "cpu"), 128, 128, 4,
+    got = scan_step_fstg_exact(on_cpu(flat), 128, 128, 4,
                                pairs, THR).numpy()
     np.testing.assert_allclose(got, want, atol=2e-3)
-    rows = scan_step_fstg_exact(batch_to_device(flat, "cpu"), 128, 128, 4,
+    rows = scan_step_fstg_exact(on_cpu(flat), 128, 128, 4,
                                 pairs, THR, rows=[0, 2]).numpy()
     np.testing.assert_array_equal(rows, got[[0, 2]])

@@ -371,8 +371,13 @@ def test_cmd_tajd_without_streaming_flags(inputs, tmp_path):
 
 @pytest.mark.parametrize("method", ["direct", "grouped"])
 def test_pair_shard_on_is_refused(inputs, method):
-    argv = base("hud", inputs, "geno") + [
+    """``--pair-shard on`` refuses what the JAX command refuses: the
+    grouped method, and the direct method without an allele source (it
+    splits allele tiles, not similarity matrices)."""
+    source, match = (("sim", "needs an allele source") if method == "direct"
+                     else ("geno", "direct method only"))
+    argv = base("hud", inputs, source) + [
         "-m", method, "-A", str(inputs / "popA.txt"), "-B",
         str(inputs / "popB.txt"), "--pair-shard", "on", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="Queue 1, multi-GPU"):
+    with pytest.raises(SystemExit, match=match):
         torch_main(argv)
