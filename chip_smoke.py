@@ -111,10 +111,21 @@ Phases (one line each; any failure exits non-zero):
      and ``hfst --pair-shard on`` against ``off`` on 1200-row tiles;
      ``site_sharded_window_stats`` on a (2, 2) grid against (1, 1) at
      [512, 8192] x 8; ``parallel.dryrun.dryrun_multidevice(8, cuda:0)``
+  D1 the measurement and verification entry points of
+     ``impop_tpu_torch.bench`` on the card, small: ``python -m
+     impop_tpu_torch.bench --batch 320 --iters 4 --e2e-mb 2`` (two
+     baseline windows, one pass; its JSON line with bench.py's keys),
+     ``check_device_oracle`` (8 windows, both routes against the float64
+     oracle), ``gpu_smoke`` (cap 256 ``--ehh``; overlapping panels card
+     against CPU), ``pairwise`` ([512, 8192]), ``panelstep`` ([512, 128] x
+     320), ``windowstat`` (320 windows, then S = 128 .. 16 384 at 8
+     windows, the routes agreeing); then the seed-pair debug guard with
+     its flag set on the guard test's inputs (padded to N = 32).  All
+     seven kernels must launch during D1.
 
-Each main path (3-4, 5, 6, 7, 8, A1, 9, B1, C1) starts with every kernel
-launch count at 0 and fails unless each kernel of that path was launched
-during it.
+Each main path (3-4, 5, 6, 7, 8, A1, 9, B1, C1, D1) starts with every
+kernel launch count at 0 and fails unless each kernel of that path was
+launched during it.
 
 Every kernel line of phase 2 gives its time, its plain version's, its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the H100
@@ -145,6 +156,9 @@ sys.path.insert(0, HERE)
 from impop_tpu_torch.bench.inputs import (  # noqa: E402
     BATCH, CAP_N, CAP_S, N_HAP, PANEL_SIZES, THRESHOLD, WIN_BP, hprc_batch,
     long_batch, to_dev)
+from impop_tpu_torch.bench.pairwise import zv_operands  # noqa: E402
+from impop_tpu_torch.bench.roofline import (  # noqa: E402
+    H100_BYTES_PER_S, bound, nbytes, nvidia_smi_line)
 
 SCAN_BP = 2_000_000           # simulated pangenome for the scan phase
 RTOL = 1e-5                   # floats: f32 sums in another order
@@ -154,29 +168,8 @@ INT_KEYS = ("n", "num_groups", "pairs_used2", "cnt_aa", "cnt_bb", "cnt_ab",
 FLOAT_KEYS = ("quad", "sum_aa", "sum_bb", "sum_ab", "gdxy")
 
 
-# NVIDIA H100 SXM data sheet, dense: memory rate and peak rates by type
-# (int32: 64 lanes per SM, half the fp32 rate)
-H100_BYTES_PER_S = 3.35e12
-H100_PEAK = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12,
-             "int32": 33.5e12}
-
-
 class SmokeError(RuntimeError):
     pass
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: float, **ops) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of the bytes over the memory rate and each type's
-    operations over its peak rate."""
-    t_bytes = n_bytes / H100_BYTES_PER_S
-    t_ops = max((n / H100_PEAK[k] for k, n in ops.items()), default=0.0)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def tri_pairs(n: int) -> int:
@@ -195,16 +188,6 @@ def set_bound(report, name, ms, n_bytes, library_ms=None, **ops):
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        raise SmokeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ phase 2
@@ -760,17 +743,6 @@ def phase_kernels(dev, report, profiles):
                              lambda a=peel_args: seed_peel(*a), k_ms))
     say("2e", "seed_peel seeds and gid equal to the plain composition; "
         + "; ".join(lines))
-
-
-def zv_operands(geno, member, smask):
-    """The stacked ±1/0 bf16 operands [z; v] of the unit-weight Grams,
-    [2W, N, S], for the one-call yardstick."""
-    import torch
-
-    valid = (geno >= 0) & member[..., :, None] & smask[..., None, :]
-    v = valid.to(torch.bfloat16)
-    z = torch.where(valid, 2 * geno.clamp(min=0) - 1, 0).to(torch.bfloat16)
-    return torch.cat([z, v], 0)
 
 
 def phase_identity_kernel(dev, report):
@@ -2213,6 +2185,109 @@ def time_multidevice(step, smi):
         f"(1, 1) {cuda_time_ms(one, 5):.4f} ms (CUDA events; {smi})")
 
 
+# ------------------------------------------------------------------ D1
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "vs_baseline_detail",
+              "e2e", "long_window", "ehh", "ehh_fused", "device"}
+
+
+def run_twin(tag, main, argv) -> list:
+    """One of impop_tpu_torch.bench's entry points in this process, its
+    output said under D1; fails unless it returns 0.  Returns its lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    for ln in lines:
+        say("D1", f"{tag}: {ln}")
+    if rc:
+        raise SmokeError(f"D1: {tag} {' '.join(argv)} exited {rc}")
+    say("D1", f"{tag} took {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def d1_seed_guard(dev):
+    """The seed-pair debug guard on the card, on tests/test_panelstats.py's
+    guard inputs (4 members, two panels of two, every member its own seed)
+    padded with non-member rows to N = 32, the seed peel's width: silent
+    with every pair present, one missing pair (the JAX guard's count on
+    the unpadded inputs) for disjoint and overlapping pairs when the (0,
+    2) cross pair lacks data."""
+    import re
+    import warnings
+
+    import torch
+
+    from impop_tpu_torch.stats import panelstats
+
+    n = 32
+    member = torch.zeros(n, dtype=torch.bool, device=dev)
+    member[:4] = True
+    pmasks = torch.zeros((2, n), dtype=torch.bool, device=dev)
+    pmasks[0, :2] = True
+    pmasks[1, 2:4] = True
+    sim = torch.full((n, n), 0.5, device=dev).fill_diagonal_(1.0)
+    ok = torch.ones((n, n), dtype=torch.bool, device=dev)
+    bad = ok.clone()
+    bad[0, 2] = bad[2, 0] = False
+    saved = panelstats.DEBUG_SEED_INVARIANT
+    panelstats.DEBUG_SEED_INVARIANT = True
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            panelstats.fused_panel_stats(sim, ok, member, pmasks, (0,), (1,),
+                                         0.999, pairs_disjoint=True)
+        for disjoint in (True, False):
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                panelstats.fused_panel_stats(sim, bad, member, pmasks, (0,),
+                                             (1,), 0.999,
+                                             pairs_disjoint=disjoint)
+            counts = [int(m.group(1)) for m in (
+                re.search(r"(\d+) group-seed pair", str(w.message))
+                for w in rec) if m]
+            if counts != [1]:
+                raise SmokeError(f"D1: the seed-pair guard (pairs_disjoint="
+                                 f"{disjoint}) warned {counts}, not [1]")
+    finally:
+        panelstats.DEBUG_SEED_INVARIANT = saved
+    say("D1", "seed-pair debug guard on the card: silent with every seed "
+        "pair present, one missing pair counted for disjoint and for "
+        "overlapping pairs (the JAX guard's count)")
+
+
+def phase_bench_twins(dev):
+    """D1: the port's measurement and verification entry points on the
+    card at small sizes, and the debug guard."""
+    from impop_tpu_torch.bench import (check_device_oracle, gpu_smoke,
+                                       pairwise, panelstep, windowstat)
+    from impop_tpu_torch.bench import main as bench_main
+
+    t0 = time.perf_counter()
+    lines = run_twin("bench", bench_main.main,
+                     ["--batch", "320", "--iters", "4", "--e2e-mb", "2",
+                      "--baseline-windows", "2", "--baseline-passes", "1"])
+    out = json.loads(lines[-1])
+    if set(out) != BENCH_KEYS or any(
+            "error" in out[k] for k in ("e2e", "long_window", "ehh",
+                                        "ehh_fused")):
+        raise SmokeError(f"D1: the bench's line is malformed: {lines[-1]}")
+    if not (out["value"] > 0 and out["e2e"]["windows"] == 400):
+        raise SmokeError(f"D1: the bench's numbers are off: {lines[-1]}")
+    run_twin("check_device_oracle", check_device_oracle.main, [])
+    run_twin("gpu_smoke", gpu_smoke.main, [])
+    run_twin("pairwise", pairwise.main, ["--reps", "5"])
+    run_twin("panelstep", panelstep.main, ["--iters", "4"])
+    run_twin("windowstat", windowstat.main,
+             ["--windows", "320", "--sweep-windows", "8", "--iters", "2"])
+    d1_seed_guard(dev)
+    say("D1", f"D1 took {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------------ driver
 
 
@@ -2312,6 +2387,7 @@ def main() -> int:
              ("window_stats", "seed_peel", "ehh_area",
               "pairwise_identity_weighted", "masked_pair_sums",
               "pairwise_identity")),
+            ("D1", lambda: phase_bench_twins(dev), tuple(kernels)),
         ]
         for tag, run, needed in paths:
             for fn in kernels.values():

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -76,9 +75,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("gram_breakdown: needs a CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    from impop_tpu_torch.bench.roofline import nvidia_smi_line
+
+    smi = nvidia_smi_line()
     from impop_tpu_torch.ops._build import _BUILD
 
     os.makedirs(_BUILD, exist_ok=True)

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -175,9 +174,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("sums_group_variants: needs a CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    from impop_tpu_torch.bench.roofline import nvidia_smi_line
+
+    smi = nvidia_smi_line()
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
     sums = {}

@@ -21,7 +21,6 @@ from __future__ import annotations
 import ctypes
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 
@@ -86,9 +85,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("window_breakdown: needs a CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    from impop_tpu_torch.bench.roofline import nvidia_smi_line
+
+    smi = nvidia_smi_line()
     dev = torch.device("cuda")
     geno, member, smask, panels, lengths = inputs.hprc_batch(
         np.random.default_rng(7), inputs.BATCH)

@@ -12,6 +12,7 @@ needed here).  Leading window axes are carried through.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -22,7 +23,49 @@ from impop_tpu_torch.stats.fst import FstResult, _assemble
 from impop_tpu_torch.stats.grouping import greedy_group_panels, group_sizes
 
 __all__ = ["PanelStats", "panel_mask_stack", "fused_panel_stats",
-           "fused_window_stats", "panel_sums", "gdxy_rows", "take"]
+           "composed_window_stats", "fused_window_stats", "panel_sums",
+           "gdxy_rows", "take"]
+
+# Debug guard of the seed-representative grouped-Hudson invariant, read
+# from the environment variable the JAX package reads: with
+# IMPOP_TPU_DEBUG_INVARIANTS=1, fused_panel_stats counts the group-seed
+# pairs its grouped Hudson relies on that lack data and warns when there
+# are any (hud.py would then scan past the seed pair while the fused
+# reduction adds nothing).  Allele-derived matrices never lack a pair; a
+# sparse source might.  Off, the step gains no op and no host sync.
+DEBUG_SEED_INVARIANT = os.environ.get("IMPOP_TPU_DEBUG_INVARIANTS") == "1"
+
+
+def _warn_missing_seed_pairs(missing) -> None:
+    import warnings
+
+    n_bad = int(missing)
+    if n_bad > 0:
+        warnings.warn(
+            f"fused grouped-Hudson: {n_bad} group-seed pair(s) lack data; "
+            "seed-representative FSTG deviates from hud.py -m grouped here "
+            "— use the exact stats/fst.hudson_fst_grouped_pairs path for "
+            "this source",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+
+
+def _seed_pair_guard(rep_a, rep_b, present) -> None:
+    """Count the (within-A, within-B, cross) seed pairs without data over
+    every window and warn when there are any (one read to the host).
+    rep_a / rep_b [..., Q, N] 0/1 seed rows of the grouped-Hudson sides,
+    present [..., N, N]."""
+    p_f = present.to(torch.float32)
+
+    def have(x, y):
+        return torch.einsum("...qn,...nm,...qm->...q", x, p_f, y)
+
+    g_a, g_b = rep_a.sum(dim=-1), rep_b.sum(dim=-1)
+    missing = ((g_a * g_b - have(rep_a, rep_b)).sum()
+               + (g_a * g_a - have(rep_a, rep_a)).sum()
+               + (g_b * g_b - have(rep_b, rep_b)).sum())
+    _warn_missing_seed_pairs(missing.item())
 
 
 class PanelStats(NamedTuple):
@@ -181,17 +224,43 @@ def fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
     sides then reuse the panel groupings); gid an optional [..., R, N]
     grouping over ``panel_mask_stack``'s masks, which skips the grouping
     pass.  On CUDA tensors the masked reductions run in the
-    ``masked_pair_sums`` kernel.
+    ``masked_pair_sums`` kernel.  With ``DEBUG_SEED_INVARIANT`` set, the
+    group-seed pairs of the grouped-Hudson sides that lack data are
+    counted and warned about (one host read a call).
     """
     all_masks, mask_a, mask_b = panel_mask_stack(
         pmasks, member, pair_a, pair_b, pairs_disjoint)
     pq = pmasks.shape[-2] + len(pair_a)
     ia, ib = gdxy_rows(pair_a, pair_b, pq, pairs_disjoint)
+    if gid is None:
+        gid = greedy_group_panels(sim, present, member, all_masks, threshold)
+    if DEBUG_SEED_INVARIANT and len(pair_a) > 0:
+        seeds = group_sizes(gid, all_masks & member[..., None, :]) > 0
+        _seed_pair_guard(take(seeds, ia, -2).to(torch.float32),
+                         take(seeds, ib, -2).to(torch.float32), present)
     out = panel_sums(sim, present, member, all_masks, mask_a, mask_b,
                      threshold, ia, ib, pq, pair_sums=masked_pair_sums,
                      gid=gid)
     return _assemble_from_kernel(out, pq, len(pair_a), pair_a, pair_b,
                                  pairs_disjoint)
+
+
+def composed_window_stats(geno, member, site_mask, length, pmasks, pair_a,
+                          pair_b, threshold, pairs_disjoint: bool = False
+                          ) -> tuple:
+    """(S as f32 [...], PanelStats): the route of
+    :func:`fused_window_stats` past the window kernel's caps, composed of
+    ``identity_from_alleles`` (the unit identity kernel on CUDA tensors),
+    ``segregating_sites`` and :func:`fused_panel_stats`; arguments as
+    there."""
+    from impop_tpu_torch.stats.allele import (identity_from_alleles,
+                                              segregating_sites)
+
+    sim, present = identity_from_alleles(geno, member, site_mask, length)
+    s_count = segregating_sites(geno, member, site_mask).to(torch.float32)
+    res = fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
+                            threshold, pairs_disjoint)
+    return s_count, res
 
 
 def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
@@ -203,9 +272,8 @@ def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
       tensors, its plain version on CPU tensors; nothing of shape [N, N]
       is returned.  Caps the kernel does not take
       (``ops.windowstat.window_kernel_fits``, e.g. more than 65 535 sites)
-      compose ``identity_from_alleles``, ``segregating_sites`` and
-      :func:`fused_panel_stats` on any device, as the JAX package composes
-      above its kernel's cap.
+      take :func:`composed_window_stats` on any device, as the JAX package
+      composes above its kernel's cap.
     - ``return_matrices=True`` (the JAX default): ``identity_group`` (the
       fused identity + grouping kernel on CUDA tensors) writes sim,
       present, the grouping and S, then :func:`fused_panel_stats` runs on
@@ -231,14 +299,9 @@ def fused_window_stats(geno, member, site_mask, length, pmasks, pair_a,
                                                 window_stats)
 
     if not window_kernel_fits(*geno.shape[-2:]):
-        from impop_tpu_torch.stats.allele import (identity_from_alleles,
-                                                  segregating_sites)
-
-        sim, present = identity_from_alleles(geno, member, site_mask, length)
-        s_count = segregating_sites(geno, member, site_mask).to(torch.float32)
-        res = fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
-                                threshold, pairs_disjoint)
-        return None, None, s_count, res
+        return (None, None) + composed_window_stats(
+            geno, member, site_mask, length, pmasks, pair_a, pair_b,
+            threshold, pairs_disjoint)
 
     all_masks, mask_a, mask_b = panel_mask_stack(
         pmasks, member, pair_a, pair_b, pairs_disjoint)

@@ -6,7 +6,8 @@ must leave ``jax`` and every ``impop_tpu`` / ``impop_tpu.*`` module out of
 ``ehh`` (matrix and extraction mode), ``sfs`` and ``makewindows``, and the
 two processes of a ``scan --distributed`` on the CPU.  Also: the device
 helper never moves to the CPU by itself, and nothing builds a kernel at
-import time."""
+import time.  (``python -m impop_tpu_torch.bench`` is checked the same way
+in tests/test_torch_bench.py.)"""
 from __future__ import annotations
 
 import os
@@ -29,7 +30,13 @@ MODULES = [
     "impop_tpu_torch.extract.simulate", "impop_tpu_torch.report",
     "impop_tpu_torch.report.tables", "impop_tpu_torch.report.plots",
     "impop_tpu_torch.bench",
-    "impop_tpu_torch.bench.gram_breakdown",
+    "impop_tpu_torch.bench.gram_breakdown", "impop_tpu_torch.bench.inputs",
+    "impop_tpu_torch.bench.oracle", "impop_tpu_torch.bench.roofline",
+    "impop_tpu_torch.bench.main", "impop_tpu_torch.bench.__main__",
+    "impop_tpu_torch.bench.check_device_oracle",
+    "impop_tpu_torch.bench.gpu_smoke", "impop_tpu_torch.bench.pairwise",
+    "impop_tpu_torch.bench.panelstep", "impop_tpu_torch.bench.windowstat",
+    "impop_tpu_torch.bench.extract", "impop_tpu_torch.bench.extract_smoke",
     "impop_tpu_torch.ops._build", "impop_tpu_torch.ops.ehhdeath",
     "impop_tpu_torch.ops.idgroup", "impop_tpu_torch.ops.pairdiff",
     "impop_tpu_torch.ops.panelquad", "impop_tpu_torch.ops.seedpeel",
@@ -49,8 +56,8 @@ MODULES = [
 ]
 
 
-FORBIDDEN = ("bad = sorted(m for m in sys.modules if m in ('jax', 'impop_tpu')"
-             " or m.startswith(('jax.', 'impop_tpu.')))\n"
+FORBIDDEN = ("bad = sorted(m for m in sys.modules if m in ('jax', 'impop_tpu',"
+             " 'bench', 'oracle') or m.startswith(('jax.', 'impop_tpu.')))\n"
              "print('forbidden:', bad)\n"
              "sys.exit(1 if bad else 0)\n")
 

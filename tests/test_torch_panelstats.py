@@ -153,3 +153,74 @@ def test_tajimas_d_matches_jax():
             getattr(ttaj.tajima_constants(torch.from_numpy(n[4:])), f),
             np.asarray(getattr(jtaj.tajima_constants(jnp.asarray(n[4:])),
                                f)), rtol=1e-6, err_msg=f)
+
+
+def guard_window():
+    """The inputs of tests/test_panelstats.py's guard test: 4 members, two
+    panels of two, sim 0.5 off the diagonal (every member its own seed),
+    and present with the (0, 2) cross pair knocked out."""
+    n = 16
+    member = np.zeros(n, bool)
+    member[:4] = True
+    pmasks = np.zeros((2, n), bool)
+    pmasks[0, :2] = True
+    pmasks[1, 2:4] = True
+    sim = np.full((n, n), 0.5, np.float32)
+    np.fill_diagonal(sim, 1.0)
+    present_ok = np.ones((n, n), bool)
+    present_bad = present_ok.copy()
+    present_bad[0, 2] = present_bad[2, 0] = False
+    return sim, present_ok, present_bad, member, pmasks
+
+
+def warned_count(record) -> list:
+    import re
+
+    return [int(re.search(r"(\d+) group-seed pair", str(w.message)).group(1))
+            for w in record if issubclass(w.category, RuntimeWarning)
+            and "group-seed pair" in str(w.message)]
+
+
+def test_seed_pair_guard_warns_where_jax_does(monkeypatch):
+    """IMPOP_TPU_DEBUG_INVARIANTS: silent when every seed pair has data, a
+    RuntimeWarning for disjoint and for overlapping pairs when one lacks
+    data, with the JAX guard's count."""
+    import warnings
+
+    monkeypatch.setattr(tps, "DEBUG_SEED_INVARIANT", True)
+    monkeypatch.setattr(jps, "DEBUG_SEED_INVARIANT", True)
+    sim, ok, bad, member, pmasks = guard_window()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tps.fused_panel_stats(torch.from_numpy(sim), torch.from_numpy(ok),
+                              torch.from_numpy(member),
+                              torch.from_numpy(pmasks), (0,), (1,), 0.999,
+                              pairs_disjoint=True)
+    for disjoint in (True, False):
+        with pytest.warns(RuntimeWarning, match="group-seed pair") as got:
+            tps.fused_panel_stats(
+                torch.from_numpy(sim), torch.from_numpy(bad),
+                torch.from_numpy(member), torch.from_numpy(pmasks), (0,),
+                (1,), 0.999, pairs_disjoint=disjoint)
+        with pytest.warns(RuntimeWarning, match="group-seed pair") as want:
+            jps.fused_panel_stats(
+                jnp.asarray(sim), jnp.asarray(bad), jnp.asarray(member),
+                jnp.asarray(pmasks), jnp.asarray([0], jnp.int32),
+                jnp.asarray([1], jnp.int32), jnp.float32(0.999),
+                pairs_disjoint=disjoint)
+        assert warned_count(got) == warned_count(want) == [1], disjoint
+
+
+def test_seed_pair_guard_is_not_called_when_off(monkeypatch):
+    """With the flag off, fused_panel_stats never reaches the guard."""
+    def fail(*args):
+        raise AssertionError("the guard ran with the flag off")
+
+    monkeypatch.setattr(tps, "DEBUG_SEED_INVARIANT", False)
+    monkeypatch.setattr(tps, "_seed_pair_guard", fail)
+    sim, _, bad, member, pmasks = guard_window()
+    for disjoint in (True, False):
+        tps.fused_panel_stats(torch.from_numpy(sim), torch.from_numpy(bad),
+                              torch.from_numpy(member),
+                              torch.from_numpy(pmasks), (0,), (1,), 0.999,
+                              pairs_disjoint=disjoint)
