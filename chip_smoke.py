@@ -97,18 +97,27 @@ Phases (one line each; any failure exits non-zero):
   C1 the multi-device and multi-host paths on the one card: the scan's
      first 320 windows as one device batch (plain, then ``--identity-mode
      columns --ehh --afs``) through ``scan``, and the batch the command
-     stepped again on [cuda:0] x 2 and x 4 (``scanstep.scan_step_over``)
-     against one ``scan_step`` (integers exact, pi/D/EHH rtol 1e-5, Fst
-     atol 2e-3; bitwise equality reported), once under the sync debug
-     mode "error", timed at 1, 2 and 4 entries; the exact FSTG recompute
-     (``scanstep.scan_step_fstg_exact_over``) on [cuda:0] x 4 for
-     windows in every shard against the whole batch's, its identity
-     kernel launched by the split call; ``scan --distributed
+     stepped split again on [cuda:0] x 2 and x 4
+     (``scanstep.scan_step_over``) against one ``scan_step`` (integers
+     exact, pi/D/EHH rtol 1e-5, Fst atol 2e-3; bitwise equality
+     reported), once under the sync debug mode "error"; the exact FSTG
+     recompute (``scanstep.scan_step_fstg_exact_over``) on [cuda:0] x 4
+     for windows in every shard against the whole batch's, its identity
+     kernel launched by the split call; then the same windows dealt by
+     ``scan`` in four batches of 80 to [cuda:0] x 1, 2 and 4, three
+     times in turns (``process_devices`` patched): batch j on entry j
+     mod k, one ``scan_step`` each, the copy and the step on one stream,
+     table, journal and spectrum byte-equal at every k, the scan's walls,
+     and the dealt copy, step and copy back under the sync debug mode
+     "error"; split and dealt steps timed per batch at 1, 2 and 4
+     entries, and the step alone; ``scan --distributed
      --afs`` in two processes on the card (gloo, ranks 0 and 1, one GPU
      each) merged by ``merge-parts`` / ``--sum`` against the tables of
      phases 3 and 5; ``pair_sharded_direct_stats`` on [cuda:0] x 4 at N =
      2048, S = 128, Q = 10 against the replicated [2048, 2048] identity,
-     and ``hfst --pair-shard on`` against ``off`` on 1200-row tiles;
+     16 such windows in one call against 16 single calls and the
+     replicated batch, timed per window, and ``hfst --pair-shard on``
+     against ``off`` on 1200-row tiles;
      ``site_sharded_window_stats`` on a (2, 2) grid against (1, 1) at
      [512, 8192] x 8; ``parallel.dryrun.dryrun_multidevice(8, cuda:0)``
   D1 the measurement and verification entry points of
@@ -1841,7 +1850,11 @@ def time_ehh_batch(dev, step, smi):
 # ------------------------------------------------------------------ C1
 
 C1_WINDOWS = 320              # one packed scan batch
+C1_DEAL_BATCH = 80            # four dealt batches of the same windows
+C1_ENTRIES = (1, 2, 4, 4, 2, 1, 1, 2, 4)   # entries of cuda:0, in turns
+C1_DEALT_TIMED = 4            # whole batches a timed call of the dealt step
 PAIR_N, PAIR_S, PAIR_Q = 2048, 128, 10
+PAIR_W = 16                   # windows of one batched pair-shard call
 PAIR_CLI_ROWS = 1200          # above --pair-shard auto's 1024
 LONG_W, LONG_S = 8, 8192
 
@@ -1877,15 +1890,13 @@ def compare_scan_rows(got, want, lay, tag) -> bool:
                                np.nan_to_num(w, nan=7.0)))
 
 
-def c1_split_scan(dev, tmp, pg, step):
-    """``scan`` over the first 320 windows as one device batch (plain,
-    then ``--identity-mode columns --ehh --afs``); the batch the command
-    handed to ``scan_step_over`` again on [cuda:0] x 2 and x 4 against one
-    ``scan_step``, and once under the sync debug mode "error"; then the
-    exact FSTG recompute (``scan_step_fstg_exact_over``) on [cuda:0] x 4
-    for windows in every shard against ``scan_step_fstg_exact`` on the
-    whole batch, its identity kernel counted over the split call alone.
-    ``step`` receives the batches for :func:`time_multidevice`."""
+def c1_split_scan(tag, flat, args, step):
+    """The 320-window batch the scan stepped, again on [cuda:0] x 2 and x 4
+    (``scan_step_over``) against one ``scan_step``, once under the sync
+    debug mode "error"; then the exact FSTG recompute
+    (``scan_step_fstg_exact_over``) on [cuda:0] x 4 for windows in every
+    shard against the whole batch's, its identity kernel counted over the
+    split call alone.  Returns the line's text."""
     import numpy as np
     import torch
 
@@ -1893,81 +1904,208 @@ def c1_split_scan(dev, tmp, pg, step):
     from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
                                               pairwise_identity_weighted)
 
-    bed = os.path.join(tmp, "c1.bed")
-    write_bed(bed, [(lo, lo + WIN_BP)
-                    for lo in range(0, C1_WINDOWS * WIN_BP, WIN_BP)])
-    base = list(pg["base"])
-    base[2] = bed
-    real = scanstep.scan_step_over
-    for tag, flags in (("plain", []),
-                       ("columns --ehh --afs",
-                        ["--identity-mode", "columns", "--ehh", "--afs",
-                         os.path.join(tmp, "c1.afs")])):
-        seen = []
-
-        def record(shards, *args, **kwargs):
-            seen.append((shards, args, kwargs))
-            return real(shards, *args, **kwargs)
-
-        scanstep.scan_step_over = record
-        try:
-            t0 = time.perf_counter()
-            run_scan(base + flags + ["--batch", str(C1_WINDOWS), "-o",
-                                     os.path.join(tmp, "c1.tsv"),
-                                     "--device", dev.type], f"C1 scan {tag}")
-            wall = time.perf_counter() - t0
-        finally:
-            scanstep.scan_step_over = real
-        if len(seen) != 1 or len(seen[0][0]) != 1:
-            raise SmokeError(f"C1 {tag}: the scan made {len(seen)} steps")
-        (flat,), args, kwargs = seen[0]
-        w = kwargs["n_rows"]
-        lay = scanstep.row_layout(args[2], len(args[3]), args[7])
-        one = scanstep.scan_step(flat, *args)
-        shards = {k: scanstep.shard_wire(flat, [flat.device] * k)
-                  for k in (1, 2, 4)}
-        same = []
-        for k in (2, 4):
-            got = scanstep.scan_step_over(shards[k], *args, n_rows=w)
-            same.append(compare_scan_rows(got, one, lay,
-                                          f"C1 {tag} x {k}"))
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            scanstep.scan_step_over(shards[4], *args, n_rows=w)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        rows = [0, w // 4 - 1, w // 4, w // 2 + 1, 3 * w // 4 + 2, w - 1]
-        kw = dict(use_weights=args[6], use_ehh=args[7])
-        want_x = scanstep.scan_step_fstg_exact(flat, *args[:5], rows=rows,
+    w = flat.shape[0]
+    lay = scanstep.row_layout(args[2], len(args[3]), args[7])
+    one = scanstep.scan_step(flat, *args)
+    shards = {k: scanstep.shard_wire(flat, [flat.device] * k)
+              for k in (1, 2, 4)}
+    same = []
+    for k in (2, 4):
+        got = scanstep.scan_step_over(shards[k], *args, n_rows=w)
+        same.append(compare_scan_rows(got, one, lay, f"C1 {tag} x {k}"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scanstep.scan_step_over(shards[4], *args, n_rows=w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = [0, w // 4 - 1, w // 4, w // 2 + 1, 3 * w // 4 + 2, w - 1]
+    kw = dict(use_weights=args[6], use_ehh=args[7])
+    want_x = scanstep.scan_step_fstg_exact(flat, *args[:5], rows=rows, **kw)
+    ident = pairwise_identity_weighted if args[6] else pairwise_identity
+    before = ident.launches
+    got_x = scanstep.scan_step_fstg_exact_over(shards[4], *args[:5], rows,
                                                **kw)
-        ident = pairwise_identity_weighted if args[6] else pairwise_identity
-        before = ident.launches
-        got_x = scanstep.scan_step_fstg_exact_over(shards[4], *args[:5], rows,
-                                                   **kw)
-        ident_launches = ident.launches - before
-        if ident_launches == 0:
-            raise SmokeError(f"C1 {tag}: the split exact recompute launched "
-                             f"no {ident.__name__}")
-        gx, wx = got_x.cpu().numpy(), want_x.cpu().numpy()
-        if gx.shape != wx.shape or not np.array_equal(np.isnan(gx),
-                                                      np.isnan(wx)):
-            raise SmokeError(f"C1 {tag}: split exact FSTG {gx.shape} vs "
-                             f"{wx.shape} or NaN at other places")
-        if not np.allclose(np.nan_to_num(gx), np.nan_to_num(wx), rtol=0.0,
-                           atol=2e-3):
-            raise SmokeError(f"C1 {tag}: split exact FSTG differs")
-        same_x = np.array_equal(gx, wx, equal_nan=True)
-        step.setdefault("c1_scan", []).append((tag, shards, args, w))
-        say("C1", f"split scan {tag}: [{args[0]},{args[1]}]x{w}, "
-            f"{args[2]} panels / {len(args[3])} pairs (scan {wall:.2f} s "
-            f"wall); [cuda:0] x 2 and x 4 equal one scan_step (integers "
+    ident_launches = ident.launches - before
+    if ident_launches == 0:
+        raise SmokeError(f"C1 {tag}: the split exact recompute launched "
+                         f"no {ident.__name__}")
+    gx, wx = got_x.cpu().numpy(), want_x.cpu().numpy()
+    if gx.shape != wx.shape or not np.array_equal(np.isnan(gx),
+                                                  np.isnan(wx)):
+        raise SmokeError(f"C1 {tag}: split exact FSTG {gx.shape} vs "
+                         f"{wx.shape} or NaN at other places")
+    if not np.allclose(np.nan_to_num(gx), np.nan_to_num(wx), rtol=0.0,
+                       atol=2e-3):
+        raise SmokeError(f"C1 {tag}: split exact FSTG differs")
+    same_x = np.array_equal(gx, wx, equal_nan=True)
+    step.setdefault("c1_scan", []).append((tag, shards, args, w))
+    return (f"[cuda:0] x 2 and x 4 split equal one scan_step (integers "
             f"exact, pi/D/EHH rtol 1e-5, Fst atol 2e-3), bitwise "
             f"{'yes' if all(same) else 'no'}; the sync debug mode found no "
             "synchronising call in the split step; exact FSTG of windows "
             f"{rows} on [cuda:0] x 4 equals the whole batch's (atol 2e-3, "
             f"bitwise {'yes' if same_x else 'no'}), {ident.__name__} "
             f"launched {ident_launches} times by the split call")
+
+
+class DealSpy:
+    """``process_devices`` patched to k entries of cuda:0 (distinct
+    ``torch.device`` objects); records the entry of every dealt batch, its
+    host batch, the current stream of the dealing thread and of the step,
+    and every stepped wire."""
+
+    def __init__(self, dev, k):
+        import torch
+
+        from impop_tpu_torch import scanstep
+        from impop_tpu_torch.parallel import distributed
+
+        self.modules = (scanstep, distributed)
+        self.entries = [torch.device(dev.type, dev.index) for _ in range(k)]
+        self.dealt, self.stepped = [], []
+        self.real = (scanstep.deal_wire, scanstep.scan_step,
+                     distributed.process_devices)
+
+    def __enter__(self):
+        import torch
+
+        scanstep, distributed = self.modules
+        real_deal, real_step, _ = self.real
+
+        def deal(flat, entry):
+            wire = real_deal(flat, entry)
+            index = next(i for i, e in enumerate(self.entries) if e is entry)
+            self.dealt.append((index, flat, wire,
+                               torch.cuda.current_stream(entry)))
+            return wire
+
+        def step(flat, *args):
+            self.stepped.append((flat, args,
+                                 torch.cuda.current_stream(flat.device)))
+            return real_step(flat, *args)
+
+        scanstep.deal_wire, scanstep.scan_step = deal, step
+        distributed.process_devices = lambda name: self.entries
+        return self
+
+    def __exit__(self, *exc):
+        scanstep, distributed = self.modules
+        (scanstep.deal_wire, scanstep.scan_step,
+         distributed.process_devices) = self.real
+
+    def check(self, tag, n_batches):
+        k = len(self.entries)
+        got = [i for i, *_ in self.dealt]
+        if got != [j % k for j in range(n_batches)]:
+            raise SmokeError(f"C1 {tag} x {k}: batches dealt to entries "
+                             f"{got}")
+        if len(self.stepped) != n_batches or any(
+                flat is not wire for (_, _, wire, _), (flat, *_) in zip(
+                    self.dealt, self.stepped)):
+            raise SmokeError(f"C1 {tag} x {k}: {len(self.stepped)} steps, "
+                             "not one on each dealt batch")
+        if any(s_deal != s_step for (*_, s_deal), (*_, s_step) in zip(
+                self.dealt, self.stepped)):
+            raise SmokeError(f"C1 {tag} x {k}: the copy and the step ran "
+                             "on different streams")
+
+
+def c1_scan(dev, tmp, pg, step):
+    """``scan`` over the first 320 windows (plain, then ``--identity-mode
+    columns --ehh --afs``): once as one device batch, whose batch is split
+    again by :func:`c1_split_scan`; then dealt in four batches of 80 to
+    [cuda:0] x 1, 2 and 4, three times in turns, through
+    ``process_devices``: batch j
+    on entry j mod k, one step on each, the copy and the step on one
+    stream, table, journal and spectrum byte-equal at every k, three
+    scans at each k in turns; the dealt batches once more under the sync
+    debug mode "error" (copy, step and the copy of the rows back).  ``step`` receives the batches for
+    :func:`time_multidevice`."""
+    import torch
+
+    from impop_tpu_torch import scanstep
+    from impop_tpu_torch.device import on_device
+
+    bed = os.path.join(tmp, "c1.bed")
+    write_bed(bed, [(lo, lo + WIN_BP)
+                    for lo in range(0, C1_WINDOWS * WIN_BP, WIN_BP)])
+    base = list(pg["base"])
+    base[2] = bed
+    for ti, (tag, flags) in enumerate((
+            ("plain", []),
+            ("columns --ehh --afs", ["--identity-mode", "columns",
+                                     "--ehh"]))):
+        afs = ["--afs", os.path.join(tmp, "c1.afs")] if flags else []
+        with DealSpy(dev, 1) as spy:
+            t0 = time.perf_counter()
+            run_scan(base + flags + afs + [
+                "--batch", str(C1_WINDOWS), "-o", os.path.join(tmp, "c1.tsv"),
+                "--device", dev.type], f"C1 scan {tag}")
+            wall = time.perf_counter() - t0
+        spy.check(tag, 1)
+        flat, args, _ = spy.stepped[0]
+        split_text = c1_split_scan(tag, flat, args, step)
+
+        walls, outputs, spies = [], [], {}
+        for k in C1_ENTRIES:
+            out = os.path.join(tmp, f"c1.{ti}.deal{len(walls)}")
+            extra = ["--afs", out + ".afs"] if flags else []
+            with DealSpy(dev, k) as spy:
+                t0 = time.perf_counter()
+                run_scan(base + flags + extra + [
+                    "--batch", str(C1_DEAL_BATCH), "-o", out + ".tsv",
+                    "--journal", out + ".jsonl", "--device", dev.type],
+                    f"C1 dealt scan {tag} x {k}")
+                walls.append(time.perf_counter() - t0)
+            spy.check(tag, C1_WINDOWS // C1_DEAL_BATCH)
+            spies[k] = spy
+            outputs.append([out + ext for ext in (".tsv", ".jsonl")
+                            + ((".afs",) if flags else ())])
+        for got in outputs[1:]:
+            for path_a, path_b in zip(outputs[0], got):
+                same_file(path_a, path_b, f"C1 dealt scan {tag}: "
+                          f"{os.path.basename(path_b)} differs from "
+                          f"{os.path.basename(path_a)}")
+        # the batches dealt to [cuda:0] x 4 under the sync debug mode: no
+        # call of the copy, the step or the copy back waits for the card
+        spy = spies[4]
+        want = [scanstep.scan_step(wire, *a) for wire, a, _ in spy.stepped]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fetched = []
+            for j, (_, host, *_) in enumerate(spy.dealt):
+                entry = spy.entries[j % len(spy.entries)]
+                wire = scanstep.deal_wire(host, entry)
+                with on_device(entry):
+                    fetched.append(scanstep.rows_to_host(
+                        scanstep.scan_step(wire, *spy.stepped[j][1])))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for (rows, done), ref in zip(fetched, want):
+            done.synchronize()
+            if not torch.equal(rows.nan_to_num(9.0),
+                               ref.cpu().nan_to_num(9.0)):
+                raise SmokeError(f"C1 dealt {tag}: rows under the sync "
+                                 "debug mode differ")
+        by_k = {k: [t for e, t in zip(C1_ENTRIES, walls) if e == k]
+                for k in sorted(set(C1_ENTRIES))}
+        say("C1", f"scan {tag}: [{args[0]},{args[1]}]x{C1_WINDOWS}, "
+            f"{args[2]} panels / {len(args[3])} pairs, one batch (scan "
+            f"{wall:.2f} s wall); {split_text}; dealt in "
+            f"{C1_WINDOWS // C1_DEAL_BATCH} batches of {C1_DEAL_BATCH} to "
+            "[cuda:0] x " + " / ".join(str(k) for k in C1_ENTRIES)
+            + ": batch j on entry j mod k, one scan_step each, copy and "
+            "step on one stream; table, journal"
+            + (" and spectrum" if flags else "")
+            + " byte-equal at every k; scan walls (s, in run order; "
+            "median) " + "; ".join(
+                f"x {k} " + " / ".join(f"{t:.3f}" for t in ts)
+                + f" ({statistics.median(ts):.3f})"
+                for k, ts in by_k.items())
+            + "; the sync debug mode found no synchronising call in the "
+            "dealt copy, step and copy back")
 
 
 def c1_distributed(tmp, pg):
@@ -2023,10 +2161,57 @@ def c1_distributed(tmp, pg):
         "file of phase 5, identical")
 
 
+def pair_windows(rng, n_win):
+    """``n_win`` windows [N, S] = [2048, 128] of 12 haplotype classes with
+    0.2% private flips and 1% missing calls; the last 40 rows are not
+    members, the last 9 sites masked off; ten pairs of five panels."""
+    import numpy as np
+
+    g = np.empty((n_win, PAIR_N, PAIR_S), np.int8)
+    for wi in range(n_win):
+        classes = rng.integers(0, 2, size=(12, PAIR_S)).astype(np.int8)
+        gw = classes[rng.integers(0, 12, size=PAIR_N)]
+        gw = np.where(rng.random(gw.shape) < 0.002, 1 - gw, gw)
+        gw[rng.random(gw.shape) < 0.01] = -1
+        g[wi] = gw
+    member = np.ones((n_win, PAIR_N), bool)
+    member[:, -40:] = False
+    smask = np.ones((n_win, PAIR_S), bool)
+    smask[:, -9:] = False
+    edges = np.linspace(0, PAIR_N - 40, 6).astype(int)
+    pairs = [(i, j) for i in range(5) for j in range(i + 1, 5)]
+    ma = np.zeros((n_win, PAIR_Q, PAIR_N), bool)
+    mb = np.zeros((n_win, PAIR_Q, PAIR_N), bool)
+    for q, (i, j) in enumerate(pairs):
+        ma[:, q, edges[i]:edges[i + 1]] = True
+        mb[:, q, edges[j]:edges[j + 1]] = True
+    return g, member, smask, ma, mb
+
+
+def check_pair_stats(got, ref, s_want, what):
+    """Pair-shard outputs against (pi_a, pi_b, dxy, fst) of a reference:
+    pi/dxy rtol 1e-5, Fst atol 2e-3, S equal."""
+    import numpy.testing as npt
+
+    try:
+        for k in range(3):
+            npt.assert_allclose(got[k].cpu().numpy(),
+                                ref[k].cpu().numpy(), rtol=1e-5, atol=1e-7)
+        npt.assert_allclose(got[3].cpu().numpy(), ref[3].cpu().numpy(),
+                            rtol=0, atol=2e-3)
+    except AssertionError as e:
+        raise SmokeError(f"C1 pair shard, {what}: {e}") from None
+    if not (got[4].cpu() == s_want.cpu()).all():
+        raise SmokeError(f"C1 pair shard, {what}: S {got[4].tolist()} vs "
+                         f"{s_want.tolist()}")
+
+
 def c1_pair_shard(dev, tmp, step):
     """``pair_sharded_direct_stats`` on [cuda:0] x 4 at N = 2048 against
-    the replicated [N, N] identity, then ``hfst --pair-shard on`` against
-    ``off`` on 1200-row tiles."""
+    the replicated [N, N] identity, for one window and for a device batch
+    of 16 windows in one call against 16 single calls and the replicated
+    batch; then ``hfst --pair-shard on`` against ``off`` on 1200-row
+    tiles."""
     import numpy as np
     import numpy.testing as npt
     import torch
@@ -2076,10 +2261,40 @@ def c1_pair_shard(dev, tmp, step):
     want_s = int(segregating_sites(t[0], t[1], t[2]))
     if int(got[4]) != want_s:
         raise SmokeError(f"C1 pair shard: S {int(got[4])} vs {want_s}")
-    step["c1_pair"] = (lambda: fn(*t, float(WIN_BP)), replicated)
+
+    tb = [torch.from_numpy(a).to(dev)
+          for a in pair_windows(np.random.default_rng(24), PAIR_W)]
+    lengths = torch.full((PAIR_W,), float(WIN_BP), device=dev)
+    got_b = fn(*tb, lengths)
+    singles = [fn(*(x[wi] for x in tb), float(WIN_BP))
+               for wi in range(PAIR_W)]
+    stacked = [torch.stack([r[k] for r in singles]) for k in range(5)]
+    check_pair_stats(got_b, stacked, stacked[4], "16 windows in one call "
+                     "against 16 single calls")
+
+    def replicated_batch():
+        sim, present = identity_from_alleles(tb[0], tb[1], tb[2],
+                                             float(WIN_BP))
+        return hudson_fst_direct_pairs(sim, present, tb[3], tb[4])
+
+    ref_b = replicated_batch()
+    check_pair_stats(got_b, (ref_b.pi_a, ref_b.pi_b, ref_b.dxy, ref_b.fst),
+                     segregating_sites(tb[0], tb[1], tb[2]),
+                     "16 windows in one call against the replicated batch")
+    step["c1_pair"] = {   # what: (fn, windows a call of fn)
+        "one call a window": (lambda: fn(*t, float(WIN_BP)), 1),
+        "replicated, one window": (replicated, 1),
+        f"batched, {PAIR_W} windows a call": (lambda: fn(*tb, lengths),
+                                              PAIR_W),
+        f"{PAIR_W} single calls": (lambda: [
+            fn(*(x[wi] for x in tb), float(WIN_BP))
+            for wi in range(PAIR_W)], PAIR_W),
+        f"replicated, {PAIR_W} windows a call": (replicated_batch, PAIR_W)}
     say("C1", f"pair shard [cuda:0] x 4 at N = {PAIR_N}, S = {PAIR_S}, "
         f"Q = {PAIR_Q}: pi/dxy rtol 1e-5, Fst atol 2e-3, S = {want_s} equal "
-        f"to the replicated [{PAIR_N}, {PAIR_N}] path")
+        f"to the replicated [{PAIR_N}, {PAIR_N}] path; {PAIR_W} windows in "
+        f"one call equal {PAIR_W} single calls and the replicated batch "
+        "(pi/dxy rtol 1e-5, Fst atol 2e-3, S equal)")
 
     sim_dir = os.path.join(tmp, "pairsim")
     os.makedirs(sim_dir)
@@ -2149,7 +2364,7 @@ def phase_multidevice(dev, tmp, pg, step):
     from impop_tpu_torch.parallel.dryrun import dryrun_multidevice
 
     t0 = time.perf_counter()
-    c1_split_scan(dev, tmp, pg, step)
+    c1_scan(dev, tmp, pg, step)
     c1_distributed(tmp, pg)
     c1_pair_shard(dev, tmp, step)
     c1_long_window(dev, step)
@@ -2164,7 +2379,10 @@ def time_multidevice(step, smi):
     and 4 entries of cuda:0 (CUDA events, and the card's busy share of
     one step by torch.profiler), the pair shard against the replicated
     path, and the long window's (2, 2) grid against (1, 1)."""
+    import torch
+
     from impop_tpu_torch import scanstep
+    from impop_tpu_torch.device import on_device
 
     for tag, shards, args, w in step["c1_scan"]:
         fns = {k: (lambda sh=sh: scanstep.scan_step_over(sh, *args,
@@ -2176,13 +2394,42 @@ def time_multidevice(step, smi):
             + f" (CUDA events; {smi}); x 1 by kernel: "
             + profile_ops(fns[1], ms[1], top=4) + "; x 4 by kernel: "
             + profile_ops(fns[4], ms[4], top=4))
-    pair, replicated = step["c1_pair"]
+        wire = shards[1][0]
+
+        def dealt(k, wire=wire, args=args):
+            entries = [torch.device(wire.device.type, wire.device.index)
+                       for _ in range(k)]
+
+            def run():
+                for j in range(C1_DEALT_TIMED):
+                    with on_device(entries[j % k]):
+                        scanstep.rows_to_host(scanstep.scan_step(wire, *args))
+            return run
+
+        def step_alone(wire=wire, args=args):
+            for _ in range(C1_DEALT_TIMED):
+                scanstep.scan_step(wire, *args)
+
+        fns = {k: dealt(k) for k in (1, 2, 4)}
+        ms = {k: cuda_time_ms(fn, 10) / C1_DEALT_TIMED
+              for k, fn in fns.items()}
+        alone = cuda_time_ms(step_alone, 10) / C1_DEALT_TIMED
+        say("C1", f"dealt scan step {tag} [{args[0]},{args[1]}]x{w} per "
+            f"batch ({C1_DEALT_TIMED} whole batches dealt over k entries, "
+            "each the step and the copy of its rows to the host): "
+            + ", ".join(f"x {k} {v:.4f} ms" for k, v in ms.items())
+            + f", the step alone {alone:.4f} ms"
+            + f" (CUDA events; {smi}); x 4 by kernel, {C1_DEALT_TIMED} "
+            "batches: " + profile_ops(fns[4], C1_DEALT_TIMED * ms[4], top=4))
     grid, one = step["c1_long"]
-    say("C1", f"pair shard [cuda:0] x 4 at N = {PAIR_N}: "
-        f"{cuda_time_ms(pair, 10):.4f} ms, replicated "
-        f"{cuda_time_ms(replicated, 10):.4f} ms; long window [{CAP_N}, "
-        f"{LONG_S}] x {LONG_W}: (2, 2) {cuda_time_ms(grid, 5):.4f} ms, "
-        f"(1, 1) {cuda_time_ms(one, 5):.4f} ms (CUDA events; {smi})")
+    pair_ms = {}
+    for what, (fn, n_win) in step["c1_pair"].items():
+        pair_ms[what] = cuda_time_ms(fn, 10) / n_win
+    say("C1", f"pair shard [cuda:0] x 4 at N = {PAIR_N}, ms per window: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pair_ms.items())
+        + f"; long window [{CAP_N}, {LONG_S}] x {LONG_W}: (2, 2) "
+        f"{cuda_time_ms(grid, 5):.4f} ms, (1, 1) {cuda_time_ms(one, 5):.4f} "
+        f"ms (CUDA events; {smi})")
 
 
 # ------------------------------------------------------------------ D1

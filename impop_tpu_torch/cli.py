@@ -40,12 +40,12 @@ host-only commands ``spectrum``, ``extract``, ``gfasim``, ``gfa2vcf``,
 ``import-agc``, ``merge-parts``, ``makewindows`` and ``plot`` live in
 ``impop_tpu_torch.hostcmds`` and take no ``--device``.
 
-Several devices: ``scan --device cuda`` splits each batch over every
-local GPU (``scanstep.scan_step_over``); ``scan --distributed`` gives each
+Several devices: ``scan --device cuda`` deals whole batches to the local
+GPUs in turn (``scanstep.deal_wire``); ``scan --distributed`` gives each
 process of a ``torch.distributed`` group its contiguous share of the
 windows and ``.partK`` outputs (``merge-parts`` joins them);
-``hfst`` / ``hud --pair-shard on`` split the pair space of each window over
-the local devices (``parallel.pairspace``).
+``hfst`` / ``hud --pair-shard on`` split the pair space of a device batch
+of windows over the local devices (``parallel.pairspace``).
 """
 from __future__ import annotations
 
@@ -118,20 +118,21 @@ def _open_device(name: str):
 def cmd_scan(args) -> int:
     """Fused scan with a result journal for idempotent resume.
 
-    The batch is split over every local device (``--device cuda``: every
-    GPU; ``cuda:K`` or ``cpu``: that one), as the JAX scan shards it over
-    every local chip.  With ``--distributed`` each process scans its
+    Whole batches are dealt to the local devices in turn (``--device
+    cuda``: every GPU; ``cuda:K`` or ``cpu``: that one): batch k runs on
+    device k mod D, so each batch costs one host enqueue of the step
+    however many GPUs there are, and its rows come back to the host from
+    its own device.  With ``--distributed`` each process scans its
     contiguous share of the windows (``host_window_range``) into
     ``<file>.partK`` outputs for ``merge-parts``."""
-    import torch
-
+    from impop_tpu_torch.device import on_device
     from impop_tpu_torch.parallel.distributed import (finalize,
                                                       host_window_range,
                                                       maybe_initialize,
                                                       process_devices)
-    from impop_tpu_torch.scanstep import (row_layout,
-                                          scan_step_fstg_exact_over,
-                                          scan_step_over, shard_wire)
+    from impop_tpu_torch.scanstep import (deal_wire, row_layout,
+                                          rows_to_host, scan_step,
+                                          scan_step_fstg_exact)
 
     rank, world = maybe_initialize(args.distributed)
     timers = StageTimers()
@@ -304,8 +305,9 @@ def cmd_scan(args) -> int:
                 ]
             return groups, batches
 
-        def prepare_native(extracted, n_chunks):
-            """Wire-pack straight from the native batches' memory + H2D."""
+        def prepare_native(extracted, n_chunks, dev):
+            """Wire-pack straight from the native batches' memory + H2D to
+            ``dev``."""
             groups, batches = extracted
             with timers.stage("build"):
                 failures, kept, rows = [], [], []
@@ -374,13 +376,14 @@ def cmd_scan(args) -> int:
                         focals.astype("<u4").view(np.uint8).reshape(w, 4))
                 disjoint = disjoint_of(panels)
             with timers.stage("h2d"):
-                wire = (shard_wire(flat, devs), w)
+                wire = deal_wire(flat, dev)
             return wire, kept, failures, disjoint, (cap_n, cap_s)
 
-        def prepare_tiles(extracted, n_chunks):
-            """Pad + fused pack + H2D for tiles from --geno-dir/--gfa-dir or
-            the per-window extractor; padding windows are all-zero rows
-            (no members, length 0) and come out inert."""
+        def prepare_tiles(extracted, n_chunks, dev):
+            """Pad + fused pack + H2D to ``dev`` for tiles from
+            --geno-dir/--gfa-dir or the per-window extractor; padding
+            windows are all-zero rows (no members, length 0) and come out
+            inert."""
             tiles, kept, failures = extracted
             if not tiles:
                 return None, kept, failures, False, (0, 0)
@@ -417,7 +420,7 @@ def cmd_scan(args) -> int:
                 flat = pack_scan_batch(geno, member, smask, panels, lengths,
                                        wts, use_weights, focals)
             with timers.stage("h2d"):
-                wire = (shard_wire(flat, devs), w)
+                wire = deal_wire(flat, dev)
             return wire, kept, failures, disjoint, (cap_n, cap_s)
 
         native_path = (geno_src is None and extractor is not None
@@ -429,26 +432,30 @@ def cmd_scan(args) -> int:
             with timers.stage("extract"):
                 return load_chunk(chunk)
 
-        def prepare_stage(fx, n_chunks):
+        def prepare_stage(fx, k):
+            """Chunk k, whole, goes to device k mod D: the deal depends on
+            the chunk's index alone, not on thread timing."""
             prep = prepare_native if native_path else prepare_tiles
-            return prep(fx.result(), n_chunks)
+            return prep(fx.result(), len(chunks), devs[k % len(devs)])
 
         # two-stage host pipeline: chunk k+1 extracts on one worker while
-        # chunk k packs + copies on the other and the device computes chunk
-        # k-1; at most two prepared batches are in flight
+        # chunk k packs + copies on the other and the devices compute the
+        # chunks before it; at least two prepared batches, and one per
+        # device, are in flight
         chunks = [pending[lo:lo + batch_size]
                   for lo in range(0, len(pending), batch_size)]
         pool_x = futures.ThreadPoolExecutor(max_workers=1)
         pool_b = futures.ThreadPoolExecutor(max_workers=1)
         inflight: collections.deque = collections.deque()
         next_submit = 0
+        depth = max(2, len(devs))
 
         def top_up():
             nonlocal next_submit
-            while next_submit < len(chunks) and len(inflight) < 2:
+            while next_submit < len(chunks) and len(inflight) < depth:
                 fx = pool_x.submit(extract_stage, chunks[next_submit])
                 inflight.append(pool_b.submit(prepare_stage, fx,
-                                              len(chunks)))
+                                              next_submit))
                 next_submit += 1
 
         n_done = n_failed = 0
@@ -518,51 +525,52 @@ def cmd_scan(args) -> int:
                 print(row, file=out)
                 n_done += 1
 
-        def exact_fstg(packed, kept, shards, caps):
+        def exact_fstg(packed, kept, wire, caps):
             """Windows flagged seed_risk re-run their grouped Fst through
-            the exact first-found-pair program; only their FSTG changes."""
+            the exact first-found-pair program, on their batch's device;
+            only their FSTG changes."""
             if not with_pairs:
                 return packed
             risk = np.nonzero(packed[:len(kept), lay["risk"]] > 0)[0]
             if risk.size == 0:
                 return packed
-            with timers.stage("device.exact"):
-                exact = scan_step_fstg_exact_over(
-                    shards, caps[0], caps[1], p_count, pair_key, thr,
+            with timers.stage("device.exact"), on_device(wire.device):
+                exact = scan_step_fstg_exact(
+                    wire, caps[0], caps[1], p_count, pair_key, thr,
                     rows=[int(r) for r in risk], use_weights=use_weights,
                     use_ehh=want_ehh).cpu().numpy()
             packed = packed.copy()
             packed[risk, lay["fstg"]:lay["f3"]] = exact
             return packed
 
-        def drain(cout, metas):
-            with timers.stage("fetch"):
-                packed_all = cout.cpu().numpy()   # the barrier
-            off = 0
-            for kept_b, (shards_b, w_b), caps_b in metas:
-                packed_b = exact_fstg(packed_all[off:off + w_b], kept_b,
-                                      shards_b, caps_b)
+        def drain(metas):
+            """Emit a group's batches in chunk order; rows past a batch's
+            kept windows (the padding of a short last chunk) are never
+            read."""
+            for (host, done), kept_b, wire_b, caps_b in metas:
+                with timers.stage("fetch"):
+                    if done is not None:
+                        done.synchronize()        # the barrier
+                    packed_b = host.numpy()
+                packed_b = exact_fstg(packed_b, kept_b, wire_b, caps_b)
                 with timers.stage("emit"):
                     emit_rows(packed_b, kept_b)
-                off += w_b
 
-        # grouped drains: every drain_group outputs are concatenated on the
-        # device and fetched as one array, one group behind the dispatch
-        # front so the device computes while the host drains and emits
+        # grouped drains: each batch's rows are copied to the host from its
+        # own device as soon as its step is queued (no tensor moves between
+        # devices); every drain_group batches the host waits for and emits
+        # the group before, so the devices compute while it drains
         drain_group = max(1, int(args.drain_group or 4))
-        group: list = []        # [(out_dev, kept, wire, caps)]
-        pending_out = None      # (cout, [(kept, wire, caps)...])
+        group: list = []        # [((host, event), kept, wire, caps)]
+        pending_out = None      # the group before, drained next
 
         def flush_group():
             nonlocal pending_out, group
             if not group:
                 return
-            cout = (group[0][0] if len(group) == 1
-                    else torch.cat([o for o, *_ in group], dim=0))
             if pending_out is not None:
-                drain(*pending_out)
-            pending_out = (cout, [(k, d, c) for _, k, d, c in group])
-            group = []
+                drain(pending_out)
+            pending_out, group = group, []
 
         trace = device_trace(args.profile_dir)
         trace.__enter__()
@@ -579,18 +587,18 @@ def cmd_scan(args) -> int:
                     n_failed += 1
                 if wire is None:
                     continue
-                with timers.stage("device"):
-                    shards, w_rows = wire
-                    out_dev = scan_step_over(
-                        shards, caps[0], caps[1], p_count, pair_key, thr,
+                with timers.stage("device"), on_device(wire.device):
+                    out_dev = scan_step(
+                        wire, caps[0], caps[1], p_count, pair_key, thr,
                         disjoint, use_weights, want_ehh, want_afs, afs_bins,
-                        afs_folded, n_rows=w_rows)
-                group.append((out_dev, kept, wire, caps))
+                        afs_folded)
+                    fetched = rows_to_host(out_dev)
+                group.append((fetched, kept, wire, caps))
                 if len(group) >= drain_group:
                     flush_group()
             flush_group()
             if pending_out is not None:
-                drain(*pending_out)
+                drain(pending_out)
         finally:
             pool_x.shutdown(wait=True, cancel_futures=True)
             pool_b.shutdown(wait=True, cancel_futures=True)
@@ -1022,9 +1030,12 @@ def _run_hudson_pair_sharded(args, devs, force: bool) -> Optional[int]:
     and its float64 host derivations are the replicated path's; only the
     f32 summation order differs.
 
+    The windows go in device batches, one call and one host read each.
     Returns None when ``force`` is False and every window is below the
     sharding threshold (the caller takes the replicated batch path).
     """
+    import torch
+
     from impop_tpu_torch.parallel.mesh import make_mesh
     from impop_tpu_torch.parallel.pairspace import pair_sharded_direct_stats
 
@@ -1055,52 +1066,66 @@ def _run_hudson_pair_sharded(args, devs, force: bool) -> Optional[int]:
     cap_n = ((cap_n + n_dev - 1) // n_dev) * n_dev
     cap_s = max(128, max((g.shape[1] for g, _ in tiles), default=1))
     cap_s = ((cap_s + 127) // 128) * 128
+    # one call a device batch: at most _WINDOW_CHUNK_ELEMS int8 cells, and
+    # as many elements of each device's [W, N/D, N] pair block
+    step = max(1, _WINDOW_CHUNK_ELEMS // max(cap_n * cap_s,
+                                             cap_n // n_dev * cap_n))
+
+    def selection(names):
+        if args.exact_names:
+            in_a, in_b = set(pop_a), set(pop_b)
+            return (np.asarray([nm in in_a for nm in names], bool),
+                    np.asarray([nm in in_b for nm in names], bool))
+        m_a, _ = expand_population(pop_a, names)
+        m_b, _ = expand_population(pop_b, names)
+        return (np.asarray([nm in m_a for nm in names], bool),
+                np.asarray([nm in m_b for nm in names], bool))
 
     out = _out_stream(args.output)
     try:
         print(tables.HFST_HEADER, file=out)
-        for reg, (g, names), rs in zip(kept, tiles, region_strings):
-            n, s = g.shape
-            gp = np.full((cap_n, cap_s), -1, np.int8)
-            gp[:n, :s] = g
-            member = np.zeros(cap_n, bool)
-            member[:n] = True
-            smask = np.zeros(cap_s, bool)
-            smask[:s] = True
-            if args.exact_names:
-                in_a = set(pop_a)
-                in_b = set(pop_b)
-                sel_a = np.asarray([nm in in_a for nm in names], bool)
-                sel_b = np.asarray([nm in in_b for nm in names], bool)
-            else:
-                m_a, _ = expand_population(pop_a, names)
-                m_b, _ = expand_population(pop_b, names)
-                sel_a = np.asarray([nm in m_a for nm in names], bool)
-                sel_b = np.asarray([nm in m_b for nm in names], bool)
-            overlap = sel_a & sel_b          # h-fst.py:181-185 strip
-            mask_a = np.zeros((1, cap_n), bool)
-            mask_b = np.zeros((1, cap_n), bool)
-            mask_a[0, :n] = sel_a & ~overlap
-            mask_b[0, :n] = sel_b & ~overlap
-            res = pair_fn(gp, member, smask, mask_a, mask_b,
-                          float(reg.length))
-            pi_a, pi_b, dxy = (float(r[0]) for r in res[:3])
-            pi_xy = 0.5 * (pi_a + pi_b)
-            fst = (dxy - pi_xy) / dxy if dxy > 0 else 0.0
-            da = dxy - pi_xy
-            inv = 1.0 / reg.length
-            print(tables.hfst_row(
-                rs, reg.length, fst,
-                pi_a * inv, pi_b * inv, pi_xy * inv, dxy * inv, da * inv,
-            ), file=out)
-            if args.log_dir:
-                _write_window_log(
-                    args.log_dir, rs, "FST Calculation",
-                    {"region": rs, "method": "direct (pair-sharded)",
-                     "devices": n_dev,
-                     "pi_a": pi_a, "pi_b": pi_b, "pi_xy": pi_xy,
-                     "dxy": dxy, "fst": fst, "da": da,
-                     "per_site_length": reg.length})
+        for lo in range(0, len(kept), step):
+            batch = range(lo, min(lo + step, len(kept)))
+            w = len(batch)
+            gp = np.full((w, cap_n, cap_s), -1, np.int8)
+            member = np.zeros((w, cap_n), bool)
+            smask = np.zeros((w, cap_s), bool)
+            mask_a = np.zeros((w, 1, cap_n), bool)
+            mask_b = np.zeros((w, 1, cap_n), bool)
+            lengths = np.zeros(w, np.float32)
+            for wi, k in enumerate(batch):
+                g, names = tiles[k]
+                n, s = g.shape
+                gp[wi, :n, :s] = g
+                member[wi, :n] = True
+                smask[wi, :s] = True
+                sel_a, sel_b = selection(names)
+                overlap = sel_a & sel_b      # h-fst.py:181-185 strip
+                mask_a[wi, 0, :n] = sel_a & ~overlap
+                mask_b[wi, 0, :n] = sel_b & ~overlap
+                lengths[wi] = kept[k].length
+            res = pair_fn(gp, member, smask, mask_a, mask_b, lengths)
+            # one host read a device batch
+            sums = torch.stack([r[:, 0] for r in res[:3]]).cpu().numpy()
+            for wi, k in enumerate(batch):
+                reg, rs = kept[k], region_strings[k]
+                pi_a, pi_b, dxy = (float(v) for v in sums[:, wi])
+                pi_xy = 0.5 * (pi_a + pi_b)
+                fst = (dxy - pi_xy) / dxy if dxy > 0 else 0.0
+                da = dxy - pi_xy
+                inv = 1.0 / reg.length
+                print(tables.hfst_row(
+                    rs, reg.length, fst,
+                    pi_a * inv, pi_b * inv, pi_xy * inv, dxy * inv, da * inv,
+                ), file=out)
+                if args.log_dir:
+                    _write_window_log(
+                        args.log_dir, rs, "FST Calculation",
+                        {"region": rs, "method": "direct (pair-sharded)",
+                         "devices": n_dev,
+                         "pi_a": pi_a, "pi_b": pi_b, "pi_xy": pi_xy,
+                         "dxy": dxy, "fst": fst, "da": da,
+                         "per_site_length": reg.length})
     finally:
         if out is not sys.stdout:
             out.close()
@@ -1653,7 +1678,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=320,
                    help="windows per device step")
     p.add_argument("--drain-group", type=int, default=4,
-                   help="device batches concatenated per result fetch")
+                   help="device batches whose rows the host waits for "
+                        "and emits at once, one group behind the front")
     p.add_argument("--distributed", action="store_true",
                    help="multi-host: join the gloo process group from "
                         "torchrun's environment (MASTER_ADDR, MASTER_PORT, "

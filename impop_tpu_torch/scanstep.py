@@ -13,13 +13,21 @@ with Q' = max(1, number of pairs) and the EHH block [area_ref, area_alt,
 carriers_ref, carriers_alt].  Unit weights run the whole-window kernel;
 column-mode weights run the weighted identity and masked-sum kernels.
 
-Over several devices (the JAX scan's ``shard_map`` over every local chip,
-``impop_tpu.cli._shard_windows``): :func:`shard_wire` splits the wire batch
-into contiguous row chunks, one per device, padded with all-zero rows (no
-members, length 0: inert); :func:`scan_step_over` queues the step of each
-chunk on its device and gathers the rows back in window order on the
-first device.  No window's statistics depend on another's, so the rows
-equal the one-device step's.
+Over several devices the scan deals whole batches: batch k goes to device
+k mod D by :func:`deal_wire` (one host-to-device copy), its step is queued
+there, and :func:`rows_to_host` brings its packed rows back (one
+device-to-host copy).  Each batch costs one host enqueue of the step
+whatever D is, and no tensor moves between devices.
+
+The counterpart of the JAX scan's ``shard_map`` over every local chip
+(``impop_tpu.cli._shard_windows``) stays as a library: :func:`shard_wire`
+splits one wire batch into contiguous row chunks, one per device, padded
+with all-zero rows (no members, length 0: inert); :func:`scan_step_over`
+queues the step of each chunk on its device and gathers the rows back in
+window order on the first device.  In eager PyTorch each chunk costs a
+whole step's host enqueue, so the scan does not split.  No window's
+statistics depend on another's, so either way the rows equal the
+one-device step's.
 """
 from __future__ import annotations
 
@@ -38,8 +46,8 @@ from impop_tpu_torch.stats.panelstats import (fused_panel_stats,
 from impop_tpu_torch.stats.tajima import tajimas_d
 
 __all__ = ["wire_unpack", "scan_step",
-           "scan_step_fstg_exact", "row_layout", "shard_wire",
-           "scan_step_over", "scan_step_fstg_exact_over"]
+           "scan_step_fstg_exact", "row_layout", "deal_wire", "rows_to_host",
+           "shard_wire", "scan_step_over", "scan_step_fstg_exact_over"]
 
 
 def _bits(seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -172,6 +180,36 @@ def scan_step_fstg_exact(flat: torch.Tensor, cap_n: int, cap_s: int,
         return torch.zeros((0, len(pair_a)), dtype=torch.float32,
                            device=flat.device)
     return torch.stack(out)
+
+
+def deal_wire(flat: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The whole wire batch [W, K] uint8 on ``device``.  On a GPU: one
+    copy through pinned memory, ``non_blocking``, queued on the calling
+    thread's current stream of ``device`` (the default stream unless the
+    caller set another: the scan's step is queued on the same one)."""
+    if flat.dtype != np.uint8 or flat.ndim != 2:
+        raise ValueError(f"wire batch must be uint8 [W, K], got {flat.dtype} "
+                         f"{tuple(flat.shape)}")
+    wire = torch.from_numpy(flat)
+    if device.type != "cuda":
+        return wire
+    return wire.pin_memory().to(device, non_blocking=True)
+
+
+def rows_to_host(out: torch.Tensor):
+    """Queue the copy of a step's packed rows to the host: (host tensor,
+    event).  On a GPU the copy goes into pinned memory on the current
+    stream of ``out``'s device and the event is recorded after it: wait on
+    the event before reading the host tensor.  A CPU tensor is returned as
+    it is, with no event."""
+    if out.device.type != "cuda":
+        return out, None
+    with on_device(out.device):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    return host, done
 
 
 def shard_wire(flat, devices) -> list:

@@ -14,7 +14,8 @@
 - ``hfst`` / ``hud -m direct --pair-shard on --device cpu`` against
   ``--pair-shard off`` of the port and against the JAX command with
   ``--pair-shard on`` (tables within ``test_torch_stats_cli``'s budget),
-  with ``-r`` giving the JAX warning.
+  with ``-r`` giving the JAX warning; and in device batches of two
+  windows, one call a batch.
 """
 from __future__ import annotations
 
@@ -118,6 +119,47 @@ def test_pair_shard_on_matches_off_and_jax(dataset, tmp_path, cmd, capsys):
                       + ["--pair-shard", "on", "-r", "5",
                          "--device", "cpu"]) == 0
     assert "-r rounding does not apply" in capsys.readouterr().err
+
+
+def test_pair_shard_runs_device_batches(dataset, tmp_path, monkeypatch):
+    """With the batch budget shrunk to two windows, ``hfst --pair-shard
+    on`` makes one call (and one host read) for each of three device
+    batches; its table equals ``--pair-shard off`` within the budget and
+    the one-batch run's."""
+    import impop_tpu_torch.cli as cli_mod
+    import impop_tpu_torch.parallel.pairspace as pair_mod
+    from impop_tpu_torch.hostio import _capacity_for
+
+    tmp, bed, tiles = dataset
+    one_batch = tmp_path / "one.tsv"
+    assert torch_main(hudson_argv(["hfst"], tmp, bed, tiles, one_batch)
+                      + ["--pair-shard", "on", "--device", "cpu"]) == 0
+    # 8 haplotypes on one device: a window's int8 cells outnumber its
+    # pair block, so the budget of two windows is two windows' cells
+    monkeypatch.setattr(cli_mod, "_WINDOW_CHUNK_ELEMS",
+                        2 * _capacity_for([8]) * 128)
+    calls = []
+    real = pair_mod.pair_sharded_direct_stats
+
+    def counted(mesh, axis="data"):
+        fn = real(mesh, axis)
+
+        def call(geno, *args):
+            calls.append(geno.shape[0])
+            return fn(geno, *args)
+        return call
+
+    monkeypatch.setattr(pair_mod, "pair_sharded_direct_stats", counted)
+    paths = {}
+    for mode in ("on", "off"):
+        paths[mode] = tmp_path / f"{mode}.tsv"
+        assert torch_main(hudson_argv(["hfst"], tmp, bed, tiles,
+                                      paths[mode])
+                          + ["--pair-shard", mode, "--device", "cpu"]) == 0
+    assert calls == [2, 2, 1]
+    rows = assert_tables_close(paths["on"], paths["off"])
+    assert len(rows) == N_WINDOWS + 1
+    assert_tables_close(paths["on"], one_batch)
 
 
 @pytest.mark.parametrize("name,local_world,want", [

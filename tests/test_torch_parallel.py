@@ -13,7 +13,9 @@ split, pad, gather and reduction runs here).  Compared:
   ``impop_tpu.parallel.longwindow``;
 - ``pair_sharded_direct_stats`` at 2, 4 and 8 against
   ``impop_tpu.parallel.pairspace`` and against the replicated
-  ``hudson_fst_direct_pairs``;
+  ``hudson_fst_direct_pairs``; a batch of windows of different N and S
+  in one call at 1, 2 and 4 against single-window calls (S exact, sums
+  rtol 1e-6) and the JAX function per window;
 - ``host_window_range`` over the partition grid of
   ``tests/test_distributed.py``;
 - ``scanstep.scan_step_over`` on ``[cpu] x 3`` against ``scan_step`` on the
@@ -230,6 +232,61 @@ def test_pair_sharded_matches_jax(n_dev):
         close(got[k], getattr(ref, f), "pi")
     close(got[3], ref.fst, "fst")
     assert int(got[4]) == int(segregating_sites(*t))
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+def test_pair_sharded_batch_matches_single_calls_and_jax(n_dev):
+    """A device batch of windows of different N and S, padded to shared
+    caps (non-member rows, masked-off sites), in one call: each window's
+    S equals its single-window call exactly and its sums (π within A and
+    B, Dxy) agree at rtol 1e-6; each window against the JAX function."""
+    rng = np.random.default_rng(40 + n_dev)
+    shapes = [(24, 40), (32, 64), (16, 17), (40, 96), (36, 50)]
+    cap_n, cap_s, q = 40, 96, 3
+    w = len(shapes)
+    geno = np.full((w, cap_n, cap_s), -1, np.int8)
+    member = np.zeros((w, cap_n), bool)
+    site_mask = np.zeros((w, cap_s), bool)
+    masks_a = np.zeros((w, q, cap_n), bool)
+    masks_b = np.zeros((w, q, cap_n), bool)
+    lengths = np.asarray([5000.0, 1000.0, 0.0, 2500.0, 10000.0], np.float32)
+    windows = []
+    for wi, (n, s) in enumerate(shapes):
+        g = rng.integers(0, 2, size=(n, s)).astype(np.int8)
+        g[rng.random((n, s)) < 0.1] = -1
+        mem = np.ones(n, bool)
+        mem[-3:] = False
+        ma, mb = np.zeros((q, n), bool), np.zeros((q, n), bool)
+        for qi in range(q):
+            perm = rng.permutation(n)
+            ma[qi, perm[:n // 3]] = True
+            mb[qi, perm[n // 3:2 * n // 3]] = True
+        ma &= mem
+        mb &= mem
+        geno[wi, :n, :s] = g
+        member[wi, :n] = mem
+        site_mask[wi, :s] = True
+        masks_a[wi, :, :n] = ma
+        masks_b[wi, :, :n] = mb
+        windows.append((g, mem, np.ones(s, bool), ma, mb))
+
+    fn = pair_sharded_direct_stats(tmesh.make_mesh(data=n_dev,
+                                                   devices=cpus(n_dev)))
+    got = fn(geno, member, site_mask, masks_a, masks_b, lengths)
+    assert [tuple(x.shape) for x in got] == [(w, q)] * 4 + [(w,)]
+    assert got[4].dtype == torch.int32
+    jfn = jpair.pair_sharded_direct_stats(jmesh.make_mesh(data=n_dev),
+                                          axis="data")
+    for wi, arrays in enumerate(windows):
+        one = fn(*arrays, float(lengths[wi]))
+        assert int(got[4][wi]) == int(one[4])
+        for k in range(3):
+            np.testing.assert_allclose(got[k][wi].numpy(), one[k].numpy(),
+                                       rtol=1e-6, atol=1e-12)
+        close(got[3][wi], one[3], "fst")
+        want = jfn(*(jnp.asarray(a) for a in arrays), float(lengths[wi]))
+        for k, kind in enumerate(("pi", "pi", "pi", "fst", "int")):
+            close(got[k][wi], want[k], kind)
 
 
 def test_pair_sharded_needs_rows_divisible():
