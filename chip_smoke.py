@@ -48,6 +48,20 @@ Phases (one line each; any failure exits non-zero):
          profiled by launch, cap 256 with overlapping panels, cap 1152,
          [512, 4096] x 8 (present from OR-ed words) (sim, present, gid, S
          exactly equal)
+     (k) every kernel on the degenerate batches of
+         ``impop_tpu_torch/bench/degenerate.py``: a window with no active
+         site, a monomorphic one, one with every row missing and one with
+         no member at the first, middle and last window of [512, 128] x 8
+         and [1152, 128] x 4, beside an empty and a one-member panel, side
+         by side and overlapping (window kernel, identity_group at R = 15);
+         the seed peel at [512, 512] x 4 with 20 masks; EHH with no and
+         one carrier of the focal allele, monomorphic and memberless
+         windows at N = 512, 37 and 1000; the unit and weighted identity
+         at N = 512, 1024 (streamed), 37 and 1000, with zero weights on
+         every active column; the masked sums with an empty and a one-hot
+         row and a window without present pairs, 0/1 and fp32 Wp (83
+         batches; integers, seeds, gid, sim and present exact, float sums
+         rtol 1e-5, NaN in the same places)
   3  the port's ``scan`` end to end on a simulated 2 Mb, 466-haplotype
      pangenome (400 windows of 5 kb), then the first 20 windows again on
      the CPU, then a journal resume
@@ -131,8 +145,25 @@ Phases (one line each; any failure exits non-zero):
      windows, the routes agreeing); then the seed-pair debug guard with
      its flag set on the guard test's inputs (padded to N = 32).  All
      seven kernels must launch during D1.
+  E1 the JAX package's acceptance workflows (tests/test_acceptance_hostile.py,
+     tests/test_crash_resume.py) with ``--device cuda`` on its hostile
+     chromosome (60 kb x 20 haplotypes, ragged coverage, p_indel 0.7,
+     strand flips, a window past every alignment, a ghost panel): ``scan
+     --ehh`` and ``scan --identity-mode columns --afs``, the crafted
+     tiles through ``scan --geno-dir`` (multiallelic split, seed_risk
+     recompute, a missing tile's NA record), ``extract`` then
+     ``panels-tajd``, ``panels-hfst``, ``sfs`` and ``plot`` (where
+     matplotlib is installed), each against ``--device cpu`` (integers
+     exact, pi/D/EHH rtol 1e-5, Fst/Da atol 2e-3, NA in the same places,
+     journals and spectrum files equal) and the scans against
+     ``impop_tpu_torch/bench/oracle.py`` on every window with data; then
+     a ``--device cuda`` scan killed with SIGKILL in a child process,
+     resumed here: the table byte-equal to a clean card run.  The window
+     kernel, seed peel, EHH, unit and weighted identity and masked sums
+     must launch during E1; its walls are printed with the card's name
+     and power limit.
 
-Each main path (3-4, 5, 6, 7, 8, A1, 9, B1, C1, D1) starts with every
+Each main path (3-4, 5, 6, 7, 8, A1, 9, B1, C1, D1, E1) starts with every
 kernel launch count at 0 and fails unless each kernel of that path was
 launched during it.
 
@@ -942,6 +973,35 @@ def phase_route(dev):
         f"kernel's 65 535 sites, S = {[int(x) for x in s_count.tolist()]}): "
         f"composed route equals window_stats_plain (integers exact, floats "
         f"rtol {RTOL}, Fst atol 2e-3; max abs {worst:.3e})")
+
+
+def phase_degenerate(dev, report):
+    """2k: every kernel against its plain version on the degenerate batches
+    of ``impop_tpu_torch/bench/degenerate.py`` (a window with no active
+    site, a monomorphic one, one with every row missing and one with no
+    member at the first, middle and last window; an empty and a
+    one-member panel; EHH with no and one carrier of an allele; empty and
+    one-hot rows and a window without present pairs for the masked sums;
+    zero weights; N = 37, 1000, 1024 and 1152): integers, seeds, gid, sim
+    and present exact, float sums rtol 1e-5, NaN in the same places."""
+    from impop_tpu_torch.bench import degenerate
+
+    t0 = time.perf_counter()
+    done = {}
+    for name, case in degenerate.CASES.items():
+        try:
+            err = degenerate.compare(*degenerate.run_case(name, dev), name)
+        except AssertionError as e:
+            raise SmokeError(f"2k: {e}") from None
+        cases, worst = done.get(case.kernel, (0, 0.0))
+        done[case.kernel] = (cases + 1, max(worst, err))
+    for kernel, (cases, worst) in done.items():
+        entry = report[kernel]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), worst)
+        say("2k", f"{kernel}: {cases} degenerate batches equal to the plain "
+            f"version (max abs err {worst:.3e})")
+    say("2k", f"{len(degenerate.CASES)} degenerate batches in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -2535,6 +2595,438 @@ def phase_bench_twins(dev):
     say("D1", f"D1 took {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ E1
+
+HOSTILE_BP, HOSTILE_WIN = 60_000, 3000
+
+
+def hostile_chromosome(tmp):
+    """The JAX package's adversarial acceptance fixture
+    (tests/test_acceptance_hostile.py): 60 kb x 20 haplotypes with ragged
+    coverage, p_indel 0.7 and strand flips; twenty 3 kb windows and one
+    past every alignment; panels PA and PB of four samples, a ghost panel
+    PG, and five metadata panels of two samples."""
+    from impop_tpu_torch.extract.simulate import simulate
+
+    d = os.path.join(tmp, "hostile")
+    md = os.path.join(d, "metadata")
+    os.makedirs(md)
+    sim = simulate(d, ref_len=HOSTILE_BP, n_haps=20, site_pool=500,
+                   p_indel=0.7, seed=23, span=None)
+    bed = os.path.join(d, "w.bed")
+    write_bed(bed, [(lo, lo + HOSTILE_WIN)
+                    for lo in range(0, HOSTILE_BP, HOSTILE_WIN)]
+              + [(90_000, 93_000)])
+    samples = sorted({h.name.split("#")[0] for h in sim.haplotypes})
+    lists = {"PA": samples[:4], "PB": samples[4:8],
+             "PG": ["ZZ99998", "ZZ99999"]}
+    lists.update({f"metadata/{grp}": samples[2 * gi:2 * gi + 2]
+                  for gi, grp in enumerate(("EUR", "AFR", "EAS", "SAS",
+                                            "AMR"))})
+    files = {}
+    for name, members in lists.items():
+        head, _, tail = name.rpartition("/")
+        files[tail] = os.path.join(d, head, f"agc.{tail}")
+        with open(files[tail], "w") as fh:
+            fh.write("\n".join(members) + "\n")
+    base = ["scan", "-b", bed, "--paf", sim.paf_path, "--fasta",
+            sim.fasta_path, "-P", "CHM13#0#"]
+    for p in ("PA", "PB", "PG"):
+        base += ["--panel", files[p]]
+    return {"dir": d, "sim": sim, "bed": bed, "files": files, "md": md,
+            "base": base, "n_win": HOSTILE_BP // HOSTILE_WIN + 1}
+
+
+def read_journal(path) -> dict:
+    with open(path) as fh:
+        recs = [json.loads(ln) for ln in fh if ln.strip()]
+    return {r["region"]: r for r in recs}
+
+
+def compare_journals(path_a, path_b, header, tag) -> dict:
+    """Two scans' journals of the same windows: the same regions, NA
+    records in the same places, rows as ``compare_tables`` holds them,
+    spectra equal.  Returns the first's records by region."""
+    ja, jb = read_journal(path_a), read_journal(path_b)
+    if sorted(ja) != sorted(jb):
+        raise SmokeError(f"{tag}: the journals hold other regions")
+    for region, ra in ja.items():
+        rb = jb[region]
+        if ra.get("status") != rb.get("status") or ("row" in ra) != (
+                "row" in rb) or ra.get("afs") != rb.get("afs"):
+            raise SmokeError(f"{tag}: journal records of {region} differ")
+        if "row" in ra:
+            compare_tables(header, [ra["row"].split("\t")],
+                           [rb["row"].split("\t")], f"{tag} journal")
+    return ja
+
+
+def e1_scan(dev, h, tag, flags, afs=False) -> tuple:
+    """``scan <flags>`` over the hostile chromosome on the card and on the
+    CPU: tables, journals and spectra compared; every window journaled,
+    none NA.  Returns (the card's table, walls by device)."""
+    walls, outs = {}, {}
+    for label, side in (("card", dev.type), ("cpu", "cpu")):
+        p = os.path.join(h["dir"], f"{tag}.{label}")
+        walls[label] = run_cli(
+            h["base"] + flags + (["--afs", p + ".afs"] if afs else [])
+            + ["--journal", p + ".jsonl", "-o", p + ".tsv", "--device",
+               side], f"E1 scan {' '.join(flags)} --device {side}")
+        outs[label] = p
+    header, rows = read_table(outs["card"] + ".tsv")
+    _, rows_cpu = read_table(outs["cpu"] + ".tsv")
+    if len(rows) != h["n_win"]:
+        raise SmokeError(f"E1 {tag}: {len(rows)} rows, want {h['n_win']}")
+    compare_tables(header, rows, rows_cpu, f"E1 {tag} card-vs-cpu")
+    recs = compare_journals(outs["card"] + ".jsonl", outs["cpu"] + ".jsonl",
+                            header, f"E1 {tag}")
+    if len(recs) != h["n_win"] or any(r.get("status") == "NA"
+                                      for r in recs.values()):
+        raise SmokeError(f"E1 {tag}: journal has {len(recs)} records or an "
+                         "NA one (want 21 successes)")
+    if afs:
+        same_file(outs["card"] + ".afs", outs["cpu"] + ".afs",
+                  f"E1 {tag}: card and CPU spectrum files differ")
+    return outs["card"] + ".tsv", walls
+
+
+def hostile_sim_dict(g, names, length) -> dict:
+    """{(a, b): the f32 similarity the card computes} for every pair of
+    sorted names with a compared site."""
+    import numpy as np
+
+    valid = g >= 0
+    both = valid[:, None, :] & valid[None, :, :]
+    dcount = ((g[:, None, :] != g[None, :, :]) & both).sum(-1)
+    simm = np.float32(1.0) - dcount.astype(np.float32) / np.float32(length)
+    comp = both.sum(-1)
+    n = len(names)
+    return {(names[i], names[j]): float(simm[i, j])
+            for i in range(n) for j in range(i + 1, n) if comp[i, j] > 0}
+
+
+def hostile_seg_sites(g) -> int:
+    import numpy as np
+
+    valid = g >= 0
+    gmax = np.where(valid, g, -1).max(axis=0)
+    gmin = np.where(valid, g, 127).min(axis=0)
+    return int((valid.any(axis=0) & (gmax > gmin)).sum())
+
+
+def e1_pin_oracle(h, table) -> int:
+    """Every window with data of the card's ``scan --ehh`` table against
+    ``impop_tpu_torch/bench/oracle.py`` through the native extraction, with
+    tests/test_acceptance_hostile.py's pins: S exact, π within 1e-4
+    relative or 1e-3 absolute, the ghost panel's π 0, direct and grouped
+    Fst within 2e-3.  Returns the windows checked."""
+    import numpy as np
+
+    from impop_tpu_torch.bench import oracle
+    from impop_tpu_torch.extract import NativeExtractor
+    from impop_tpu_torch.io.panels import expand_population
+
+    t32 = float(np.float32(THRESHOLD))
+    header, rows = read_table(table)
+    col = {name: i for i, name in enumerate(header)}
+    lists = {}
+    for p in ("PA", "PB"):
+        with open(h["files"][p]) as fh:
+            lists[p] = fh.read().split()
+    checked = 0
+    with NativeExtractor(h["sim"].paf_path, h["sim"].fasta_path) as nat:
+        for row in rows:
+            start, end = map(int, row[0].rsplit(":", 1)[1].split("-"))
+            wm = nat.extract("CHM13#0#chr1", start, end)
+            order = np.argsort(wm.names)
+            g = np.asarray(wm.geno)[order]
+            names = [wm.names[i] for i in order]
+            if g.shape[0] == 0:
+                continue
+            length = float(end - start)
+            sd = hostile_sim_dict(g, names, length)
+            if int(row[col["SEGREGATING_SITES"]]) != hostile_seg_sites(g):
+                raise SmokeError(f"E1 oracle: S at {row[0]}")
+            stems = [nm.split(":", 1)[0] for nm in names]
+            members = {}
+            for p in ("PA", "PB"):
+                hit, _ = expand_population(lists[p], stems)
+                members[p] = [nm for nm, st in zip(names, stems)
+                              if st in hit]
+                keep = set(members[p])
+                want, _ = oracle.pica2_pi(
+                    {k: v for k, v in sd.items()
+                     if k[0] in keep and k[1] in keep}, members[p], t32)
+                got = float(row[col[f"PI_{p}"]]) * length
+                if abs(want - got) > max(1e-4 * abs(want), 1e-3):
+                    raise SmokeError(f"E1 oracle: PI_{p} at {row[0]}: "
+                                     f"{got} vs {want}")
+            if float(row[col["PI_PG"]]) != 0.0:
+                raise SmokeError(f"E1 oracle: the ghost panel's pi at "
+                                 f"{row[0]} is {row[col['PI_PG']]}")
+            if members["PA"] and members["PB"]:
+                for key, fn in (("FST_PA_PB", oracle.hudson_fst_direct),
+                                ("FSTG_PA_PB", oracle.hudson_fst_grouped)):
+                    extra = (t32,) if key.startswith("FSTG") else ()
+                    want = fn(sd, members["PA"], members["PB"], *extra)["fst"]
+                    got = float(row[col[key]])
+                    if abs(want - got) >= 2e-3:
+                        raise SmokeError(f"E1 oracle: {key} at {row[0]}: "
+                                         f"{got} vs {want}")
+            checked += 1
+    if checked < 10:
+        raise SmokeError(f"E1 oracle: only {checked} windows with data")
+    return checked
+
+
+def e1_crafted(dev, h) -> tuple:
+    """The crafted tiles of tests/test_acceptance_hostile.py through
+    ``scan --geno-dir`` on the card and on the CPU: a multiallelic column
+    split for the 2-bit wire, disjoint coverage that trips the exact-FSTG
+    recompute (held to the oracle's first-found-pair FSTG within 2e-3), and
+    a missing tile: one NA journal record, three rows.  Returns (windows
+    pinned, walls)."""
+    import numpy as np
+
+    from impop_tpu_torch.bench import oracle
+    from impop_tpu_torch.hostio import split_multiallelic
+
+    d = os.path.join(h["dir"], "crafted")
+    tiles = os.path.join(d, "tiles")
+    os.makedirs(tiles)
+    rng = np.random.default_rng(3)
+    n, s = 12, 24
+    names = [f"HG{90000 + i // 2:05d}#{i % 2 + 1}#c{i}" for i in range(n)]
+    genos = []
+    for wi in range(3):
+        g = rng.integers(0, 2, size=(n, s)).astype(np.int8)
+        g[:, 5] = rng.integers(0, 3, size=n)
+        g[: n // 2, s // 2:] = -1
+        g[n // 2:, : s // 2] = -1
+        lo = wi * 1000
+        np.savez(os.path.join(tiles, f"chr1:{lo}-{lo + 1000}.npz"), geno=g,
+                 names=np.asarray(names),
+                 site_keys=np.asarray([f"{lo + 10 + 3 * k}:snp"
+                                       for k in range(s)]))
+        genos.append(g)
+    bed = os.path.join(d, "w.bed")
+    write_bed(bed, [(wi * 1000, wi * 1000 + 1000) for wi in range(4)])
+    panels = []
+    for name, ids in (("QA", range(3)), ("QB", range(3, 6))):
+        panels += ["--panel", os.path.join(d, f"agc.{name}")]
+        with open(panels[-1], "w") as fh:
+            fh.write("\n".join(f"HG{90000 + i:05d}" for i in ids) + "\n")
+    walls = {}
+    for label, side in (("card", dev.type), ("cpu", "cpu")):
+        walls[label] = run_cli(
+            ["scan", "-b", bed, "--geno-dir", tiles, "-P", "", *panels,
+             "--journal", os.path.join(d, f"{label}.jsonl"), "-o",
+             os.path.join(d, f"{label}.tsv"), "--device", side],
+            f"E1 crafted scan --device {side}")
+    header, rows = read_table(os.path.join(d, "card.tsv"))
+    _, rows_cpu = read_table(os.path.join(d, "cpu.tsv"))
+    compare_tables(header, rows, rows_cpu, "E1 crafted card-vs-cpu")
+    recs = compare_journals(os.path.join(d, "card.jsonl"),
+                            os.path.join(d, "cpu.jsonl"), header,
+                            "E1 crafted")
+    n_na = sum(r.get("status") == "NA" for r in recs.values())
+    if len(rows) != 3 or n_na != 1:
+        raise SmokeError(f"E1 crafted: {len(rows)} rows and {n_na} NA "
+                         "records, want 3 and 1")
+    order = np.argsort(names)
+    nms = [names[i] for i in order]
+    qa, qb = ([nm for nm in nms if nm[:7] in {f"HG{90000 + i:05d}"
+                                              for i in ids}]
+              for ids in (range(3), range(3, 6)))
+    col = {name: i for i, name in enumerate(header)}
+    pinned = 0
+    for g, row in zip(genos, rows):
+        g2, _ = split_multiallelic(g, [f"{k}:x" for k in range(s)])
+        if int(row[col["SEGREGATING_SITES"]]) != hostile_seg_sites(g2):
+            raise SmokeError(f"E1 crafted: S at {row[0]}")
+        want = oracle.hudson_fst_grouped(
+            hostile_sim_dict(g2[order], nms, 1000.0), qa, qb,
+            float(np.float32(THRESHOLD)))["fst"]
+        got = float(row[col["FSTG_QA_QB"]])
+        if not np.isnan(want):
+            if abs(want - got) >= 2e-3:
+                raise SmokeError(f"E1 crafted: FSTG at {row[0]}: {got} vs "
+                                 f"{want}")
+            pinned += 1
+    if pinned < 1:
+        raise SmokeError("E1 crafted: no window exercised the grouped path")
+    return pinned, walls
+
+
+def e1_workflow(dev, h) -> dict:
+    """extract, then panels-tajd, panels-hfst and sfs on the tiles on the
+    card and on the CPU (each in its own directory: the panels-* commands
+    write into the working directory), then plot where matplotlib is
+    installed.  The .tj and .fst tables as ``compare_stat_tables`` holds
+    them, the spectrum files identical.  Returns the walls."""
+    import glob
+    import importlib.util
+
+    tiles = os.path.join(h["dir"], "tiles")
+    sim = h["sim"]
+    walls = {"extract": run_cli(
+        ["extract", "-b", h["bed"], "--paf", sim.paf_path, "--fasta",
+         sim.fasta_path, "-P", "CHM13#0#", "--out-dir", tiles],
+        "E1 extract")}
+    if len(glob.glob(os.path.join(tiles, "*.npz"))) < 15:
+        raise SmokeError("E1 extract wrote fewer than 15 tiles")
+    cwd = os.getcwd()
+    dirs = {}
+    try:
+        for label, side in (("card", dev.type), ("cpu", "cpu")):
+            dirs[label] = os.path.join(h["dir"], f"workflow.{label}")
+            os.makedirs(dirs[label])
+            os.chdir(dirs[label])
+            common = ["-b", h["bed"], "--geno-dir", tiles, "-P", "CHM13#0#",
+                      "--device", side]
+            for cmd in ("panels-tajd", "panels-hfst"):
+                walls[f"{cmd} {label}"] = run_cli(
+                    [cmd, *common, "--metadata-dir", h["md"]],
+                    f"E1 {cmd} --device {side}")
+            walls[f"sfs {label}"] = run_cli(
+                ["sfs", *common, "--panel", h["files"]["EUR"], "--panel",
+                 h["files"]["AFR"], "-o", "sfs.tsv"],
+                f"E1 sfs --device {side}")
+    finally:
+        os.chdir(cwd)
+    card, cpu = dirs["card"], dirs["cpu"]
+    tables = sorted(os.path.basename(p) for p in
+                    glob.glob(os.path.join(card, "*.tj"))
+                    + glob.glob(os.path.join(card, "*.fst")))
+    if sum(t.endswith(".tj") for t in tables) != 5 or len(tables) != 15:
+        raise SmokeError(f"E1 workflow: tables {tables}")
+    for name in tables:
+        rows = compare_stat_tables(os.path.join(card, name),
+                                   os.path.join(cpu, name),
+                                   f"E1 {name} card-vs-cpu", rows=10 ** 6)
+        if len(rows) < 15:
+            raise SmokeError(f"E1 workflow: {name} has {len(rows)} rows")
+    same_file(os.path.join(card, "sfs.tsv"), os.path.join(cpu, "sfs.tsv"),
+              "E1 workflow: card and CPU spectrum files differ")
+    if importlib.util.find_spec("matplotlib") is None:
+        walls["plot"] = "not run: this host has no matplotlib"
+    else:
+        png = os.path.join(card, "tajd.png")
+        walls["plot"] = run_cli(
+            ["plot", "tajd", "--input", f"EUR={card}/eur.tj", "--input",
+             f"AFR={card}/afr.tj", "--output", png], "E1 plot")
+        if os.path.getsize(png) <= 1000:
+            raise SmokeError("E1 plot wrote a PNG of at most 1000 bytes")
+    return walls
+
+
+def e1_crash_resume(dev, h) -> dict:
+    """A ``--device cuda`` scan of the hostile chromosome in a child process
+    (``--batch 2 --drain-group 1``; the child sleeps 50 ms after each
+    journal record, so that the kill lands mid-scan) gets SIGKILL once its
+    journal holds two records; a torn tail is appended; the resumed scan
+    in this process gives the clean run's table byte for byte and grows
+    the journal."""
+    import signal
+
+    d = os.path.join(h["dir"], "crash")
+    os.makedirs(d)
+
+    def argv(name, journal):
+        return h["base"] + ["--batch", "2", "--drain-group", "1",
+                            "--journal", journal, "-o",
+                            os.path.join(d, name), "--device", dev.type]
+
+    walls = {"clean": run_cli(argv("clean.tsv", os.path.join(
+        d, "clean.jsonl")), "E1 clean scan")}
+    journal = os.path.join(d, "crash.jsonl")
+    code = ("import sys, time\n"
+            "sys.path.insert(0, %r)\n"
+            "from impop_tpu_torch.runtime.journal import ResultJournal\n"
+            "record = ResultJournal.record\n"
+            "def slow(self, region, payload):\n"
+            "    record(self, region, payload)\n"
+            "    time.sleep(0.05)\n"
+            "ResultJournal.record = slow\n"
+            "from impop_tpu_torch.cli import main\n"
+            "sys.exit(main(%r))\n") % (HERE, argv("crash.tsv", journal))
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "child.err"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code],
+                                stdout=subprocess.DEVNULL, stderr=err)
+    killed_at = None
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline and proc.poll() is None:
+            if os.path.exists(journal):
+                with open(journal) as fh:
+                    n = sum(1 for _ in fh)
+                if n >= 2:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    killed_at = n
+                    break
+            time.sleep(0.002)
+    finally:
+        if proc.poll() is None and killed_at is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    if killed_at is None or killed_at >= h["n_win"]:
+        with open(os.path.join(d, "child.err")) as fh:
+            tail = fh.read()[-2000:]
+        raise SmokeError(f"E1: the child scan was not killed mid-scan "
+                         f"(exit {proc.returncode}, journal {killed_at}): "
+                         f"{tail}")
+    walls["killed"] = time.perf_counter() - t0
+    with open(journal, "a") as fh:
+        fh.write('{"region": "CHM13#0#chr1:tor')
+    with open(journal) as fh:
+        n_before = sum(1 for ln in fh if ln.strip())
+    walls["resume"] = run_cli(argv("resume.tsv", journal), "E1 resume")
+    same_file(os.path.join(d, "clean.tsv"), os.path.join(d, "resume.tsv"),
+              "E1: the resumed table differs from the clean card run")
+    with open(journal) as fh:
+        n_after = sum(1 for ln in fh if ln.strip())
+    if not (n_after >= h["n_win"] and n_after > n_before):
+        raise SmokeError(f"E1: journal {n_before} -> {n_after} lines")
+    walls["records at kill"] = killed_at
+    return walls
+
+
+def fmt_walls(walls: dict) -> str:
+    return ", ".join(f"{k} {v:.2f} s" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in walls.items())
+
+
+def phase_acceptance(dev, tmp, smi):
+    """E1: the JAX package's acceptance workflows on the card, each held to
+    ``--device cpu`` and to ``bench/oracle.py``."""
+    t0 = time.perf_counter()
+    h = hostile_chromosome(tmp)
+    say("E1", f"hostile chromosome (60 kb x 20 haplotypes, p_indel 0.7, "
+        f"ragged coverage, ghost panel) in {time.perf_counter() - t0:.1f} s")
+    table, walls = e1_scan(dev, h, "ehh", ["--ehh"])
+    checked = e1_pin_oracle(h, table)
+    say("E1", f"scan --ehh: 21 rows, card equals CPU (table and journal), "
+        f"{checked} windows with data pinned to bench/oracle.py; walls "
+        f"{fmt_walls(walls)}")
+    _, walls = e1_scan(dev, h, "columns", ["--identity-mode", "columns"],
+                       afs=True)
+    say("E1", f"scan --identity-mode columns --afs: card equals CPU (table, "
+        f"journal, spectrum identical); walls {fmt_walls(walls)}")
+    pinned, walls = e1_crafted(dev, h)
+    say("E1", f"crafted tiles: multiallelic split, {pinned} seed_risk "
+        f"window(s) pinned to the oracle's FSTG, one NA record; card "
+        f"equals CPU; walls {fmt_walls(walls)}")
+    walls = e1_workflow(dev, h)
+    say("E1", f"extract -> panels-tajd -> panels-hfst -> sfs -> plot: 5 .tj "
+        f"and 10 .fst tables card equal CPU, spectrum identical; walls "
+        f"{fmt_walls(walls)}")
+    walls = e1_crash_resume(dev, h)
+    say("E1", f"SIGKILL mid-scan on the card, torn tail, resume: table "
+        f"byte-equal to the clean card run; {fmt_walls(walls)}")
+    say("E1", f"E1 took {time.perf_counter() - t0:.1f} s on {smi}")
+
+
 # ------------------------------------------------------------------ driver
 
 
@@ -2599,6 +3091,7 @@ def main() -> int:
     phase_weighted_kernels(dev, report, profiles)
     phase_identity_kernel(dev, report)
     phase_idgroup_kernel(dev, report, profiles)
+    phase_degenerate(dev, report)
     for tag, text, fn, ms in profiles:
         say(tag, text + profile_ops(fn, ms))
 
@@ -2635,6 +3128,9 @@ def main() -> int:
               "pairwise_identity_weighted", "masked_pair_sums",
               "pairwise_identity")),
             ("D1", lambda: phase_bench_twins(dev), tuple(kernels)),
+            ("E1", lambda: phase_acceptance(dev, tmp, smi),
+             ("window_stats", "seed_peel", "ehh_area", "pairwise_identity",
+              "pairwise_identity_weighted", "masked_pair_sums")),
         ]
         for tag, run, needed in paths:
             for fn in kernels.values():

@@ -2,6 +2,7 @@
 torch.
 
     python -m impop_tpu_torch.bench.extract_smoke [--threads 4]
+        [--sanitize {address,thread}]
 
 Simulates a small pangenome (24 haplotypes, 60 kb) and extracts 2 kb
 windows through every native entry point of ``impop_tpu_torch.extract``:
@@ -9,8 +10,11 @@ per window, the range batch, the threaded padded fill and the threaded
 wire pack (with skipped rows), then reopens the extractor through its
 PAF index sidecar.  Each is checked against ``extract/pyfallback`` or a
 numpy reference.  Imports no torch, so the native library can run under
-a sanitizer preloaded into the process.  Exits non-zero on a mismatch.
-The twin of the repository's ``tools/ci_extract_smoke.py``.
+a sanitizer preloaded into the process: ``--sanitize`` opens the
+extractors on the library built with that sanitizer, and the process must
+have been started with its runtime in ``LD_PRELOAD`` (``python -m
+impop_tpu_torch.bench.ci_extract`` does both).  Exits non-zero on a
+mismatch.  The twin of the repository's ``tools/ci_extract_smoke.py``.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import tempfile
 
 import numpy as np
 
-from impop_tpu_torch.extract import NativeExtractor, split_window_matrix
+from impop_tpu_torch.extract import (SANITIZERS, NativeExtractor,
+                                     load_library, split_window_matrix)
 from impop_tpu_torch.extract.pyfallback import PyExtractor
 from impop_tpu_torch.extract.simulate import simulate
 
@@ -76,14 +81,24 @@ def main(argv=None) -> int:
                                  "extract_smoke")
     ap.add_argument("--threads", type=int,
                     default=int(os.environ.get("IMPOP_EXTRACT_THREADS", "4")))
-    threads = ap.parse_args(argv).threads
+    ap.add_argument("--sanitize", choices=sorted(SANITIZERS),
+                    help="load the library built with this sanitizer (its "
+                         "runtime must be in LD_PRELOAD)")
+    args = ap.parse_args(argv)
+    threads = args.threads
+    if args.sanitize:
+        runtime = {"address": "libasan", "thread": "libtsan"}[args.sanitize]
+        if runtime not in os.environ.get("LD_PRELOAD", ""):
+            raise SystemExit(f"extract_smoke: --sanitize {args.sanitize} "
+                             f"needs {runtime}.so in LD_PRELOAD")
     tmp = tempfile.mkdtemp(prefix="impop_smoke_")
     try:
         sim = simulate(tmp, ref_len=60_000, n_haps=24, site_pool=900,
                        seed=5, span=(0, 60_000))
         wins = [(lo, lo + 2000) for lo in range(0, 60_000, 2000)]
         py = PyExtractor(sim.paf_path, sim.fasta_path)
-        with NativeExtractor(sim.paf_path, sim.fasta_path) as nat:
+        with NativeExtractor(sim.paf_path, sim.fasta_path,
+                             sanitize=args.sanitize) as nat:
             for start, end in wins[:6]:
                 a = nat.extract("chr1", start, end)
                 b = py.extract("chr1", start, end)
@@ -111,7 +126,8 @@ def main(argv=None) -> int:
             finally:
                 batch.close()
         # reopen: the PAF index sidecar's load path
-        with NativeExtractor(sim.paf_path, sim.fasta_path) as nat2:
+        with NativeExtractor(sim.paf_path, sim.fasta_path,
+                             sanitize=args.sanitize) as nat2:
             for start, end in wins[:3]:
                 check(np.array_equal(nat2.extract("chr1", start, end).geno,
                                      py.extract("chr1", start, end).geno),
@@ -121,7 +137,9 @@ def main(argv=None) -> int:
               == 2, "split_window_matrix")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"extract_smoke OK: {len(wins)} windows, threads={threads}")
+    lib = os.path.basename(load_library(sanitize=args.sanitize)._name)
+    print(f"extract_smoke OK: {len(wins)} windows, threads={threads}, "
+          f"library {lib}")
     return 0
 
 

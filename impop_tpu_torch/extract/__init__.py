@@ -12,7 +12,13 @@ The library is built from the repository's ``cpp/*.cc`` at first use, by
 hash of the sources and the flags.  It never inherits ``$CXX`` (a toolchain
 that links libstdc++ statically into the shared object leaves its stream
 state uninitialised, and ``ix_open`` then crashes writing the FASTA index)
-and never writes into ``cpp/``.  A pure Python fallback
+and never writes into ``cpp/``.  ``sanitize`` (of :func:`library_path`,
+:func:`load_library` and :class:`NativeExtractor`) selects an instrumented
+variant (``address`` or ``thread``, the flags of ``cpp/Makefile``'s
+``asan`` / ``tsan`` targets at ``-O1``), built beside the production
+library under its own name; a process that loads it must have the
+sanitizer's runtime preloaded (``python -m impop_tpu_torch.bench.ci_extract``
+runs the smoke that way).  A pure Python fallback
 (:mod:`impop_tpu_torch.extract.pyfallback`) implements the same projection
 for environments without a compiler.
 """
@@ -26,17 +32,21 @@ import struct
 import subprocess
 import tempfile
 import threading
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
-__all__ = ["WindowMatrix", "NativeExtractor", "load_library", "library_path", "split_window_matrix", "site_weights_from_keys"]
+__all__ = ["WindowMatrix", "NativeExtractor", "load_library", "library_path", "SANITIZERS", "split_window_matrix", "site_weights_from_keys"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CPP_DIR = os.path.join(_REPO_ROOT, "cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 _CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread"]
 _LDFLAGS = ["-shared", "-lz", "-pthread"]
+# the instrumented variants: compile flags after _CXXFLAGS (-O1 wins over
+# -O3), and -fsanitize at the link as well
+SANITIZERS = {"address": ["-fsanitize=address", "-g", "-O1"],
+              "thread": ["-fsanitize=thread", "-g", "-O1"]}
 
 
 class WindowMatrix(NamedTuple):
@@ -50,30 +60,49 @@ def _cpp_sources() -> List[str]:
     return sorted(glob.glob(os.path.join(_CPP_DIR, "*.cc")))
 
 
-def _lib_target() -> str:
-    h = hashlib.sha256(" ".join(_CXXFLAGS + _LDFLAGS).encode())
+def _flags(sanitize: Optional[str]):
+    """(compile flags, link flags) of the production library or of a
+    sanitizer variant."""
+    if sanitize is None:
+        return _CXXFLAGS, _LDFLAGS
+    if sanitize not in SANITIZERS:
+        raise ValueError(f"unknown sanitizer {sanitize!r}; one of "
+                         f"{sorted(SANITIZERS)}")
+    return (_CXXFLAGS + SANITIZERS[sanitize],
+            _LDFLAGS + [f"-fsanitize={sanitize}"])
+
+
+def _lib_target(sanitize: Optional[str] = None) -> str:
+    cxx, ld = _flags(sanitize)
+    h = hashlib.sha256(" ".join(cxx + ld).encode())
     for path in _cpp_sources() + sorted(glob.glob(os.path.join(_CPP_DIR, "*.h"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(_BUILD_DIR, f"libimpop_extract-{h.hexdigest()[:16]}.so")
+    kind = "" if sanitize is None else f"{sanitize}-"
+    return os.path.join(_BUILD_DIR,
+                        f"libimpop_extract-{kind}{h.hexdigest()[:16]}.so")
 
 
-def library_path() -> str:
-    """The native library, built from ``cpp/*.cc`` when it is not built yet
-    (one ``g++ -c`` per source, all at once, then one link; the library is
-    renamed into place only when every step succeeded).  Raises on a failed
-    build."""
-    target = _lib_target()
+def library_path(sanitize: Optional[str] = None) -> str:
+    """The native library (``sanitize``: that instrumented variant), built
+    from ``cpp/*.cc`` when it is not built yet (one ``g++ -c`` per source,
+    all at once, then one link; the library is renamed into place only
+    when every step succeeded).  Raises on a failed build."""
+    target = _lib_target(sanitize)
     if os.path.exists(target):
         return target
+    cxx, ld = _flags(sanitize)
     os.makedirs(_BUILD_DIR, exist_ok=True)
+    # g++ runs without a sanitizer runtime the caller may have preloaded
+    env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
         srcs = _cpp_sources()
         objs = [os.path.join(work, os.path.basename(src) + ".o") for src in srcs]
-        procs = [subprocess.Popen(["g++", *_CXXFLAGS, "-c", src, "-o", obj],
+        procs = [subprocess.Popen(["g++", *cxx, "-c", src, "-o", obj],
                                   stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=env)
                  for src, obj in zip(srcs, objs)]
         failed = []
         for src, proc in zip(srcs, procs):
@@ -83,22 +112,26 @@ def library_path() -> str:
         if failed:
             raise RuntimeError("g++ failed:\n" + "\n".join(failed))
         tmp = os.path.join(work, "lib.so")
-        subprocess.run(["g++", *objs, *_LDFLAGS, "-o", tmp], check=True,
-                       capture_output=True, text=True)
+        subprocess.run(["g++", *objs, *ld, "-o", tmp], check=True,
+                       capture_output=True, text=True, env=env)
         os.replace(tmp, target)
     return target
 
 
-_lib: Optional[ctypes.CDLL] = None
+# the loaded libraries by variant (None: production)
+_libs: Dict[Optional[str], ctypes.CDLL] = {}
 
 
-def load_library(rebuild: bool = False) -> ctypes.CDLL:
-    global _lib
-    if _lib is not None and not rebuild:
-        return _lib
-    if rebuild and os.path.exists(_lib_target()):
-        os.remove(_lib_target())
-    lib = ctypes.CDLL(library_path())
+def load_library(rebuild: bool = False,
+                 sanitize: Optional[str] = None) -> ctypes.CDLL:
+    """The production library, or the variant built with sanitizer
+    ``sanitize`` ("address" or "thread"; the process needs that runtime
+    preloaded), built and bound on first use."""
+    if sanitize in _libs and not rebuild:
+        return _libs[sanitize]
+    if rebuild and os.path.exists(_lib_target(sanitize)):
+        os.remove(_lib_target(sanitize))
+    lib = ctypes.CDLL(library_path(sanitize))
     lib.ix_open.restype = ctypes.c_void_p
     lib.ix_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
     lib.ix_error.restype = ctypes.c_char_p
@@ -158,7 +191,7 @@ def load_library(rebuild: bool = False) -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int,
     ]
     lib.ix_batch_free.argtypes = [ctypes.c_void_p]
-    _lib = lib
+    _libs[sanitize] = lib
     return lib
 
 
@@ -272,8 +305,9 @@ class NativeExtractor:
     call, so the C++ reparses it and neither loads nor rewrites the
     sidecar."""
 
-    def __init__(self, paf_path: str, fasta_path: str):
-        self._lib = load_library()
+    def __init__(self, paf_path: str, fasta_path: str,
+                 sanitize: Optional[str] = None):
+        self._lib = load_library(sanitize=sanitize)
         bypass = _sidecar_overclaims(paf_path)
         # the C++ reads the process environment while it opens (and may
         # write the sidecar), so opens take turns: no other open sees the

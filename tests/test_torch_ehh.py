@@ -410,3 +410,32 @@ def test_ehh_area_dispatch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="unsupported device"):
         ehh_area(*(a.to("meta") for a in args))
+
+
+@pytest.mark.parametrize("kind", ["one_carrier", "monomorphic", "no_member"])
+def test_ehh_kernel_emulation_on_degenerate_windows(kind):
+    """The kernel's algorithm against the plain version on the EHH kinds
+    of ``bench/degenerate.py`` at the first, middle and last of nine
+    windows (N = 37, not a multiple of the 64-row tile): one carrier of
+    the focal allele, monomorphic windows, windows without members."""
+    from impop_tpu_torch.bench import degenerate
+
+    geno, member, smask, _, n_hap = degenerate.degenerate_windows(
+        5, 9, 37, 70, None if kind == "one_carrier" else kind)
+    focal = np.array([np.nonzero(r)[0][np.count_nonzero(r) // 2]
+                      for r in smask], np.int32)
+    rows = degenerate.degenerate_rows(9)
+    if kind == "one_carrier":
+        for wi in rows:
+            col = geno[wi, :, focal[wi]]
+            col[col == 1] = 0
+            col[wi % n_hap] = 1
+    sums, carr = emulate_ehh_kernel(geno, member, smask, focal)
+    want_s, want_c = ehh_area_plain(*(torch.from_numpy(a) for a in
+                                      (geno, member, smask, focal)))
+    np.testing.assert_array_equal(sums, want_s.numpy())
+    np.testing.assert_array_equal(carr, want_c.numpy())
+    if kind == "one_carrier":
+        assert (carr[rows, 1] == 1).all()
+    if kind == "no_member":
+        assert (carr[rows] == 0).all() and sums[rows].sum() == 0

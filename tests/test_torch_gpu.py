@@ -12,7 +12,9 @@ in float32); quad, sum_*, gdxy and the masked panel sums rtol 1e-5
 (float32 sums in another order), the masked sums' 0/1 rows of Wp exact
 (counted by popcount).  The batch estimators of
 ``parallel/scan`` run on the card against the same call on CPU tensors:
-integer fields exact, π and Dxy rtol 1e-5, Fst atol 2e-3.
+integer fields exact, π and Dxy rtol 1e-5, Fst atol 2e-3.  Every kernel
+also meets the degenerate batches of ``impop_tpu_torch/bench/degenerate.py``
+(the cases of ``chip_smoke.py`` phase 2k), with the same tolerances.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from impop_tpu_torch.bench import degenerate
 from impop_tpu_torch.ops.ehhdeath import ehh_area, ehh_area_plain
 from impop_tpu_torch.ops.idgroup import identity_group, identity_group_plain
 from impop_tpu_torch.ops.pairdiff import (pairwise_identity,
@@ -735,3 +738,30 @@ def test_dryrun_multidevice_on_card(cuda_device):
     report = dryrun_multidevice(8, "cuda:0")
     assert report["scan_step_over bitwise"] is True
     assert seed_peel.launches > peel and masked_pair_sums.launches > sums
+
+
+# ------------------------------------------------------------ degenerate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(degenerate.CASES))
+def test_kernel_matches_plain_on_degenerate_batch(cuda_device, case):
+    """Every kernel on batches that mix normal windows with a degenerate
+    one at the first, middle and last window (no active site, a
+    monomorphic window, every row missing, no member) and panel stacks
+    with an empty and a one-member panel; EHH with no carrier and one
+    carrier of an allele; the masked sums with empty and one-hot rows and
+    a window without present pairs, 0/1 and fp32 Wp; the identities at N
+    = 37, 1000 and 1024 and zero weights on every active column
+    (``impop_tpu_torch/bench/degenerate.py``).  Integers, seeds, gid, sim
+    and present exact, float sums rtol 1e-5, NaN in the same places."""
+    kernel = degenerate.CASES[case].kernel
+    wrapper = {"window_stats": window_stats, "seed_peel": seed_peel,
+               "ehh_area": ehh_area, "pairwise_identity": pairwise_identity,
+               "pairwise_identity_weighted": pairwise_identity_weighted,
+               "masked_pair_sums": masked_pair_sums,
+               "identity_group": identity_group}[kernel]
+    before = wrapper.launches
+    got, want, exact = degenerate.run_case(case, cuda_device)
+    assert wrapper.launches == before + 1
+    degenerate.compare(got, want, exact, case)

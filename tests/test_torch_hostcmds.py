@@ -5,7 +5,8 @@ inputs: ``spectrum`` (``--no-plots``, ``--compat-first-allele``,
 (per window, ``--split``, ``--python``, ``--vcf``, ``--gfa``),
 ``gfasim``, ``gfa2vcf`` (with ``--npz``), ``import-agc`` (``--list``,
 ``--samples``, ``--prefix-sample``, ``--verify``, ``--index``, through the
-stand-in ``agc`` of ``tests/test_agc.py``) and ``plot``.  Text files are
+stand-in ``agc`` of ``tests/test_agc.py``), ``scan`` and ``pi`` on an AGC
+archive (the twins of ``test_agc.py``'s driver tests) and ``plot``.  Text files are
 compared byte for byte, ``.npz`` tiles array by array, gzip stores by
 their text, and PNGs by being written."""
 from __future__ import annotations
@@ -24,6 +25,7 @@ from impop_tpu_torch.cli import main as torch_main
 from impop_tpu_torch.extract.pyfallback import read_fasta
 from impop_tpu_torch.hostio import simulate
 from impop_tpu_torch.report import tables
+from test_torch_cli import assert_tables_close
 
 torch.set_num_threads(1)
 
@@ -247,6 +249,52 @@ def test_import_agc_equals_jax(tmp_path, fake_agc, capsys):
         assert main(["import-agc", archive, "--list"]) == 0
         listed.append(capsys.readouterr().out)
     assert listed[0] == listed[1] and len(listed[1].splitlines()) == 7
+
+
+def test_scan_with_agc_runs_natively(fake_agc, tmp_path):
+    """scan --paf --agc (the twin of tests/test_agc.py's): one cached
+    conversion, then native extraction; the second run reuses the cache.
+    The table is the JAX scan's on the same archive (the tolerances of
+    ``test_torch_cli.assert_tables_close``)."""
+    sim, archive = fake_agc
+    bed = tmp_path / "w.bed"
+    bed.write_text("chr1\t0\t1000\nchr1\t1000\t2000\n")
+    argv = ["scan", "-b", str(bed), "--paf", sim.paf_path, "--agc", archive,
+            "-P", "CHM13#0#"]
+    out = tmp_path / "scan.tsv"
+    assert torch_main(argv + ["-o", str(out), "--device", "cpu"]) == 0
+    lines = [ln for ln in out.read_text().splitlines() if ln]
+    assert len(lines) == 3
+    row = lines[1].split("\t")
+    assert int(row[2]) == 7          # 6 haplotypes + the reference row
+    assert int(row[3]) > 0           # segregating sites flowed through
+    cache = archive + ".impop.fa.gz"
+    assert os.path.exists(cache)
+    mtime = os.path.getmtime(cache)
+    assert jax_main(argv + ["-o", str(tmp_path / "jax.tsv")]) == 0
+    assert os.path.getmtime(cache) == mtime
+    assert_tables_close(tmp_path / "jax.tsv", out)
+
+
+def test_pi_with_agc_matches_fasta_path(fake_agc, tmp_path):
+    """pi --paf --agc == pi --paf --fasta on the port, and both equal the
+    JAX table."""
+    sim, archive = fake_agc
+    bed = tmp_path / "w.bed"
+    bed.write_text("chr1\t0\t2000\n")
+    base = ["pi", "-b", str(bed), "--paf", sim.paf_path, "-P", "CHM13#0#",
+            "-t", "0.999"]
+    outs = []
+    for main, src, extra in ((torch_main, ["--agc", archive], ["--device",
+                                                               "cpu"]),
+                             (torch_main, ["--fasta", sim.fasta_path],
+                              ["--device", "cpu"]),
+                             (jax_main, ["--agc", archive], [])):
+        outs.append(tmp_path / f"pi{len(outs)}.tsv")
+        assert main(base + src + ["-o", str(outs[-1])] + extra) == 0
+    texts = [p.read_text() for p in outs]
+    assert texts[0] == texts[1] == texts[2]
+    assert len(texts[0].splitlines()) == 2
 
 
 # --------------------------------------------------------------- plot

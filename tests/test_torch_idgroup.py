@@ -5,7 +5,7 @@ True)`` against the JAX package on the CPU backend.
   mode at the shapes of tests/test_ops.py: sim, present, gid and S equal.
 - A numpy twin of the CUDA kernel's algorithm (32-row packing, 32 x 32
   pair blocks with their mirrors, the walk on link words) against the
-  same interpret run and the plain version: equal.
+  same interpret run and the plain version: equal.  Also on the degenerate windows of ``impop_tpu_torch/bench/degenerate.py``.
 - ``fused_window_stats`` returns the JAX 4-tuple; with matrices, sim and
   present are equal to JAX's and S exact; PanelStats holds integers exact,
   π and diversities rtol 1e-5, Fst atol 2e-3 (tests/test_torch_panelstats
@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from impop_tpu.ops.idgroup import identity_group_pallas
 from impop_tpu.stats import panelstats as jps
+from impop_tpu_torch.bench import degenerate
 from impop_tpu_torch.ops.idgroup import identity_group, identity_group_plain
 from impop_tpu_torch.stats import panelstats as tps
 from test_torch_grouping import walk_link_words
@@ -249,3 +250,38 @@ def test_kernel_twin_matches_pallas_interpret(seed, overlap):
         np.testing.assert_array_equal(gid, other[2])
         assert s_count == float(other[3])
     assert int((gid < geno.shape[0]).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", degenerate.KINDS)
+def test_kernel_twin_matches_pallas_interpret_on_degenerate_window(kind):
+    """The twin, the plain version and ``identity_group_pallas`` in
+    interpret mode on the degenerate windows of ``bench/degenerate.py``
+    (no active site, monomorphic, every row missing, no member) with the
+    stack of five overlapping panels (an empty and a one-member one among
+    them) and their ten pair unions: sim, present, gid and S equal."""
+    from impop_tpu_torch.stats.panelstats import panel_mask_stack
+
+    geno, member, smask, _, n_hap = degenerate.degenerate_windows(
+        43, 1, 128, 128, kind)
+    pm = degenerate.degenerate_panels(43, 1, 128, n_hap, True)
+    pairs = [(i, j) for i in range(5) for j in range(i + 1, 5)]
+    stack = panel_mask_stack(torch.from_numpy(pm),
+                             torch.from_numpy(member[0]),
+                             tuple(a for a, _ in pairs),
+                             tuple(b for _, b in pairs), True)[0][0].numpy()
+    geno, member, smask = geno[0], member[0], smask[0]
+    sim, pres, gid, s_count = emulate_identity_group(geno, member, smask,
+                                                     stack, THR, LEN)
+    with pltpu.force_tpu_interpret_mode():
+        want = identity_group_pallas(
+            jnp.asarray(geno), jnp.asarray(member), jnp.asarray(smask),
+            jnp.asarray(stack), jnp.float32(THR), jnp.float32(LEN),
+            block=128)
+    plain = identity_group_plain(*t(geno, member, smask, stack), THR,
+                                 torch.tensor(LEN))
+    for other in ([np.asarray(a) for a in want],
+                  [a.numpy() for a in plain]):
+        np.testing.assert_array_equal(pres, other[1])
+        np.testing.assert_array_equal(sim, other[0])
+        np.testing.assert_array_equal(gid, other[2])
+        assert s_count == float(other[3]) == 0.0

@@ -37,6 +37,7 @@ MODULES = [
     "impop_tpu_torch.bench.gpu_smoke", "impop_tpu_torch.bench.pairwise",
     "impop_tpu_torch.bench.panelstep", "impop_tpu_torch.bench.windowstat",
     "impop_tpu_torch.bench.extract", "impop_tpu_torch.bench.extract_smoke",
+    "impop_tpu_torch.bench.degenerate", "impop_tpu_torch.bench.ci_extract",
     "impop_tpu_torch.ops._build", "impop_tpu_torch.ops.ehhdeath",
     "impop_tpu_torch.ops.idgroup", "impop_tpu_torch.ops.pairdiff",
     "impop_tpu_torch.ops.panelquad", "impop_tpu_torch.ops.seedpeel",

@@ -142,12 +142,20 @@ def emulate_masked_pair_sums(sim, present, wd, wp, kc=32):
 
 def kernel_operands(seed, n, rd, rp, wp_kind):
     """``operands`` with an asymmetric present (some pairs dropped on one
-    side only) and Wp 0/1 (``"01"``) or with one row of other values."""
+    side only) and Wp 0/1 (``"01"``) or with one row of other values.  A
+    suffix makes the inputs degenerate: ``"-rows"`` empties the first row
+    of both stacks (a ghost panel) and makes the second one-hot (a
+    one-member panel); ``"-nopresent"`` leaves no pair present."""
     sim, present, wd, wp = operands(seed, n=n, s=128, rd=rd, rp=rp)
     rng = np.random.default_rng(seed + 100)
     present = present & ~(np.triu(rng.random((n, n)) < 0.05, 1))
-    if wp_kind == "values":
+    if wp_kind.startswith("values"):
         wp[rp // 2] = rng.random(n).astype(np.float32) * 3.0
+    if wp_kind.endswith("-rows"):
+        wd[:2] = wp[:2] = 0.0
+        wd[1, n // 3] = wp[1, n // 3] = 1.0
+    if wp_kind.endswith("-nopresent"):
+        present[:] = False
     return sim, present, wd, wp
 
 
@@ -172,15 +180,17 @@ def test_kernel_twin_matches_pallas_interpret(seed, n, rows, block):
 
 @pytest.mark.parametrize("seed,n,rd,rp,wp_kind", [
     (13, 37, 1, 1, "01"), (14, 96, 2, 2, "01"), (15, 128, 35, 35, "01"),
-    (16, 128, 20, 9, "values"), (17, 100, 55, 55, "values")])
+    (16, 128, 20, 9, "values"), (17, 100, 55, 55, "values"),
+    (18, 37, 4, 4, "01-rows"), (19, 100, 6, 6, "values-rows"),
+    (20, 37, 4, 4, "01-nopresent"), (21, 100, 6, 6, "values-nopresent")])
 def test_kernel_twin_matches_xla(seed, n, rd, rp, wp_kind):
     """The twin against ``masked_pair_sums_xla`` and the port's plain
-    version at the drivers' row counts, ragged N, Rd != Rp and a Wp row
-    that is not 0/1 (the fp32 branch): 0/1 rows of Yp exactly equal, the
-    rest rtol 1e-5."""
+    version at the drivers' row counts, ragged N, Rd != Rp, a Wp row
+    that is not 0/1 (the fp32 branch), an empty and a one-hot row, and no
+    pair present: 0/1 rows of Yp exactly equal, the rest rtol 1e-5."""
     sim, present, wd, wp = kernel_operands(seed, n, rd, rp, wp_kind)
     yd, yp, binary = emulate_masked_pair_sums(sim, present, wd, wp)
-    assert binary.all() == (wp_kind == "01")
+    assert binary.all() == wp_kind.startswith("01")
     yd_j, yp_j = (np.asarray(a) for a in masked_pair_sums_xla(
         *(jnp.asarray(a) for a in (sim, present, wd, wp))))
     yd_t, yp_t = torch_sums(masked_pair_sums, sim, present, wd, wp)

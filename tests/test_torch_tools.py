@@ -1,7 +1,9 @@
 """The port's measurement and verification scripts (impop_tpu_torch.bench,
 the twins of tools/) run at tiny shapes on the CPU with the plain
 versions: each ends with 0, the checks among them fail when a route or a
-statistic is made wrong, and the extraction smoke runs without torch."""
+statistic is made wrong, and the extraction smoke runs without torch.
+The degenerate batches of ``bench/degenerate.py`` carry the kind they
+name, and its comparison fails on a changed output."""
 from __future__ import annotations
 
 import os
@@ -13,8 +15,9 @@ import torch
 
 from impop_tpu_torch.bench import check_device_oracle as cdo
 from impop_tpu_torch.bench import main as bench_main
-from impop_tpu_torch.bench import (extract, extract_smoke, gpu_smoke,
-                                   panelstep, pairwise, windowstat)
+from impop_tpu_torch.bench import (degenerate, extract, extract_smoke,
+                                   gpu_smoke, panelstep, pairwise,
+                                   windowstat)
 from impop_tpu_torch.stats import panelstats
 
 torch.set_num_threads(1)
@@ -110,7 +113,7 @@ def test_extract_smoke_runs_without_torch():
 
 
 @pytest.mark.parametrize("module", [bench_main, cdo, gpu_smoke, pairwise,
-                                    panelstep, windowstat])
+                                    panelstep, windowstat, degenerate])
 def test_card_scripts_refuse_cuda_without_a_card(module):
     """Without CUDA, the default device raises: no script falls back to
     the CPU by itself."""
@@ -118,3 +121,41 @@ def test_card_scripts_refuse_cuda_without_a_card(module):
         pytest.skip("this host has CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
         module.main([])
+
+
+@pytest.mark.parametrize("kind", degenerate.KINDS)
+def test_degenerate_batches_carry_their_kind(kind):
+    """The kind's windows (first, middle, last) have no segregating site
+    among members, the others have some; the panels hold an empty and a
+    one-member panel."""
+    import numpy as np
+
+    geno, member, smask, _, n_hap = degenerate.degenerate_windows(
+        7, 9, 64, 96, kind)
+    rows = degenerate.degenerate_rows(9)
+    assert rows == [0, 4, 8]
+    for wi in range(9):
+        g = geno[wi][member[wi]][:, smask[wi]]
+        valid = g >= 0
+        seg = valid.any(0) & (np.where(valid, g, -1).max(0, initial=-1)
+                              > np.where(valid, g, 2).min(0, initial=2))
+        assert (int(seg.sum()) == 0) == (wi in rows), (kind, wi)
+    pm = degenerate.degenerate_panels(7, 9, 64, n_hap, overlapping=True)
+    assert not pm[:, 0].any() and (pm[:, 1].sum(-1) == 1).all()
+    assert (pm[:, 2:].sum(-1) > 1).all()
+
+
+def test_degenerate_cases_run_and_compare_on_the_cpu(capsys):
+    assert degenerate.main(CPU + ["-k=-37x"]) == 0
+    out = capsys.readouterr().out
+    assert "degenerate: 17 cases on cpu" in out, out
+    got, want, exact = degenerate.run_case(
+        "masked_pair_sums-empty_rows-37x128x3-01", torch.device("cpu"))
+    assert degenerate.compare(got, want, exact, "same") == 0.0
+    worse = [t.clone() for t in got]
+    worse[1][0, 2, 5] += 1.0
+    with pytest.raises(AssertionError, match="output 1 differs"):
+        degenerate.compare(worse, want, exact, "changed")
+    worse[1][0, 2, 5] = float("nan")
+    with pytest.raises(AssertionError, match="NaN in other places"):
+        degenerate.compare(worse, want, exact, "nan")

@@ -10,6 +10,8 @@
   (Y row, X row, column) dot triples) emulated in numpy against the plain
   version and against ``window_stats_pallas`` in interpret mode, so the
   kernel's arithmetic and host-side contract are checked without a card.
+- Both on the degenerate windows of ``impop_tpu_torch/bench/degenerate.py``
+  against ``window_stats_pallas`` in interpret mode.
 The CUDA kernel itself is held against the plain version on a card by
 tests/test_torch_gpu.py.
 
@@ -27,6 +29,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from impop_tpu.ops.windowstat import window_stats_pallas
 from impop_tpu.stats.panelstats import panel_mask_stack as j_stack
+from impop_tpu_torch.bench import degenerate
 from impop_tpu_torch.ops.windowstat import (_dot_triples, _pad, out_layout,
                                             window_kernel_fits, window_stats,
                                             window_stats_plain)
@@ -367,3 +370,38 @@ def test_wrapper_refuses_other_devices():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         window_stats(*args)
+
+
+@pytest.mark.parametrize("overlapping", [False, True])
+@pytest.mark.parametrize("kind", degenerate.KINDS)
+def test_plain_matches_pallas_interpret_on_degenerate_window(kind,
+                                                             overlapping):
+    """The plain version the card's window kernel is held to, and the
+    numpy model of the kernel's algorithm, against window_stats_pallas in
+    interpret mode on the degenerate windows of ``bench/degenerate.py``
+    (no active site, monomorphic, every row missing, no member) with an
+    empty and a one-member panel among five, side by side and
+    overlapping (ten pairs)."""
+    geno, member, smask, _, n_hap = degenerate.degenerate_windows(
+        31, 1, 128, 128, kind)
+    pmasks = degenerate.degenerate_panels(31, 1, 128, n_hap, overlapping)[0]
+    geno, member, smask = geno[0], member[0], smask[0]
+    pairs = [(i, j) for i in range(5) for j in range(i + 1, 5)]
+    pair_a, pair_b = (tuple(a for a, _ in pairs), tuple(b for _, b in pairs))
+    disjoint = not overlapping
+    stack, ma, mb = j_stack(jnp.asarray(pmasks), jnp.asarray(member),
+                            jnp.asarray(pair_a), jnp.asarray(pair_b),
+                            disjoint)
+    with pltpu.force_tpu_interpret_mode():
+        want = window_stats_pallas(
+            jnp.asarray(geno), jnp.asarray(member), jnp.asarray(smask),
+            stack, ma, mb, jnp.float32(THR), jnp.float32(LEN), pair_a,
+            pair_b, disjoint, block=128)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    args = torch_args(geno, member, smask, pmasks, pair_a, pair_b, disjoint)
+    got = {k: v.numpy() for k, v in window_stats(*args).items()}
+    assert_raw(got, want)
+    assert got["s"] == 0.0
+    assert_raw(emulate_kernel(geno, member, smask, np.asarray(stack),
+                              np.asarray(ma), np.asarray(mb), LEN, pair_a,
+                              pair_b, disjoint), want)
