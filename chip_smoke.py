@@ -31,14 +31,15 @@ Phases (one line each; any failure exits non-zero):
          weights (exactly equal), non-integer weights (present equal, sim
          within 1e-5 of the weight mass per bp + 1e-6);
      (h) masked_pair_sums on the stacks the columns scan builds, disjoint
-         and overlapping pairs, with a Wp that is not 0/1 (the fp32
-         branch), the drivers' [512, 512] x 128 with 2 + 2 rows, N = 4160
-         (mask words in device memory) and 128 / 256 / 150 value rows
-         (one and two grid layers) (0/1 rows of Yp exact, the rest rtol
-         1e-5), timed by CUDA graph replay and with the wrapper (CUDA
-         events) beside its bound, the all-fp32 bound and two fp32 bmm on
-         precomputed operands, the time per value row of one layer and of
-         two, profiled by launch after 2j;
+         and overlapping pairs, with a Wp that is not 0/1 (three bf16
+         pieces a Wp row), the drivers' [512, 512] x 128 with 2 + 2 rows,
+         N = 4160 (65 column tiles) and 128 / 256 / 150 value rows with 140
+         0/1 rows (three, four and three grid layers of two 64-row tiles)
+         (0/1 rows of Yp exact, the rest rtol 1e-5), timed by CUDA graph
+         replay and with the wrapper (CUDA events) beside its bound, the
+         all-fp32 bound, the tensor-core count of the bf16 pieces and two
+         fp32 bmm on precomputed operands, the time per value row at three
+         layers and at four, profiled by launch after 2j;
      (i) pairwise_identity (unit weights): [512, 2048] x 64, [512, 8192] x 8
          and tajd's [512, 3200] x 10 with kernel, plain and yardstick times
          and a sweep of forced site splits, [1024, 2048] x 4, codes up to 3
@@ -534,7 +535,7 @@ def phase_weighted_kernels(dev, report, profiles):
                       pn_d[:, names.index("AFR")] & m_d], 1).float()
     drivers = (sim_d, pres_d, ab, ab)
     cases.append(("drivers (batch_hudson direct)", drivers))
-    # past N = 4096 the mask words live in the wrapper's scratch
+    # a wide window: 65 column tiles of 64
     n_big = 4160
     big = [torch.from_numpy(a).to(dev) for a in (
         rng.random((2, n_big, n_big), np.float32),
@@ -543,10 +544,10 @@ def phase_weighted_kernels(dev, report, profiles):
         (rng.random((2, 2, n_big)) < 0.3).astype(np.float32))]
     big[1] = big[1] | big[1].transpose(1, 2).clone()
     big[1][:, 5, 7] = False                       # not symmetric
-    cases.append((f"N = {n_big} (mask words in device memory)", tuple(big)))
-    # value rows past one block's 128 (kValueCap): each further 128 rows
-    # take a grid layer that reads sim / present again; 128 and 256 rows
-    # are one and two full layers, 150 + 140 is the tests' shape
+    cases.append((f"N = {n_big} (65 column tiles)", tuple(big)))
+    # stacks past a block's two 64-row tiles: each further layer of two
+    # tiles reads sim / present again; 128 + 140 and 256 + 140 rows are
+    # three and four layers, 150 + 140 is the tests' shape
     layers = {}
     for rd_ in (128, 256, 150):
         wd_ = rng.random((w_cols, rd_, CAP_N), np.float32)
@@ -587,6 +588,22 @@ def phase_weighted_kernels(dev, report, profiles):
         old = 2 * w_ * pairs_ * (wd_.shape[-2] + wp_.shape[-2])
         return nbytes(*xs) + nbytes(*masked_pair_sums(*xs)), fp32, int32, old
 
+    def piece_flops(x, n_, b_pieces):
+        """bf16 FLOPs of the value-row product on the tensor cores for a
+        row stack x [W, R, N]: per 64-row tile the kept piece products
+        against b_pieces pieces of B (six against (1 - sim) . mask, three
+        against the mask; three and one when the tile's rows are all 0/1),
+        each a 64 x N x N product over whole chunks and column tiles."""
+        w_, r_ = x.shape[0], x.shape[-2]
+        tiles = -(-r_ // 64)
+        binary = torch.ones((w_, 64 * tiles), dtype=torch.bool,
+                            device=x.device)
+        binary[:, :r_] = ((x == 0) | (x == 1)).all(dim=-1)
+        values = int((~binary.view(w_, tiles, 64).all(-1)).sum())
+        per = 2 * 64 * (-(-n_ // 32) * 32) * (-(-n_ // 64) * 64)
+        full, zero_one = (6, 3) if b_pieces == 3 else (3, 1)
+        return per * (full * values + zero_one * (w_ * tiles - values))
+
     def bmm_pair(xs):
         """The two fp32 bmm (TF32 off) on precomputed (1 - sim) . mask and
         mask: a comparison, not the yardstick (the pass that builds them
@@ -608,6 +625,8 @@ def phase_weighted_kernels(dev, report, profiles):
         b_ms, by = bound(n_bytes, fp32=fp32, int32=int32)
         old_ms, old_by = bound(n_bytes, fp32=old)
         w_ = xs[0].shape[0]
+        tc = (piece_flops(xs[2], xs[0].shape[-1], 3)
+              + piece_flops(xs[3], xs[0].shape[-1], 1))
         times[tag] = k_ms
         lines.append(
             f"{tag}, [{CAP_N},{CAP_N}]x{w_}, {xs[2].shape[-2]} + "
@@ -616,8 +635,9 @@ def phase_weighted_kernels(dev, report, profiles):
             f"{ev_ms:.4f}) = {k_ms / w_ * 1e3:.3f} us/window; plain "
             f"{p_ms:.4f} ms; bound {b_ms:.4f} ms ({by}), "
             f"{100 * b_ms / k_ms:.1f}% of it (all rows as fp32 FMAs: "
-            f"{old_ms:.4f} ms, {old_by}); two fp32 bmm on precomputed "
-            f"operands {bmm_ms:.4f} ms")
+            f"{old_ms:.4f} ms, {old_by}); tensor cores {tc / 1e9:.2f} GFLOP "
+            f"of bf16 pieces ({bound(0, bf16=tc)[0]:.4f} ms at the bf16 "
+            f"peak); two fp32 bmm on precomputed operands {bmm_ms:.4f} ms")
         if tag == cases[0][0]:
             share = set_bound(report, "masked_pair_sums", k_ms, n_bytes,
                               fp32=fp32, int32=int32)
@@ -630,15 +650,16 @@ def phase_weighted_kernels(dev, report, profiles):
         f"rest within rtol {RTOL} (max_abs_err {worst:.3e})")
     for line in lines:
         say("2h", line)
-    # what the second layer's second read of sim / present costs: the time
-    # per value row of two layers against one, and the read alone at the
+    # what a further layer's read of sim / present costs: the time per
+    # value row at four layers against three, and the read alone at the
     # card's memory rate
     t1, t2 = times[layers[128][0]], times[layers[256][0]]
     reread_ms = bound(nbytes(*timed[:2]))[0]
-    say("2h", f"value rows past 128: one layer {t1 / 128 * 1e3:.3f} us per "
-        f"value row, two layers {t2 / 256 * 1e3:.3f} us ({t2 / t1:.3f}x the "
-        f"time for 2x the rows); the second read of sim / present alone "
-        f"{reread_ms:.4f} ms at {H100_BYTES_PER_S / 1e12} TB/s")
+    say("2h", f"stacks past two tiles: 128 + 140 rows (three layers) "
+        f"{t1 / 128 * 1e3:.3f} us per value row, 256 + 140 (four layers) "
+        f"{t2 / 256 * 1e3:.3f} us ({t2 / t1:.3f}x the time for 2x the value "
+        f"rows); one read of sim / present alone {reread_ms:.4f} ms at "
+        f"{H100_BYTES_PER_S / 1e12} TB/s")
     say("2h", f"in the report: {share}")
     for tag, xs in (cases[0], cases[3]):
         profiles.append(("2h", f"masked_pair_sums {tag} by launch "
@@ -653,6 +674,7 @@ def phase_kernels(dev, report, profiles):
     import numpy as np
     import torch
 
+    from impop_tpu_torch.ops.pairdiff import pairwise_identity_plain
     from impop_tpu_torch.ops.seedpeel import seed_gid_plain, seed_peel
     from impop_tpu_torch.ops.windowstat import (window_stats,
                                                 window_stats_plain)
@@ -671,21 +693,41 @@ def phase_kernels(dev, report, profiles):
     #                           32-bit word an AND, a popcount and an add
     in_out = nbytes(g, m, sm, stack, ma, mb, args[7], *got.values())
     gram = 4 * BATCH * tri_pairs(CAP_N) * CAP_S
+    # phase C's yardstick: one fp32 bmm (TF32 off) of value rows against a
+    # precomputed (1 - sim) . mask; the port never calls it
+    sim_p, pres_p = pairwise_identity_plain(g, m, sm, args[7])
+    eye = torch.eye(CAP_N, dtype=torch.bool, device=dev)
+    div = torch.where(pres_p & ~eye, 1.0 - sim_p, 0.0)
+    rd = -(-value_rows // 16) * 16
+    x_rows = torch.rand((BATCH, rd, CAP_N), device=dev)
+    yard_ms = graph_ms(lambda: torch.bmm(x_rows, div), 10)
     share = set_bound(
-        report, "window_stats", k_ms, in_out, int8=gram,
+        report, "window_stats", k_ms, in_out, library_ms=yard_ms, int8=gram,
         fp32=2 * BATCH * CAP_N * CAP_N * value_rows,
         int32=3 * BATCH * mask_rows * CAP_N * (CAP_N // 32))
     # PR 5's count, every product row as fp32 FMAs, kept for comparison
     # with the shares recorded before (not a bound: the 0/1 rows need none)
     old_ms = bound(in_out, int8=gram,
                    fp32=2 * BATCH * CAP_N * CAP_N * (value_rows + mask_rows))[0]
+    # the tensor-core design's own counts: per 64-row tile of value rows the
+    # six kept bf16 piece products (three for a tile of 0/1 rows only) of
+    # a 64 x N x N product, and phase C's read of diff (uint16)
+    tiles, weight_tiles = -(-rd // 64), -(-r // 64)
+    tc = (2 * 64 * CAP_N * CAP_N * BATCH
+          * (6 * weight_tiles + 3 * (tiles - weight_tiles)))
+    diff_bytes = 2 * BATCH * CAP_N * CAP_N
     say("2a", f"window_stats [{CAP_N},{CAP_S}]x{BATCH} 5 panels/10 pairs "
         f"disjoint: integers exact, floats within rtol {RTOL} (max_abs_err "
         f"{err_a:.3e}); kernel {k_ms:.4f} ms/batch "
         f"= {k_ms / BATCH * 1e3:.3f} us/window; plain {p_ms:.4f} ms/batch "
         f"= {p_ms / BATCH * 1e3:.3f} us/window; {share}; PR 5's count (all "
         f"{value_rows + mask_rows} product rows as fp32 FMAs) {old_ms:.4f} "
-        f"ms, {100 * old_ms / k_ms:.1f}% of it")
+        f"ms, {100 * old_ms / k_ms:.1f}% of it; phase C on the tensor cores: "
+        f"{tc / 1e9:.1f} GFLOP of bf16 pieces ({bound(0, bf16=tc)[0]:.4f} "
+        f"ms at the bf16 peak), diff {diff_bytes / 1e6:.0f} MB "
+        f"({bound(diff_bytes)[0]:.4f} ms); phase C's yardstick, one fp32 "
+        f"bmm [{BATCH},{rd},{CAP_N}] x [{CAP_N},{CAP_N}] (TF32 off): "
+        f"{yard_ms:.4f} ms")
     profiles.append(("2a", "window_stats by phase kernel (torch.profiler, "
                      "one call): ", lambda: window_stats(*args), k_ms))
     report["window_stats"].update(max_abs_err=err_a, ms=k_ms, plain_ms=p_ms)

@@ -3,23 +3,24 @@
     python -m impop_tpu_torch.bench.sums_group_variants
 
 Builds variants of ``csrc/panelquad.cu`` and ``csrc/idgroup.cu`` (text
-substitutions on the source, each linked with the unchanged
-``windowstat.cu``, which holds the walk ``idgroup.cu`` launches and the
-error strings) and prints the device time of
-each whole call (CUDA graph replays, median of 20) beside the base:
+substitutions on the source or on a header it includes, each linked with
+the unchanged ``windowstat.cu``, which holds the walk ``idgroup.cu``
+launches and the error strings) and prints the device time of each whole
+call (CUDA graph replays, median of 20) beside the base:
 
   masked_pair_sums  [512, 512] x 64 with 35 + 35 rows (values and 0/1, as
                     the columns scan) and x 128 with 2 + 2 0/1 rows (the
-                    drivers); every variant's results must equal the base's
+                    drivers); every checked variant's results must equal
+                    the base's
     base      the kernel as built for the port
-    occ3      three blocks per SM asked of the compiler (fewer registers)
-    stages4   a ring of 4 chunks instead of 3
-    nofma     no FMAs of the value rows (their operands are still staged)
-    unroll2   the value rows' k loop of a chunk unrolled twice, not fully
-    nowords   no mask words stored
-    nodiv     no (1 - sim) . mask tile written
-    noload    sim / present / X loaded for the first chunk only
-    nopop     no popcount rows
+    occ2      two blocks per SM asked of the compiler at two tiles too
+    ring8     a TMA ring of 8 chunks instead of 4 (csrc/rowprod.cuh)
+    ring2     a ring of 2 chunks
+    allpieces every tile takes all its piece products, 0/1 or not
+    nomma     no wgmma products
+    nodecode  no decode of sim / present into bf16 pieces
+    nox       no loads and splits of the X rows after the first chunk
+    nostore   no stores of Yd / Yp
               (the last four are wrong by design and not checked)
   identity_group    [512, 128] x 320, R = 15 (``bench.inputs``)
     base      the kernel as built for the port
@@ -40,7 +41,6 @@ import os
 import sys
 import tempfile
 
-_PQ_LB = "__launch_bounds__(kThreads, 2) masked_pair_sums_kernel"
 _IG_LB = "__launch_bounds__(kThreads)\nidgroup_pairs_kernel"
 _IG_MIRROR = "  for (int jj = 0; jj < 32; ++jj) {\n"
 _IG_COUNTS = ("  typename impop::PresentForm<kBits>::type both;\n  int dn[32];\n"
@@ -85,23 +85,25 @@ _IG_STORES = ("    so[static_cast<size_t>(i) * n + j] = sim;\n"
 _IG_TAB = ("                   : dn[ii] < tabn ? tab[dn[ii]]\n"
            "                                   : __fsub_rn(")
 
-_PQ_FMA = "      if (g >= rx) continue;                 // warp-uniform"
-_PQ_WORDS = "      if (counts) mbytes[4 * c + q8]"
-_PQ_UNROLL = "#pragma unroll\n      for (int k4 = 0;"
-_PQ_DIV = "        ds[e] = mk ? __fsub_rn(1.0f, ss[e]) : 0.0f;\n"
-_PQ_LOAD = "    stage((ch + kStages - 1) % kStages"
-_PQ_POP = "  if (!counts) return;"
+_PQ_LB = "__launch_bounds__(rp::threads(kTiles), 3 - kTiles)\n    masked_pair_sums_kernel"
+_PQ_RING = "constexpr int kRaw = 4; "
+_PQ_VALUES = "  const bool values = impop::named_or(rp::kSyncId + 1 + wg, 128, other);\n"
+_PQ_MMA = "    chunk_products(acc, cur, dec + (c & 1) * kDecHalf, mask_b, values);\n"
+_PQ_DECODE = "    for (int it = tid; it < kColTile * (rp::kKc / 8); it += kCons) {\n"
+_PQ_SPLIT = "      split_x(xv, next);\n"
+_PQ_LOAD = "      if (k + 2 < nch) load_x(x, ld, rows, n, (k + 2) * kKc, t, xv);\n"
+_PQ_STORE = "    if (row < rows && j < N) y["
 
 SUMS_VARIANTS = {
     "base": [],
-    "occ3": [(_PQ_LB, _PQ_LB.replace("2)", "3)"))],
-    "stages4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
-    "nofma": [(_PQ_FMA, _PQ_FMA.replace("g >= rx", "g >= 0"))],
-    "unroll2": [(_PQ_UNROLL, _PQ_UNROLL.replace("unroll", "unroll 2"))],
-    "nowords": [(_PQ_WORDS, "      if (false) mbytes[4 * c + q8]")],
-    "nodiv": [(_PQ_DIV, "")],
-    "noload": [(_PQ_LOAD, "    if (ch < 0) stage((ch + kStages - 1) % kStages")],
-    "nopop": [(_PQ_POP, "  return;")],
+    "occ2": [(_PQ_LB, _PQ_LB.replace("3 - kTiles)", "2)"))],
+    "ring8": [(_PQ_RING, _PQ_RING.replace("4", "8"))],
+    "ring2": [(_PQ_RING, _PQ_RING.replace("4", "2"))],
+    "allpieces": [(_PQ_VALUES, "  const bool values = other || true;\n")],
+    "nomma": [(_PQ_MMA, "")],
+    "nodecode": [(_PQ_DECODE, _PQ_DECODE.replace("it < kColTile", "it < 0 * kColTile"))],
+    "nox": [(_PQ_SPLIT, ""), (_PQ_LOAD, "")],
+    "nostore": [(_PQ_STORE, "    if (row < 0 && j < N) y[")],
 }
 GROUP_VARIANTS = {
     "base": [],
@@ -113,15 +115,15 @@ GROUP_VARIANTS = {
     "nostores": [(_IG_MIRROR, "  for (int jj = 32; jj < 32; ++jj) {\n"),
                  (_IG_STORES, "")],
 }
-_CHECKED = ("base", "occ3", "stages4", "unroll2", "orwords", "smemrows",
-            "notab")
+_CHECKED = ("base", "occ2", "ring8", "ring2", "allpieces", "occ3", "orwords",
+            "smemrows", "notab")
 
 
 def _bind(libs: dict) -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for lib in libs.values():
         if hasattr(lib, "impop_masked_pair_sums"):
-            lib.impop_masked_pair_sums.argtypes = [p] * 4 + [i] * 4 + [p] * 6
+            lib.impop_masked_pair_sums.argtypes = [p] * 4 + [i] * 5 + [p] * 4
             lib.impop_masked_pair_sums.restype = i
         if hasattr(lib, "impop_identity_group"):
             lib.impop_identity_group.argtypes = ([p] * 5 + [f] + [i] * 4

@@ -2,18 +2,21 @@
 
     python -m impop_tpu_torch.bench.window_breakdown
 
-Builds variants of ``csrc/windowstat.cu`` with one part of
-``window_products_kernel`` taken out (text substitutions on the source;
-the results of a variant are wrong by design and are not checked), runs
-the whole window program of each on [512, 128] x 320 HPRC-shaped windows
-(5 panels, 10 disjoint pairs: ``bench.inputs``, as in ``chip_smoke.py``
-phase 2a) and prints the device time of ``window_products_kernel`` (torch.profiler,
-median of 5 calls).  A part's cost is the base time minus the variant's.
+Builds variants of ``csrc/windowstat.cu`` (and of the ``csrc/rowprod.cuh``
+product it includes) with one part of ``window_products_kernel`` taken
+out (text substitutions; the results of a variant are wrong by design and
+are not checked), runs the whole window program of each on [512, 128] x
+320 HPRC-shaped windows (5 panels, 10 disjoint pairs: ``bench.inputs``,
+as in ``chip_smoke.py`` phase 2a) and prints the device time of
+``window_products_kernel`` (torch.profiler, median of 5 calls).  A part's
+cost is the base time minus the variant's; parts that overlap cost less
+than their sum.
 
   base      the kernel as built for the port
-  novalue   no FMAs of the value rows (their operands are still staged)
-  nostage   no staging of the value rows' operands after the first step
-  nomask    no 0/1 rows (their popcounts and row-dots)
+  novalue   no wgmma products of the value rows
+  nostage   no decode of the diff tiles into bf16 pieces
+  nox       no loads and splits of the X rows after the first chunk
+  nomask    no 0/1 rows (their b1 mma counts and row-dots)
   nodots    no row-dots
 """
 from __future__ import annotations
@@ -24,18 +27,20 @@ import statistics
 import sys
 import tempfile
 
-_C_ROWS = "      if (!rows_on) continue;\n"
-_STAGE = "      if (i0 + kKc < N) fetch(i0 + kKc);\n"
+_PRODUCTS = "    chunk_products(acc, cur, dec + (c & 1) * kDecHalf, mask_b, values);\n"
+_DECODE = "    for (int it = tid; it < kColTile * (rp::kKc / 8); it += kCons) {\n"
+_SPLIT = "      split_x(xv, next);\n"
+_LOAD = "      if (k + 2 < nch) load_x(x, ld, rows, n, (k + 2) * kKc, t, xv);\n"
 _MASK = "  for (int g0 = p.rd; g0 < xrows; g0 += kRowChunk) {\n"
-_DOTS = "  for (int t = warp; t < p.t; t += kWarps) {\n    const int yr = p.dots[3 * t];\n"
+_DOTS = "  for (int t = tid; t < p.t; t += n_threads) {\n"
 
 VARIANTS = {
     "base": [],
-    "novalue": [(_C_ROWS, "      continue;\n")],
-    "nostage": [(_STAGE, "      if (i0 < 0) fetch(i0 + kKc);\n")],
-    "nomask": [(_MASK, "  for (int g0 = xrows; g0 < xrows; g0 += kRowChunk) {\n")],
-    "nodots": [(_DOTS, "  for (int t = p.t; t < p.t; t += kWarps) {\n"
-                "    const int yr = p.dots[3 * t];\n")],
+    "novalue": [(_PRODUCTS, "")],
+    "nostage": [(_DECODE, _DECODE.replace("it < kColTile", "it < 0 * kColTile"))],
+    "nox": [(_SPLIT, ""), (_LOAD, "")],
+    "nomask": [(_MASK, _MASK.replace("g0 = p.rd;", "g0 = xrows;"))],
+    "nodots": [(_DOTS, _DOTS.replace("t = tid;", "t = p.t;"))],
 }
 
 

@@ -161,6 +161,20 @@ __device__ __forceinline__ void pair_counts(const uint32_t* __restrict__ abits,
 int seed_walk(const uint32_t* link, const uint8_t* member, const uint8_t* pmasks, int b,
               int n, int p_count, uint8_t* seeds, int32_t* gid, cudaStream_t st);
 
+// a / b rounded to nearest even, given inv = the correctly rounded 1 / b:
+// q = a * inv is within one ulp, r = a - b q is exact in an FMA, and
+// q + r * inv rounds to the IEEE quotient (Markstein's theorem; no
+// overflow or underflow for a >= 0 and 1 <= b < 2^31 short of a
+// denormal quotient).  Bit-identical to __fdiv_rn there, at four
+// instructions instead of the division subroutine (the identity
+// epilogue's sim and the window kernel's (1 - sim) of a count of
+// differing sites over the window length).
+__device__ __forceinline__ float div_rn(float a, float b, float inv) {
+  const float q = __fmul_rn(a, inv);
+  const float r = __fmaf_rn(-q, b, a);
+  return __fmaf_rn(r, inv, q);
+}
+
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 inline int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;

@@ -108,6 +108,9 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "kernels.cuh"
+#include "rowprod.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;          // 16 warps: 4 x 4 of 32 x 32 outputs
@@ -369,18 +372,7 @@ __device__ __forceinline__ void mma_stage(Acc& acc, const uint8_t* dec, bool dia
 
 // ------------------------------------------------------------------ epilogue
 
-// a / b rounded to nearest even, given inv = the correctly rounded 1 / b:
-// q = a * inv is within one ulp, r = a - b q is exact in an FMA, and
-// q + r * inv rounds to the IEEE quotient (Markstein's theorem; no
-// overflow or underflow for diff >= 0 and 1 <= b < 2^31 short of a
-// denormal quotient).  Bit-identical to __fdiv_rn there, at four
-// instructions instead of the division subroutine, whose cost dominated
-// tiles with few sites.
-__device__ __forceinline__ float div_rn(float a, float b, float inv) {
-  const float q = __fmul_rn(a, inv);
-  const float r = __fmaf_rn(-q, b, a);
-  return __fmaf_rn(r, inv, q);
-}
+using impop::div_rn;
 
 __device__ void epilogue(const Acc& acc, uint8_t* smem, const GramArgs& a, int w, int ti,
                          int tj) {
@@ -652,80 +644,21 @@ static_assert(kEpiSmem <= kBarOff, "the epilogue stages in the rings");
 static_assert(kDecOff % 128 == 0 && kDecSlot % 128 == 0, "operand alignment");
 static_assert(kSmemU <= 232448, "shared memory of a CTA");
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A pipeline fault
-// traps after about 2^26 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const unsigned addr = smem_addr(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A box of the [W, N, S] int8 tensor (coordinates innermost first) into
-// shared memory; out-of-bounds bytes arrive as zeros and count.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int site, int row,
-                                         int w, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(site), "r"(row), "r"(w), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// generic-proxy shared-memory writes -> visible to the async proxy (wgmma,
-// bulk copies), and the reverse order for a slot about to be refilled
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// The ring's mbarriers, TMA and wgmma synchronisation (rowprod.cuh).
+using impop::bulk_load;
+using impop::fence_proxy_async;
+using impop::mbar_expect_tx;
+using impop::mbar_init;
+using impop::mbar_wait;
+using impop::tma_load;
+using impop::wgmma_commit;
+using impop::wgmma_fence;
+using impop::wgmma_wait;
 
 // K-major operand in the no-swizzle core-matrix layout: 8 rows x 16 bytes
 // per core matrix, kLbo to the next 16 bytes of K, kSbo to the next 8 rows.
 __device__ __forceinline__ uint64_t operand_desc(const void* p) {
-  const uint32_t addr = smem_addr(p);
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(kLbo >> 4) << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  return impop::smem_desc(p, kLbo, kSbo);
 }
 
 // Keeps the compiler from moving accesses of an accumulator register
@@ -1041,40 +974,10 @@ __global__ void __launch_bounds__(kThreadsU, 1) unit_reduce_kernel(GramArgs a) {
   unit_epilogue(zacc, vacc, smem, a, k);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, found through the runtime's entry-point lookup
-// (no link to libcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) ==
-            cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [W, N, S] int8 geno as a 3-D tensor, boxes of kKt sites x kTile rows.
 bool geno_map(CUtensorMap* map, const GramArgs& a, int w) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.s), static_cast<cuuint64_t>(a.n),
-                              static_cast<cuuint64_t>(w)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(a.s),
-                                 static_cast<cuuint64_t>(a.s) * a.n};
-  const cuuint32_t box[3] = {kKt, kTile, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<int8_t*>(a.geno), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return impop::tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.geno, a.s, a.n, w, a.s,
+                              kKt, kTile);
 }
 
 int launch(const GramArgs& a, int w, cudaStream_t stream) {

@@ -11,381 +11,264 @@
 // scan, the matrices-out route and the per-statistic drivers.
 //
 // Two launches:
-//   P  masked_rows_pack_kernel, one warp per (window, Wp row): is every
-//      entry 0 or 1?  If so the row is bit-packed (32 columns a word) and
-//      flagged; the product counts it by AND + popcount.  Rows with any
-//      other value take the fp32 path.  Decided on the device: no host sync.
-//   S  masked_pair_sums_kernel, one block per (window, 64 columns j).  The
-//      i axis comes in chunks of 32 rows through a ring of kStages slots in
-//      shared memory (cp.async: sim, present and the chunk's X values of
-//      every value row, two chunks in flight while one is used), so each
-//      window's sim / present are read once per column tile whatever
-//      Rd + Rp is (up to kValueCap value rows; a larger stack takes a second
-//      grid layer, which reads them again).  From each chunk the block
-//      builds once, each thread 8 rows of one column:
-//        - the (1 - sim) . mask tile (and, if some Wp row is not 0/1, the
-//          mask as floats), which all value rows share;
-//        - the chunk's mask word of every column j (bit k is
-//          mask(i0 + k, j)), kept for the popcount rows (in shared memory
-//          up to N = 4096, else in the wrapper's scratch).
-//      Value rows (all of Wd, and Wp when it holds a row that is not 0/1):
-//      a register-blocked fp32 product, each thread 4 rows x 4 columns of
-//      up to two 64-row blocks (1 or 2 rows of a 16- or 32-row block for
-//      small stacks, so that every warp takes a share), operands through
-//      16-byte shared loads, i ascending (a row's sum is the same from run
-//      to run; no TF32, no bf16: (1 - sim) carries real values).  0/1 rows
-//      of Wp, after the last chunk: AND + popcount of the packed row
-//      against the column's mask words, exact integers (below 2^24, as the
-//      fp32 sums of the plain version are).
+//   P  masked_rows_pack_kernel, one warp per (window, row of [Wd; Wp]): is
+//      every entry 0 or 1?  The flag decides, on the device (no host
+//      sync), how many bf16 pieces the row's tile takes.
+//   S  masked_pair_sums_kernel, one block per (window, 64 columns j, layer
+//      of up to two 64-row tiles of the stacks [Wd tiles, Wp tiles]): the
+//      value product of rowprod.cuh on the tensor cores.  The producer warp
+//      keeps the sim and present tiles ([32 i, 64 j]) of the next four
+//      chunks in flight by TMA, into a ring of slots with full / empty
+//      mbarriers, so that no block-wide barrier waits on a load.  The
+//      consumer warpgroups (one a tile) build chunk t + 1's B pieces while
+//      their wgmma of chunk t runs, and meet at a named barrier the
+//      producer never joins: the three bf16 pieces of (1 - sim) . mask
+//      (when the layer holds a Wd tile) and the mask as one bf16 piece
+//      (when it holds a Wp tile), built once per block and chunk for
+//      every row of the tiles.  Warpgroup g loads its tile's X rows from
+//      device memory two chunks ahead and splits them into three pieces
+//      in registers (the wgmma's A operand): a Wd tile takes the six kept
+//      products x_p . d_q with p + q <= 4 (three when all its rows are
+//      0/1), a Wp tile x_p . mask for p = 1..3 (one when all its rows are
+//      0/1).  Every product is exact in fp32; a chunk's products
+//      accumulate in fp32 registers and the chunks are added in i order
+//      with round-to-nearest adds, so a row's sum is the same from run to
+//      run.  The dropped products are below 2^-21 of each term; never
+//      TF32, never a single bf16 pass.  A 0/1 row of Wp sums exact 0/1
+//      products to integers below 2^24: exactly the plain version's
+//      counts.  Stacks past two tiles take further layers (grid z), which
+//      read sim and present again.
 //
 // What bounds it on this card: the 5 bytes of sim + present per element,
-// read once; the value rows' FMAs (2 Rd flops per element) come next.
+// read once a layer (the columns scan's [512, 512] x 64: 84 MB, 25 us at
+// 3.35 TB/s), and the tensor-core products (7 m64n64k16 a 16 x 64 block of
+// pairs there, 15 GFLOP, 15 us at 989 TFLOP/s).  It runs at several times
+// that (PERF.md), bound by latency like the window kernel's phase C: a
+// block of two warpgroups is alone on its SM
+// and waits once a chunk on its wgmma chain; at the drivers' 2 + 2 rows
+// both tiles are almost empty, and their wgmma cost what full ones do.
 //
-// The C function returns the first CUDA error of its launches; it never
-// synchronises and never allocates (flags, packed rows and mask words are
-// the wrapper's scratch).
+// The TMA views need row strides of whole 16-byte units: the wrapper pads
+// the rows of sim, present, Wd and Wp to ld, a multiple of 16 elements,
+// when N is not one (the padding is never read).  The C function returns
+// the first CUDA error of its launches; it never synchronises and never
+// allocates (the flags are the wrapper's scratch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "kernels.cuh"
+#include "rowprod.cuh"
 
 namespace {
 
+namespace rp = impop::rp;
+
 using impop::set_smem;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kColTile = 64;               // columns j per block
-constexpr int kKc = 32;                    // rows i per staged chunk (one mask word)
-constexpr int kRowBlock = 64;              // value rows per register block
-constexpr int kRowBlocks = 2;              // register blocks per thread
-constexpr int kValueCap = kRowBlock * kRowBlocks;  // value rows per block
-constexpr int kRowPad = 16;                // stacks are padded to 16 rows
-constexpr int kStages = 3;                 // chunks in the cp.async ring
-constexpr int kXStride = kKc + 4;          // floats per staged X row
-constexpr int kMcolSmemMax = 32 * 1024;    // mask words kept in shared memory
-                                           // (ops/panelquad.py _MCOL_SMEM_MAX)
-constexpr int kSimTile = kKc * kColTile;   // floats of one staged sim chunk
-constexpr int kPresTile = kKc * kColTile / 4;  // floats holding the present bytes
+constexpr int kPackThreads = 256;
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kColTile = rp::kCols;            // columns j per block
+constexpr int kSimBox = rp::kKc * kColTile * 4;  // a raw sim tile [32 i, 64 j]
+constexpr int kPresBox = rp::kKc * kColTile;     // a raw present tile
+constexpr int kTileBox = kSimBox + kPresBox;  // one ring slot
 
 struct SumParams {
-  const float* sim;        // [W, N, N]
-  const uint8_t* pres;     // [W, N, N]
-  const float* wd;         // [W, rd, N]
-  const float* wp;         // [W, rp, N]
-  const int32_t* flags;    // [W, rp]     1: the Wp row is 0/1
-  const uint32_t* wbits;   // [W, rp, nwc] the 0/1 rows, bit-packed
-  uint32_t* mcol;          // [W, nct, nwc, kColTile] mask words of column j
+  const float* wd;         // [W, rd, ld]
+  const float* wp;         // [W, rp, ld]
+  const int32_t* flags;    // [W, rd + rp]  1: the row is 0/1
   float* yd;               // [W, rd, N]
   float* yp;               // [W, rp, N]
-  int n, rd, rp, rd_pad, rp_pad, nwc, nct;
-  int vec;                 // 16-byte cp.async (N % 16 == 0, aligned bases)
-  int xcap;                // value rows a ring slot holds (<= kValueCap)
-  int mcol_smem;           // the mask words live in shared memory
+  int n, ld, rd, rp;
+  int nd, tiles;           // Wd tiles; Wd and Wp tiles
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// ---- P: the 0/1 check and bit-packing of every Wp row
-__global__ void __launch_bounds__(kThreads)
-masked_rows_pack_kernel(const float* __restrict__ wp, int n, int rp, int nwc,
-                        int32_t* __restrict__ flags, uint32_t* __restrict__ wbits) {
+// ---- P: the 0/1 check of every row of Wd and Wp
+__global__ void __launch_bounds__(kPackThreads)
+masked_rows_pack_kernel(const float* __restrict__ wd, const float* __restrict__ wp, int n,
+                        int ld, int rd, int rp_rows, int32_t* __restrict__ flags) {
   const int w = blockIdx.y, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= rp) return;
-  const size_t row = static_cast<size_t>(w) * rp + r;
-  const float* x = wp + row * n;
-  uint32_t* out = wbits + row * nwc;
+  const int r = blockIdx.x * kPackWarps + (threadIdx.x >> 5);
+  if (r >= rd + rp_rows) return;
+  const float* x = r < rd ? wd + (static_cast<size_t>(w) * rd + r) * ld
+                          : wp + (static_cast<size_t>(w) * rp_rows + r - rd) * ld;
   bool binary = true;
-  for (int kw = 0; kw < nwc; ++kw) {
-    const int i = 32 * kw + lane;
-    const float v = i < n ? x[i] : 0.0f;
-    const uint32_t other = __ballot_sync(0xffffffffu, !(v == 0.0f || v == 1.0f));
-    const uint32_t ones = __ballot_sync(0xffffffffu, v == 1.0f);
-    if (lane == 0) out[kw] = ones;
-    binary = binary && other == 0u;
+  for (int i = lane; i < n; i += 32) {
+    const float v = x[i];
+    binary = binary && (v == 0.0f || v == 1.0f);
   }
-  if (lane == 0) flags[row] = binary ? 1 : 0;
+  binary = __all_sync(0xffffffffu, binary);
+  if (lane == 0) flags[static_cast<size_t>(w) * (rd + rp_rows) + r] = binary ? 1 : 0;
 }
 
-// ---- S: one (window, column tile, value-row layer) per block.  kRt
-// value rows per thread and row block (16 kRt rows a block; 1 and 2 for
-// the drivers' small stacks, so that every warp shares the FMAs).
-template <int kRt>
-__device__ __forceinline__ void sums_tile(const SumParams& p, float* fsm, int w, int ct,
-                                          int v_lo, int rx, bool wp_values, bool counts) {
-  constexpr int kRows = 16 * kRt;                      // rows per row block
-  constexpr int kBlocks = kRt == 4 ? kValueCap / kRows : 1;
-  const int j0 = ct * kColTile;
-  const int N = p.n, tid = threadIdx.x;
-  const size_t nn = static_cast<size_t>(N) * N;
-  const float* sim = p.sim + static_cast<size_t>(w) * nn;
-  const uint8_t* pres = p.pres + static_cast<size_t>(w) * nn;
-  const float* wd = p.wd + static_cast<size_t>(w) * p.rd * N;
-  const float* wp = p.wp + static_cast<size_t>(w) * p.rp * N;
-  const int32_t* flags = p.flags + static_cast<size_t>(w) * p.rp;
+// ---- S: one (column tile, window, layer) per block; kTiles tiles a
+// layer, warpgroup g multiplies tile g
+template <int kTiles>
+__global__ void __launch_bounds__(rp::threads(kTiles), 3 - kTiles)
+    masked_pair_sums_kernel(SumParams p, const __grid_constant__ CUtensorMap smap,
+                            const __grid_constant__ CUtensorMap pmap) {
+  constexpr int kCons = 128 * kTiles;   // consumer threads
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + rp::kRaw;
+  uint8_t* raw = smem + rp::kBarBytes;
+  uint8_t* dec = raw + rp::kRaw * kTileBox;
+  const int ct = blockIdx.x, w = blockIdx.y, j0 = ct * kColTile;
+  const int N = p.n, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nch = (N + rp::kKc - 1) / rp::kKc;
 
-  const int stage_floats = kSimTile + kPresTile + p.xcap * kXStride;
-  float* ds = fsm + kStages * stage_floats;    // [kKc, kColTile] (1 - sim) . mask
-  float* ms = ds + kSimTile;                   // [kKc, kColTile] mask as floats
-  uint8_t* mbytes = reinterpret_cast<uint8_t*>(ms + kSimTile);  // [kColTile, 4]
-  // the mask words of every chunk: shared memory when they fit
-  uint32_t* mcol = p.mcol_smem ? reinterpret_cast<uint32_t*>(mbytes + 4 * kColTile)
-                               : p.mcol + (static_cast<size_t>(w) * p.nct + ct) * p.nwc * kColTile;
+  // which B pieces the layer's tiles need: (1 - sim) . mask for a Wd
+  // tile, the mask for a Wp tile
+  bool need_d = false, need_m = false;
+#pragma unroll
+  for (int g = 0; g < kTiles; ++g) {
+    const int gt = blockIdx.z * kTiles + g;
+    need_d = need_d || gt < p.nd;
+    need_m = need_m || (gt >= p.nd && gt < p.tiles);
+  }
 
-  // The X row of value row v (Wd rows, then Wp rows), or null for padding.
-  auto xrow = [&](int v) -> const float* {
-    if (v < p.rd_pad) return v < p.rd ? wd + static_cast<size_t>(v) * N : nullptr;
-    const int r = v - p.rd_pad;
-    return r < p.rp ? wp + static_cast<size_t>(r) * N : nullptr;
+  if (tid == 0) {
+    for (int q = 0; q < rp::kRaw; ++q) {
+      impop::mbar_init(&full[q], 1);
+      impop::mbar_init(&empty[q], kCons / 32);
+    }
+    impop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (__shfl_sync(0xffffffffu, warp, 0) >= kCons / 32) {   // the producer warp: sim and present tiles by TMA
+    if (lane == 0)
+      for (int c = 0; c < nch; ++c) {
+        const int slot = c % rp::kRaw, i0 = c * rp::kKc;
+        if (c >= rp::kRaw) impop::mbar_wait(&empty[slot], ((c / rp::kRaw) + 1) & 1);
+        impop::fence_proxy_async();
+        uint8_t* dst = raw + slot * kTileBox;
+        impop::mbar_expect_tx(&full[slot], kTileBox);
+        impop::tma_load(dst, &smap, j0, i0, w, &full[slot]);
+        impop::tma_load(dst + kSimBox, &pmap, j0, i0, w, &full[slot]);
+      }
+    return;
+  }
+
+  // the consumers: barrier rp::kSyncId.  This warpgroup's tile: rows
+  // [row0, row0 + rows) of Wd (d_tile) or Wp
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), t128 = tid & 127;
+  const int gt = blockIdx.z * kTiles + wg;
+  const bool d_tile = gt < p.nd;
+  const int r_count = d_tile ? p.rd : p.rp;
+  const int row0 = rp::kRows * (d_tile ? gt : gt - p.nd);
+  const int rows = gt < p.tiles ? min(rp::kRows, r_count - row0) : 0;
+  // does the tile hold a row that is not 0/1?  thread t128 reads row
+  // t128's flag, the warpgroup ORs them
+  const bool other = t128 < rows && p.flags[static_cast<size_t>(w) * (p.rd + p.rp) +
+                                            (d_tile ? 0 : p.rd) + row0 + t128] == 0;
+  const bool values = impop::named_or(rp::kSyncId + 1 + wg, 128, other);
+
+  // Chunk c: wait for its tiles, build column j's pieces over i values
+  // 8 ig .. + 7 in half c % 2 of the buffer, release the ring slot.
+  auto decode = [&](int c) {
+    const int slot = c % rp::kRaw;
+    impop::mbar_wait(&full[slot], (c / rp::kRaw) & 1);
+    const uint8_t* rs = raw + slot * kTileBox;
+    const float* ss = reinterpret_cast<const float*>(rs);
+    const uint8_t* ps = rs + kSimBox;
+    uint8_t* ds = dec + (c & 1) * rp::kDecHalf;
+#pragma unroll
+    for (int it = tid; it < kColTile * (rp::kKc / 8); it += kCons) {
+      const int j = it & (kColTile - 1), ig = it / kColTile;
+      const int i0 = c * rp::kKc + 8 * ig, jg = j0 + j;
+      float v[8];
+      uint32_t mk = 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = (8 * ig + k) * kColTile + j;
+        const bool m = ps[e] != 0 && i0 + k != jg;   // zero-filled past N
+        v[k] = m ? __fsub_rn(1.0f, ss[e]) : 0.0f;
+        mk |= static_cast<uint32_t>(m) << k;
+      }
+      const int off = rp::kmajor(j, ig);
+      if (need_d) {
+        const rp::Pack8 o = rp::pack8(v);
+#pragma unroll
+        for (int pc = 0; pc < 3; ++pc)
+          *reinterpret_cast<uint4*>(ds + pc * rp::kPiece + off) = o.p[pc];
+      }
+      if (need_m) {
+        uint32_t q[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          q[h] = ((mk >> (2 * h)) & 1u ? 0x3f80u : 0u) |
+                 ((mk >> (2 * h + 1)) & 1u ? 0x3f800000u : 0u);
+        *reinterpret_cast<uint4*>(ds + 3 * rp::kPiece + off) = make_uint4(q[0], q[1], q[2], q[3]);
+      }
+    }
+    impop::fence_proxy_async();   // the pieces -> wgmma
+    __syncwarp();
+    if (lane == 0) impop::mbar_arrive(&empty[slot]);
   };
 
-  // sim, present and X rows [i0, i0 + kKc) of this tile into ring slot `slot`
-  auto stage = [&](int slot, int i0) {
-    float* ss = fsm + slot * stage_floats;
-    uint8_t* ps = reinterpret_cast<uint8_t*>(ss + kSimTile);
-    float* xs = ss + kSimTile + kPresTile;
-    if (i0 < N) {
-      if (p.vec) {
-        for (int e = tid; e < kSimTile / 4; e += kThreads) {
-          const int k = e >> 4, q = e & 15, i = i0 + k, j = j0 + 4 * q;
-          const bool in = i < N && j < N;
-          cp_async16(ss + k * kColTile + 4 * q, in ? sim + static_cast<size_t>(i) * N + j : sim,
-                     in);
-        }
-        for (int e = tid; e < kSimTile / 16; e += kThreads) {
-          const int k = e >> 2, q = e & 3, i = i0 + k, j = j0 + 16 * q;
-          const bool in = i < N && j < N;
-          cp_async16(ps + k * kColTile + 16 * q,
-                     in ? pres + static_cast<size_t>(i) * N + j : pres, in);
-        }
-        for (int e = tid; e < rx * (kKc / 4); e += kThreads) {
-          const int v = e >> 3, q = e & 7, i = i0 + 4 * q;
-          const float* x = xrow(v_lo + v);
-          const bool in = x != nullptr && i < N;
-          cp_async16(xs + v * kXStride + 4 * q, in ? x + i : sim, in);
-        }
-      } else {   // any N: plain loads (made visible by the barriers that follow)
-        for (int e = tid; e < kSimTile; e += kThreads) {
-          const int k = e / kColTile, c = e % kColTile, i = i0 + k, j = j0 + c;
-          const bool in = i < N && j < N;
-          const size_t o = static_cast<size_t>(i) * N + j;
-          ss[e] = in ? sim[o] : 0.0f;
-          ps[e] = in ? pres[o] : 0;
-        }
-        for (int e = tid; e < rx * kKc; e += kThreads) {
-          const int v = e / kKc, k = e % kKc, i = i0 + k;
-          const float* x = xrow(v_lo + v);
-          xs[v * kXStride + k] = (x != nullptr && i < N) ? x[i] : 0.0f;
-        }
-      }
-    }
-    cp_async_commit();   // empty past the last chunk: the wait count stays uniform
-  };
+  const float* x = (d_tile ? p.wd : p.wp) + (static_cast<size_t>(w) * r_count + row0) * p.ld;
+  float sum[32];
+  rp::tile_pass<kCons>(decode, dec, 0, nch, x, p.ld, rows, N, !d_tile, values, t128, sum);
+  if (rows <= 0) return;
 
-  // rows kRt rg .. + kRt - 1 of each row block, columns 4 c4 .. + 3
-  const int rg = tid >> 4, c4 = tid & 15;
-  float acc[kBlocks][kRt][4];
+  // the tile's rows out: Wd rows to Yd, Wp rows to Yp
+  float* y = (d_tile ? p.yd : p.yp) + static_cast<size_t>(w) * r_count * N;
 #pragma unroll
-  for (int rb = 0; rb < kBlocks; ++rb)
-#pragma unroll
-    for (int a = 0; a < kRt; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[rb][a][b] = 0.0f;
-
-  const int n_chunks = (N + kKc - 1) / kKc;
-#pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) stage(c, c * kKc);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int i0 = ch * kKc;
-    cp_async_wait<kStages - 2>();
-    __syncthreads();   // chunk ch landed; chunk ch - 1's slot and tiles are read
-    stage((ch + kStages - 1) % kStages, i0 + (kStages - 1) * kKc);
-    const float* ss = fsm + (ch % kStages) * stage_floats;
-    const uint8_t* ps = reinterpret_cast<const uint8_t*>(ss + kSimTile);
-    const float* xs = ss + kSimTile + kPresTile;
-
-    // the chunk's shared tiles: thread (column c, rows 8 q8 .. + 7); its
-    // mask bits are byte q8 of column c's word (bit k is mask(i0 + k, j))
-    {
-      const int c = tid % kColTile, q8 = tid / kColTile, j = j0 + c;
-      uint32_t bits = 0u;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int k = 8 * q8 + q, e = k * kColTile + c;
-        const bool mk = ps[e] != 0 && i0 + k != j;   // zero-filled past N
-        ds[e] = mk ? __fsub_rn(1.0f, ss[e]) : 0.0f;
-        if (wp_values) ms[e] = mk ? 1.0f : 0.0f;
-        bits |= static_cast<uint32_t>(mk) << q;
-      }
-      if (counts) mbytes[4 * c + q8] = static_cast<uint8_t>(bits);
-    }
-    __syncthreads();
-    if (counts && tid < kColTile)
-      mcol[static_cast<size_t>(ch) * kColTile + tid] =
-          *reinterpret_cast<const uint32_t*>(mbytes + 4 * tid);
-
-    // value rows: fp32 FMA, i ascending
-#pragma unroll
-    for (int rb = 0; rb < kBlocks; ++rb) {
-      const int g = rb * kRows + kRt * rg;   // staged row of this thread
-      if (g >= rx) continue;                 // warp-uniform (rx is a multiple of 16)
-      const float* mt = v_lo + g < p.rd_pad ? ds : ms;
-      const float* xr = xs + g * kXStride;
-#pragma unroll
-      for (int k4 = 0; k4 < kKc / 4; ++k4) {
-        float4 xv[kRt];
-#pragma unroll
-        for (int a = 0; a < kRt; ++a)
-          xv[a] = *reinterpret_cast<const float4*>(xr + a * kXStride + 4 * k4);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4 m = *reinterpret_cast<const float4*>(mt + (4 * k4 + kk) * kColTile + 4 * c4);
-#pragma unroll
-          for (int a = 0; a < kRt; ++a) {
-            const float x = kk == 0 ? xv[a].x : kk == 1 ? xv[a].y : kk == 2 ? xv[a].z : xv[a].w;
-            acc[rb][a][0] = fmaf(x, m.x, acc[rb][a][0]);
-            acc[rb][a][1] = fmaf(x, m.y, acc[rb][a][1]);
-            acc[rb][a][2] = fmaf(x, m.z, acc[rb][a][2]);
-            acc[rb][a][3] = fmaf(x, m.w, acc[rb][a][3]);
-          }
-        }
-      }
-    }
-  }
-
-  // value rows out: Wd rows to Yd, Wp rows that are not 0/1 to Yp
-#pragma unroll
-  for (int rb = 0; rb < kBlocks; ++rb) {
-    const int g = rb * kRows + kRt * rg;
-    if (g >= rx) continue;
-#pragma unroll
-    for (int a = 0; a < kRt; ++a) {
-      const int v = v_lo + g + a;
-      float* y = nullptr;
-      if (v < p.rd_pad) {
-        if (v < p.rd) y = p.yd + (static_cast<size_t>(w) * p.rd + v) * N;
-      } else {
-        const int r = v - p.rd_pad;
-        if (r < p.rp && flags[r] == 0) y = p.yp + (static_cast<size_t>(w) * p.rp + r) * N;
-      }
-      if (y == nullptr) continue;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = j0 + 4 * c4 + b;
-        if (j < N) y[j] = acc[rb][a][b];
-      }
-    }
-  }
-  if (!counts) return;
-
-  // 0/1 rows of Wp: AND + popcount against column j's mask words
-  __syncthreads();   // the mask words of every chunk are written
-  const int c = tid % kColTile, rq = tid / kColTile, j = j0 + c;
-  const uint32_t* wb = p.wbits + static_cast<size_t>(w) * p.rp * p.nwc;
-  constexpr int kPer = kRowBlock / (kThreads / kColTile);
-  for (int r0 = 0; r0 < p.rp; r0 += kRowBlock) {
-    int cnt[kPer];
-#pragma unroll
-    for (int m = 0; m < kPer; ++m) cnt[m] = 0;
-    const int rows = min(kPer, (p.rp - r0 - rq + 3) / 4);   // rows r0 + rq + 4 m < rp
-#pragma unroll 4
-    for (int kw = 0; kw < p.nwc; ++kw) {
-      const uint32_t mc = mcol[static_cast<size_t>(kw) * kColTile + c];
-#pragma unroll
-      for (int m = 0; m < kPer; ++m)
-        if (m < rows)
-          cnt[m] += __popc(__ldg(wb + static_cast<size_t>(r0 + rq + 4 * m) * p.nwc + kw) & mc);
-    }
-#pragma unroll
-    for (int m = 0; m < kPer; ++m) {
-      const int r = r0 + rq + (kThreads / kColTile) * m;
-      if (m < rows && j < N && flags[r] != 0)
-        p.yp[(static_cast<size_t>(w) * p.rp + r) * N + j] = static_cast<float>(cnt[m]);
-    }
+  for (int r = 0; r < 32; ++r) {
+    const int row = rp::acc_row(t128, r), j = j0 + rp::acc_col(t128, r);
+    if (row < rows && j < N) y[static_cast<size_t>(row0 + row) * N + j] = sum[r];
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) masked_pair_sums_kernel(SumParams p) {
-  extern __shared__ __align__(16) float fsm[];
-  const int w = blockIdx.y, tid = threadIdx.x;
-  const int32_t* flags = p.flags + static_cast<size_t>(w) * p.rp;
-  // Wp joins the value rows only when one of its rows is not 0/1
-  bool other = false;
-  for (int r = tid; r < p.rp; r += kThreads) other = other || flags[r] == 0;
-  const bool wp_values = __syncthreads_or(other);
-  const int v_lo = blockIdx.z * kValueCap;                      // this layer's value rows
-  const int v_hi = min(p.rd_pad + (wp_values ? p.rp_pad : 0), v_lo + kValueCap);
-  const bool lead = blockIdx.z == 0;                            // builds the mask words
-  if (!lead && v_lo >= v_hi) return;
-  const int rx = max(v_hi - v_lo, 0);                           // multiple of 16
-  const bool counts = lead && p.rp > 0;
-  if (rx <= 16) sums_tile<1>(p, fsm, w, blockIdx.x, v_lo, rx, wp_values, counts);
-  else if (rx <= 32) sums_tile<2>(p, fsm, w, blockIdx.x, v_lo, rx, wp_values, counts);
-  else sums_tile<4>(p, fsm, w, blockIdx.x, v_lo, rx, wp_values, counts);
+template <int kTiles>
+int launch_sums(const SumParams& p, dim3 grid, cudaStream_t st, const CUtensorMap& smap,
+                const CUtensorMap& pmap) {
+  const size_t smem = rp::kBarBytes + rp::kRaw * kTileBox + 2 * rp::kDecHalf;
+  const int err = set_smem(reinterpret_cast<const void*>(masked_pair_sums_kernel<kTiles>), smem);
+  if (err) return err;
+  masked_pair_sums_kernel<kTiles><<<grid, rp::threads(kTiles), smem, st>>>(p, smap, pmap);
+  return 0;
 }
-
-int pad_rows(int r) { return (r + kRowPad - 1) / kRowPad * kRowPad; }
 
 }  // namespace
 
 extern "C" {
 
-// flags [w, rp] int32, wbits [w, rp, ceil(n/32)] and mcol
-// [w, ceil(n/64), ceil(n/32), 64] uint32 are scratch; mcol is used only when
-// a tile's mask words outgrow kMcolSmemMax (N > 4096), and may be null else.
+// Rows of sim, present, wd and wp are ld elements apart (ld % 16 == 0,
+// ld >= n), every base 16-byte aligned; flags [w, rd + rp] int32 is
+// scratch; yd / yp rows are n apart.
 int impop_masked_pair_sums(const void* sim, const void* present, const void* wd,
-                           const void* wp, int w, int n, int rd, int rp, void* flags,
-                           void* wbits, void* mcol, void* yd, void* yp, void* stream) {
+                           const void* wp, int w, int n, int ld, int rd, int rp_rows,
+                           void* flags, void* yd, void* yp, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SumParams p;
-  p.sim = static_cast<const float*>(sim);
-  p.pres = static_cast<const uint8_t*>(present);
   p.wd = static_cast<const float*>(wd);
   p.wp = static_cast<const float*>(wp);
   p.flags = static_cast<const int32_t*>(flags);
-  p.wbits = static_cast<const uint32_t*>(wbits);
-  p.mcol = static_cast<uint32_t*>(mcol);
   p.yd = static_cast<float*>(yd);
   p.yp = static_cast<float*>(yp);
-  p.n = n; p.rd = rd; p.rp = rp;
-  p.rd_pad = pad_rows(rd);
-  p.rp_pad = pad_rows(rp);
-  p.nwc = (n + 31) / 32;
-  p.nct = (n + kColTile - 1) / kColTile;
-  const auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
-  p.vec = n % 16 == 0 && aligned(sim) && aligned(present) && aligned(wd) && aligned(wp);
-  const int layers = (p.rd_pad + p.rp_pad + kValueCap - 1) / kValueCap;
-  p.xcap = p.rd_pad + p.rp_pad < kValueCap ? p.rd_pad + p.rp_pad : kValueCap;
-  const size_t mcol_bytes = sizeof(uint32_t) * p.nwc * kColTile;
-  p.mcol_smem = mcol_bytes <= kMcolSmemMax;
+  p.n = n;
+  p.ld = ld;
+  p.rd = rd;
+  p.rp = rp_rows;
+  p.nd = (rd + rp::kRows - 1) / rp::kRows;
+  p.tiles = p.nd + (rp_rows + rp::kRows - 1) / rp::kRows;
+  if (p.tiles == 0) return 0;
+  CUtensorMap smap{}, pmap{};
+  if (!impop::tensor_map_3d(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, sim, n, n, w, ld,
+                            kColTile, rp::kKc) ||
+      !impop::tensor_map_3d(&pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, present, n, n, w, ld,
+                            kColTile, rp::kKc))
+    return static_cast<int>(cudaErrorInvalidValue);
 
-  if (rp > 0) {
-    masked_rows_pack_kernel<<<dim3((rp + kWarps - 1) / kWarps, w), kThreads, 0, st>>>(
-        p.wp, n, rp, p.nwc, static_cast<int32_t*>(flags), static_cast<uint32_t*>(wbits));
-  }
-  const size_t smem =
-      sizeof(float) * (kStages * (kSimTile + kPresTile + p.xcap * kXStride) + 2 * kSimTile +
-                       kColTile) +
-      (p.mcol_smem ? mcol_bytes : 0);
-  const int err = set_smem(reinterpret_cast<const void*>(masked_pair_sums_kernel), smem);
+  masked_rows_pack_kernel<<<dim3((rd + rp_rows + kPackWarps - 1) / kPackWarps, w), kPackThreads,
+                            0, st>>>(p.wd, p.wp, n, ld, rd, rp_rows, static_cast<int32_t*>(flags));
+  const int tiles = p.tiles > 1 ? 2 : 1;
+  const dim3 grid((n + kColTile - 1) / kColTile, w, (p.tiles + tiles - 1) / tiles);
+  const int err = tiles == 1 ? launch_sums<1>(p, grid, st, smap, pmap)
+                             : launch_sums<2>(p, grid, st, smap, pmap);
   if (err) return err;
-  masked_pair_sums_kernel<<<dim3(p.nct, w, layers), kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,22 +39,35 @@
 //      seed, and OR-ing its link row (bits j > i) out of the undecided set
 //      absorbs its group; the weight size / max(n, 1) is written at the
 //      seed.  Then S and seed_risk (any two seeds without data).
-//   C  window_products_kernel, one block per (window, 64 columns).
+//   C  window_products_kernel, one block per (window, 64 columns): one
+//      consumer warpgroup per tile of 64 value rows and a producer warp
+//      (csrc/rowprod.cuh; two blocks per SM at one tile).
 //      Y = X . div for the value rows [0, rd) (weights, mask_a, mask_b)
-//      against div = (1 - sim) . offdiag . present, and Y = X . mask for
-//      the 0/1 rows [rd, rd + rp) (seeds, mask_a, mask_b).  Value rows: a
-//      register-blocked fp32 product, each thread 4 rows x 4 columns, two
-//      16-byte shared loads per 16 FMAs, i ascending, the next step's
-//      operands loaded into registers meanwhile; each (1 - sim)
-//      element is built once per block from the diff and a per-block table
-//      rounded exactly as the reference rounds it.  fp32 FMA only (no TF32,
-//      no bf16: the values are not exact in a narrower type).  0/1 rows:
-//      AND + popcount of the row's packed bits against present row j
-//      (present is symmetric), exact integers as fp32 sums are below 2^24.
-//      The 0/1 rows' packed words come from A0 (masks) and B (seeds).
-//      Each block then takes every row-dot whose Y row it holds over its
-//      64 columns (X columns staged in shared memory) and writes the
-//      partial.
+//      against div = (1 - sim) . offdiag . present, on the tensor cores:
+//      the producer keeps the diff tiles ([32 i, 64 j] uint16) of the
+//      next four chunks in flight by TMA (a ring with full / empty
+//      mbarriers); the consumers turn chunk c + 1's diffs into the three
+//      bf16 pieces of tab[d] = 1 - f32(1 - d / len), the (1 - sim) of the
+//      reference rounded as the reference rounds it (d / len by a
+//      correctly rounded reciprocal and one FMA correction, bit-identical
+//      to IEEE division; tab[d] is not d / len, which differs by up to
+//      1.3e-4 relative at len = 5000; absent pairs and i == j: zeros),
+//      while the wgmma of chunk c runs.  The X rows are the wgmma's A operand in registers:
+//      each thread loads its X values from device memory two chunks ahead
+//      and splits them into three pieces.  Of the nine piece products the
+//      six with p + q <= 4 are kept (the dropped ones are below 2^-21 of
+//      each term), every one exact in fp32; a chunk's 12 products
+//      accumulate in fp32 registers, the chunks are summed in i order with
+//      round-to-nearest adds (no TF32, no single bf16 pass; the sums are
+//      the same from run to run).  0/1 rows [rd, rd + rp) (seeds, mask_a,
+//      mask_b): AND + POPC of the rows' packed bits against the packed
+//      present words of column j (present is symmetric; both staged in
+//      shared memory, loaded with the block's tables) on the tensor cores
+//      (mma m16n8k256 b1, int32 sums: exact counts).  The 0/1 rows'
+//      packed words come from A0 (masks) and B (seeds).  Each block then
+//      takes every row-dot whose Y row it holds over its 64 columns (X
+//      columns and the dot table staged in shared memory, one thread a
+//      dot) and writes the partial.
 //   D  window_dots_kernel sums each row-dot's partials in column-tile
 //      order (no float atomics: a row is the same from run to run).
 //
@@ -62,8 +75,16 @@
 // packed words, diff as uint16 (512 KiB at N = 512), bit-packed present
 // and link (32 KiB each), the X row stack and the partial row-dots.
 //
-// What bounds it on this card: phase C's N^2 x rd fp32 FMAs (the value
-// rows) and phase A1's N^2 S / 64 word pairs of two popcounts each.
+// What bounds it on this card: at [512, 128] x 320 most of the time goes
+// to phase C, then to A1's N^2 S / 64 word pairs of two popcounts (PERF.md
+// has the times).  Phase C's own bounds are its
+// tensor-core products (6 bf16 products of a 64-row tile a pair: 64
+// GFLOP, 65 us at 989 TFLOP/s) and its read of diff (168 MB, 50 us at
+// 3.35 TB/s); it runs at several times them, bound by latency: each block
+// waits on its wgmma chain and its decode once a chunk with only two
+// blocks (ten warps) per SM to cover it (bench/window_breakdown.py times
+// the parts).  The 0/1 rows' counts take b1 mma, not __popc, which the
+// card retires at 16 a clock per SM.
 //
 // The seed peel (seed_peel: seeds and gid of P masks from a given sim /
 // present, two launches):
@@ -88,6 +109,7 @@
 #include <cuda_runtime.h>
 
 #include "kernels.cuh"
+#include "rowprod.cuh"
 
 namespace {
 
@@ -97,19 +119,19 @@ using impop::pair_counts;
 using impop::set_smem;
 using impop::upper_block;
 using impop::warp_sum;
-using impop::warp_sumf;
+
+namespace rp = impop::rp;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTabMax = 4096;          // (1 - sim) table entries beyond d = 0
 constexpr int kPackRows = 32;          // rows per block of A0
-constexpr int kColTile = 64;           // Y columns per block of C
-constexpr int kRowChunk = 64;          // Y rows per pass of C
-constexpr int kKc = 32;                // i values per staged step of C
-constexpr int kXtStride = kRowChunk + 4;
+constexpr int kColTile = rp::kCols;    // Y columns per block of C
+constexpr int kRowChunk = 64;          // 0/1 rows per pass of C
 constexpr uint16_t kAbsent = 0xffffu;  // diff of an absent pair or i == j
 constexpr size_t kLinkSmemMax = 160 * 1024;
-constexpr size_t kXSmemMax = 64 * 1024;     // staged X columns of C
+constexpr size_t kXSmemMax = 48 * 1024;     // staged X columns of C
+constexpr int kDiffBox = rp::kKc * kColTile * 2;  // a raw diff tile [32 i, 64 j]
+constexpr size_t kSmemCap = 232448;         // shared memory of a block
 
 struct WinParams {
   const int8_t* geno;      // [W, N, S]
@@ -136,12 +158,6 @@ struct WinParams {
   float* partial;          // [W, T, nct]
   float* out;              // [W, n_out]
 };
-
-__device__ __forceinline__ float div_elem(int d, const float* tab, int tabn, float len) {
-  if (d == kAbsent) return 0.0f;
-  return d < tabn ? tab[d]
-                  : __fsub_rn(1.0f, __fsub_rn(1.0f, __fdiv_rn(static_cast<float>(d), len)));
-}
 
 // ---- A0: packed words and column bitmaps of 32 rows; their X columns
 __global__ void __launch_bounds__(kThreads) window_pack_kernel(WinParams p) {
@@ -380,150 +396,221 @@ __global__ void __launch_bounds__(kThreads) window_peel_kernel(WinParams p) {
 }
 
 // Phase C's row-dots over this block's 64 columns for the Y rows
-// [g0, g_end) staged in ys: one warp per dot, lanes over the columns.
-// xd points at X column j0 of row 0, rows `stride` floats apart (the
-// block's staged columns, or the window's X rows in device memory).
-__device__ __forceinline__ void tile_dots(const WinParams& p, const float* ys, const float* xd,
-                                          int stride, int w, int ct, int j0, int g0, int g_end,
-                                          int lane, int warp) {
-  for (int t = warp; t < p.t; t += kWarps) {
-    const int yr = p.dots[3 * t];
+// [g0, g_end) staged in ys: one thread a dot, over the columns from a
+// start rotated by the lane (the lanes read distinct banks), in a fixed
+// order; dots: the (Y row, X row) of every dot, in shared memory.
+__device__ __forceinline__ void tile_dots(const WinParams& p, const int* dots, const float* ys,
+                                          const float* xd, int stride, int w, int ct, int j0,
+                                          int g0, int g_end, int tid, int n_threads) {
+  const int cols = min(kColTile, p.n - j0), lane = tid & 31;
+  for (int t = tid; t < p.t; t += n_threads) {
+    const int yr = dots[3 * t];
     if (yr < g0 || yr >= g_end) continue;
-    const float* xrow = xd + static_cast<size_t>(p.dots[3 * t + 1]) * stride;
+    const float* yrow = ys + (yr - g0) * kColTile;
+    const float* xrow = xd + static_cast<size_t>(dots[3 * t + 1]) * stride;
     float acc = 0.0f;
-    for (int jj = lane; jj < kColTile; jj += 32)
-      if (j0 + jj < p.n) acc = fmaf(ys[(yr - g0) * kColTile + jj], xrow[jj], acc);
-    acc = warp_sumf(acc);
-    if (lane == 0) p.partial[(static_cast<size_t>(w) * p.t + t) * p.nct + ct] = acc;
+#pragma unroll 8
+    for (int k = 0; k < kColTile; ++k) {
+      const int jj = (k + lane) & (kColTile - 1);
+      if (jj < cols) acc = fmaf(yrow[jj], xrow[jj], acc);
+    }
+    p.partial[(static_cast<size_t>(w) * p.t + t) * p.nct + ct] = acc;
   }
 }
 
-// ---- C: Y tiles of 64 columns, then their partial row-dots
-__global__ void __launch_bounds__(kThreads, 3) window_products_kernel(WinParams p) {
-  extern __shared__ __align__(16) float fsm[];
+// Phase C's shared memory: the ring's mbarriers, the dot table, the
+// staged X columns, the 0/1 rows' and the columns' packed
+// words, the TMA ring of diff tiles, then the double buffer of B pieces
+// (after a pass, the pass's Y tile; in the 0/1 rows' passes, their Y
+// rows).  The host sizes the launch with the same function.
+struct ProdLayout {
+  int dots, xcols, bits, raw, dec, total;
+};
+
+// Words apart of the 0/1 rows' packed rows and of the columns' present
+// words in shared memory (conflict-free b1 mma fragments).
+__host__ __device__ constexpr int bit_stride(int n) { return n / 32 + 4; }
+
+__host__ __device__ inline ProdLayout prod_layout(int n, int xrows, int t, bool x_smem,
+                                                  int tiles) {
+  ProdLayout l;
+  l.dots = rp::kBarBytes;
+  l.xcols = l.dots + (12 * t + 127) / 128 * 128;
+  l.bits = l.xcols + (x_smem ? (4 * xrows * kColTile + 127) / 128 * 128 : 0);
+  l.raw = l.bits + 4 * (kRowChunk + kColTile) * bit_stride(n);
+  l.dec = l.raw + rp::kRaw * kDiffBox;
+  const int ys = 4 * tiles * rp::kRows * kColTile;
+  l.total = l.dec + (ys > 2 * rp::kDecHalf ? ys : 2 * rp::kDecHalf);
+  return l;
+}
+
+// ---- C: Y tiles of 64 columns on the tensor cores, then their partial
+// row-dots.  A pass takes kTiles tiles of 64 value rows (warpgroup g
+// multiplies tile g); the i axis comes in chunks of 32.
+template <int kTiles>
+__global__ void __launch_bounds__(rp::threads(kTiles), 3 - kTiles)
+    window_products_kernel(WinParams p, const __grid_constant__ CUtensorMap dmap) {
+  constexpr int kCons = 128 * kTiles;   // consumer threads
+  constexpr int kPassRows = kTiles * rp::kRows;
+  extern __shared__ __align__(128) uint8_t csm[];
   const int w = blockIdx.x, ct = blockIdx.y, j0 = ct * kColTile;
   const int N = p.n, NW = p.n / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int xrows = p.rd + p.rp;
-  const int tabn = min(p.s, kTabMax) + 1;
-  float* tab = fsm;                                            // [tabn]
-  float* xt = fsm + ((tabn + 3) & ~3);                         // [kKc, kXtStride]
-  float* ms = xt + kKc * kXtStride;                            // [kKc, kColTile]
-  float* ys = ms + kKc * kColTile;                             // [kRowChunk, kColTile]
-  uint32_t* xb = reinterpret_cast<uint32_t*>(ys + kRowChunk * kColTile);  // [kRowChunk, NW]
-  float* xcols = reinterpret_cast<float*>(xb + kRowChunk * NW);           // [xrows, kColTile]
-  const float* x = p.x + static_cast<size_t>(w) * xrows * N;
-  const uint32_t* xbits = p.xbits + static_cast<size_t>(w) * p.rp * NW;
-  const float* xd = p.x_smem ? xcols : x + j0;
-  const int xstride = p.x_smem ? kColTile : N;
-  const uint16_t* diff = p.diff + static_cast<size_t>(w) * N * N;
-  const uint32_t* pres = p.pres + static_cast<size_t>(w) * N * NW;
-  const float len = fmaxf(p.length[w], 1.0f);
+  const ProdLayout lay = prod_layout(N, xrows, p.t, p.x_smem, kTiles);
+  int* dots = reinterpret_cast<int*>(csm + lay.dots);         // [T, 3]
+  uint64_t* full = reinterpret_cast<uint64_t*>(csm);
+  uint64_t* empty = full + rp::kRaw;
+  float* xcols = reinterpret_cast<float*>(csm + lay.xcols);  // [xrows, kColTile]
+  uint8_t* raw = csm + lay.raw;
+  uint8_t* dec = csm + lay.dec;
+  const int nch = N / rp::kKc;
+  const int passes = (p.rd + kPassRows - 1) / kPassRows;
+  const float len = fmaxf(p.length[w], 1.0f), inv = __frcp_rn(len);
 
-  for (int d = tid; d < tabn; d += kThreads) {
-    const float sim = __fsub_rn(1.0f, __fdiv_rn(static_cast<float>(d), len));
-    tab[d] = __fsub_rn(1.0f, sim);
+  if (tid == 0) {
+    for (int q = 0; q < rp::kRaw; ++q) {
+      impop::mbar_init(&full[q], 1);
+      impop::mbar_init(&empty[q], kCons / 32);
+    }
+    impop::mbar_init_fence();
   }
+  __syncthreads();
+
+  if (__shfl_sync(0xffffffffu, warp, 0) >= kCons / 32) {   // the producer warp: the diff tiles by TMA
+    if (lane == 0)
+      for (int c = 0; c < passes * nch; ++c) {
+        const int slot = c % rp::kRaw;
+        if (c >= rp::kRaw) impop::mbar_wait(&empty[slot], ((c / rp::kRaw) + 1) & 1);
+        impop::fence_proxy_async();
+        impop::mbar_expect_tx(&full[slot], kDiffBox);
+        impop::tma_load(raw + slot * kDiffBox, &dmap, j0, (c % nch) * rp::kKc, w, &full[slot]);
+      }
+    return;
+  }
+
+  // the consumers: barrier rp::kSyncId
+  for (int e = tid; e < 3 * p.t; e += kCons) dots[e] = p.dots[e];
+  const float* x = p.x + static_cast<size_t>(w) * xrows * N;
   if (p.x_smem)
-    for (int e = tid; e < xrows * kColTile; e += kThreads) {
+#pragma unroll 8
+    for (int e = tid; e < xrows * kColTile; e += kCons) {
       const int row = e / kColTile, jj = e % kColTile;
       xcols[e] = j0 + jj < N ? x[static_cast<size_t>(row) * N + j0 + jj] : 0.0f;
     }
-
-  // value rows: thread (s4, c4) holds rows 4 s4 .. + 3, columns 4 c4 .. + 3
-  const int s4 = tid >> 4, c4 = tid & 15;
-  constexpr int kXPer = kKc * kRowChunk / kThreads;          // X values per thread
-  constexpr int kDPer = kKc * (kColTile / 4) / kThreads;     // 4-diff groups per thread
-  for (int g0 = 0; g0 < p.rd; g0 += kRowChunk) {
-    const bool rows_on = g0 + 4 * s4 < p.rd;   // rd is a multiple of 16
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-    // the next step's X values and diffs wait in registers while this
-    // step's products run
-    float xpre[kXPer];
-    ushort4 dpre[kDPer];
-    auto fetch = [&](int i0) {
-#pragma unroll
-      for (int m = 0; m < kXPer; ++m) {
-        const int e = tid + kThreads * m, k = e % kKc, row = e / kKc;   // coalesced in k
-        xpre[m] = g0 + row < p.rd ? x[static_cast<size_t>(g0 + row) * N + i0 + k] : 0.0f;
-      }
-#pragma unroll
-      for (int m = 0; m < kDPer; ++m) {
-        const int e = tid + kThreads * m, k = e / (kColTile / 4), j = j0 + 4 * (e % (kColTile / 4));
-        dpre[m] = j < N ? *reinterpret_cast<const ushort4*>(diff + static_cast<size_t>(i0 + k) * N + j)
-                        : make_ushort4(kAbsent, kAbsent, kAbsent, kAbsent);
-      }
-    };
-    fetch(0);
-    for (int i0 = 0; i0 < N; i0 += kKc) {
-      __syncthreads();   // the table is written; the last step's tiles are read
-#pragma unroll
-      for (int m = 0; m < kXPer; ++m) {
-        const int e = tid + kThreads * m;
-        xt[(e % kKc) * kXtStride + e / kKc] = xpre[m];
-      }
-#pragma unroll
-      for (int m = 0; m < kDPer; ++m) {
-        const int e = tid + kThreads * m, k = e / (kColTile / 4), c = e % (kColTile / 4);
-        const ushort4 d = dpre[m];
-        *reinterpret_cast<float4*>(ms + k * kColTile + 4 * c) =
-            make_float4(div_elem(d.x, tab, tabn, len), div_elem(d.y, tab, tabn, len),
-                        div_elem(d.z, tab, tabn, len), div_elem(d.w, tab, tabn, len));
-      }
-      __syncthreads();
-      if (i0 + kKc < N) fetch(i0 + kKc);
-      if (!rows_on) continue;
+  const float* xd = p.x_smem ? xcols : x + j0;
+  const int xstride = p.x_smem ? kColTile : N;
+  // the 0/1 rows' packed words (rows rd .. rd + 63 here, later ones per
+  // pass) and the packed present words of the block's columns (present
+  // is symmetric, i == j cleared), loaded now beside the tables
+  const int bs = bit_stride(N);
+  uint32_t* xb = reinterpret_cast<uint32_t*>(csm + lay.bits);   // [kRowChunk, bs]
+  uint32_t* pw_s = xb + kRowChunk * bs;                         // [kColTile, bs]
+  const uint32_t* xbits = p.xbits + static_cast<size_t>(w) * p.rp * NW;
+  const uint32_t* pres = p.pres + static_cast<size_t>(w) * N * NW;
+  auto stage_rows = [&](int g0) {
 #pragma unroll 8
-      for (int k = 0; k < kKc; ++k) {
-        const float4 mv = *reinterpret_cast<const float4*>(ms + k * kColTile + 4 * c4);
-        const float4 xv = *reinterpret_cast<const float4*>(xt + k * kXtStride + 4 * s4);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          acc[a][0] = fmaf(xs[a], mv.x, acc[a][0]);
-          acc[a][1] = fmaf(xs[a], mv.y, acc[a][1]);
-          acc[a][2] = fmaf(xs[a], mv.z, acc[a][2]);
-          acc[a][3] = fmaf(xs[a], mv.w, acc[a][3]);
-        }
-      }
+    for (int e = tid; e < kRowChunk * NW; e += kCons) {
+      const int rr = e / NW;
+      xb[rr * bs + e % NW] = g0 + rr < xrows ? xbits[static_cast<size_t>(g0 - p.rd) * NW + e] : 0u;
     }
+  };
+  stage_rows(p.rd);
+#pragma unroll 8
+  for (int e = tid; e < kColTile * NW; e += kCons) {
+    const int jj = j0 + e / NW, kw = e % NW;
+    uint32_t word = jj < N ? pres[static_cast<size_t>(jj) * NW + kw] : 0u;
+    if (kw == (jj >> 5)) word &= ~(1u << (jj & 31));   // i == j is not a pair
+    pw_s[(e / NW) * bs + kw] = word;
+  }
+  impop::named_sync(rp::kSyncId, kCons);   // the tables are written
+
+  // Chunk c: wait for its diff tile, turn each diff d of column j, i
+  // values 8 ig .. + 7 into the three pieces of tab[d] = 1 - f32(1 - d /
+  // len) (IEEE division and subtraction, as the reference rounds (1 -
+  // sim); absent pairs and i == j: zero) in half c % 2 of the buffer,
+  // release the ring slot.
+  auto decode = [&](int c) {
+    const int slot = c % rp::kRaw;
+    impop::mbar_wait(&full[slot], (c / rp::kRaw) & 1);
+    const uint16_t* dg = reinterpret_cast<const uint16_t*>(raw + slot * kDiffBox);
+    uint8_t* ds = dec + (c & 1) * rp::kDecHalf;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      *reinterpret_cast<float4*>(ys + (4 * s4 + a) * kColTile + 4 * c4) =
-          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
-    __syncthreads();
-    tile_dots(p, ys, xd, xstride, w, ct, j0, g0, min(g0 + kRowChunk, p.rd), lane, warp);
+    for (int it = tid; it < kColTile * (rp::kKc / 8); it += kCons) {
+      const int j = it & (kColTile - 1), ig = it / kColTile;
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int d = dg[(8 * ig + k) * kColTile + j];
+        const float q = impop::div_rn(static_cast<float>(d), len, inv);
+        v[k] = d == kAbsent ? 0.0f : __fsub_rn(1.0f, __fsub_rn(1.0f, q));
+      }
+      const rp::Pack8 o = rp::pack8(v);
+      const int off = rp::kmajor(j, ig);
+#pragma unroll
+      for (int pc = 0; pc < 3; ++pc)
+        *reinterpret_cast<uint4*>(ds + pc * rp::kPiece + off) = o.p[pc];
+    }
+    impop::fence_proxy_async();   // the pieces -> wgmma
+    __syncwarp();
+    if (lane == 0) impop::mbar_arrive(&empty[slot]);
+  };
+
+  // value rows: tile g of a pass is X rows [g0 + 64 g, + 64) of [0, rd)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), t128 = tid & 127;
+  float* ys = reinterpret_cast<float*>(dec);   // [kPassRows, kColTile] after a pass
+  for (int pass = 0; pass < passes; ++pass) {
+    const int g0 = pass * kPassRows, row0 = g0 + wg * rp::kRows;
+    const int rows = min(rp::kRows, p.rd - row0);
+    float sum[32];
+    // group weights (rows [0, R)) carry values; mask_a / mask_b rows are 0/1
+    rp::tile_pass<kCons>(decode, dec, pass * nch, nch, x + static_cast<size_t>(row0) * N, N,
+                         rows, N, false, row0 < p.r, t128, sum);
+    if (rows > 0)
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        ys[(wg * rp::kRows + rp::acc_row(t128, r)) * kColTile + rp::acc_col(t128, r)] = sum[r];
+    impop::named_sync(rp::kSyncId, kCons);
+    tile_dots(p, dots, ys, xd, xstride, w, ct, j0, g0, min(g0 + kPassRows, p.rd), tid, kCons);
+    impop::named_sync(rp::kSyncId, kCons);   // ys is read
   }
 
-  // 0/1 rows: thread (column c, rows rq + 4 m) counts AND + popcount
-  const int c = tid % kColTile, rq = tid / kColTile, j = j0 + c;
+  // 0/1 rows: Σ popc(row word & column word) over the window's words, on
+  // the tensor cores (mma m16n8k256 b1, AND + POPC into int32: exact
+  // counts; padding rows are zero words and count zero); warp k takes
+  // (16-row, 8-column) tiles k, k + n_warps, ...
+  float* yb = reinterpret_cast<float*>(dec);   // [kRowChunk, kColTile]
+  const int grp = lane >> 2, tig = lane & 3;
   for (int g0 = p.rd; g0 < xrows; g0 += kRowChunk) {
-    __syncthreads();   // ys and xb of the previous pass are read
-    for (int e = tid; e < kRowChunk * NW; e += kThreads) {
-      const int rr = e / NW;
-      xb[e] = g0 + rr < xrows ? xbits[static_cast<size_t>(g0 - p.rd) * NW + e] : 0u;
+    if (g0 > p.rd) {
+      impop::named_sync(rp::kSyncId, kCons);   // xb and yb of the previous pass are read
+      stage_rows(g0);
+      impop::named_sync(rp::kSyncId, kCons);
     }
-    __syncthreads();
-    int cnt[kRowChunk / 4];
-#pragma unroll
-    for (int m = 0; m < kRowChunk / 4; ++m) cnt[m] = 0;
-    if (j < N) {
-      for (int kw = 0; kw < NW; ++kw) {
-        uint32_t pw = pres[static_cast<size_t>(j) * NW + kw];
-        if (kw == (j >> 5)) pw &= ~(1u << (j & 31));
-#pragma unroll
-        for (int m = 0; m < kRowChunk / 4; ++m) cnt[m] += __popc(xb[(rq + 4 * m) * NW + kw] & pw);
+    for (int tile = warp; tile < (kRowChunk / 16) * (kColTile / 8); tile += kCons / 32) {
+      const int r0 = 16 * (tile / (kColTile / 8)), c0 = 8 * (tile % (kColTile / 8));
+      const uint32_t* ra = xb + (r0 + grp) * bs;
+      const uint32_t* rb = pw_s + (c0 + grp) * bs;
+      int cnt[4] = {0, 0, 0, 0};
+      for (int kb = 0; kb < NW; kb += 8) {
+        const bool lo = kb + tig < NW, hi = kb + 4 + tig < NW;
+        const uint32_t a0 = lo ? ra[kb + tig] : 0u, a1 = lo ? ra[8 * bs + kb + tig] : 0u;
+        const uint32_t a2 = hi ? ra[kb + 4 + tig] : 0u, a3 = hi ? ra[8 * bs + kb + 4 + tig] : 0u;
+        const uint32_t b0 = lo ? rb[kb + tig] : 0u, b1 = hi ? rb[kb + 4 + tig] : 0u;
+        asm volatile(
+            "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+r"(cnt[0]), "+r"(cnt[1]), "+r"(cnt[2]), "+r"(cnt[3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
       }
-    }
 #pragma unroll
-    for (int m = 0; m < kRowChunk / 4; ++m)
-      ys[(rq + 4 * m) * kColTile + c] = static_cast<float>(cnt[m]);
-    __syncthreads();
-    tile_dots(p, ys, xd, xstride, w, ct, j0, g0, min(g0 + kRowChunk, xrows), lane, warp);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          yb[(r0 + grp + 8 * h) * kColTile + c0 + 2 * tig + e] = static_cast<float>(cnt[2 * h + e]);
+    }
+    impop::named_sync(rp::kSyncId, kCons);
+    tile_dots(p, dots, yb, xd, xstride, w, ct, j0, g0, min(g0 + kRowChunk, xrows), tid, kCons);
   }
 }
 
@@ -536,13 +623,6 @@ __global__ void __launch_bounds__(kThreads) window_dots_kernel(WinParams p, int 
   float acc = 0.0f;
   for (int ct = 0; ct < p.nct; ++ct) acc += part[ct];
   p.out[static_cast<size_t>(w) * p.n_out + p.dots[3 * t + 2]] = acc;
-}
-
-size_t products_smem(int n, int s, int xrows, bool x_smem) {
-  const int tabn = (s < kTabMax ? s : kTabMax) + 1;
-  return sizeof(float) * (((tabn + 3) & ~3) + kKc * kXtStride + kKc * kColTile +
-                          kRowChunk * kColTile + (x_smem ? xrows * kColTile : 0)) +
-         sizeof(uint32_t) * kRowChunk * (n / 32);
 }
 
 // ---- seed peel (seed_peel_pallas), two launches over many blocks
@@ -744,7 +824,14 @@ int impop_window_stats(const void* geno, const void* member, const void* smask,
   p.nct = (n + kColTile - 1) / kColTile;
   const size_t link_bytes = sizeof(uint32_t) * static_cast<size_t>(n) * (n / 32);
   p.link_smem = link_bytes <= kLinkSmemMax;
-  p.x_smem = sizeof(float) * (rd + rp) * kColTile <= kXSmemMax;
+  const int tiles = rd <= rp::kRows ? 1 : 2;   // value-row tiles of a pass of C
+  p.x_smem = sizeof(float) * (rd + rp) * kColTile <= kXSmemMax &&
+             prod_layout(n, rd + rp, t, true, tiles).total <= static_cast<int>(kSmemCap);
+  // phase C's TMA view of diff [w, n, n] uint16, in [32 i, 64 j] boxes
+  CUtensorMap dmap{};
+  if (rd > 0 && !impop::tensor_map_3d(&dmap, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, diff, n, n, w,
+                                      n, kColTile, rp::kKc))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.bits = static_cast<uint32_t*>(bits);
   p.colbits = static_cast<uint32_t*>(colbits);
   p.pres = static_cast<uint32_t*>(pres);
@@ -769,10 +856,15 @@ int impop_window_stats(const void* geno, const void* member, const void* smask,
   err = set_smem(reinterpret_cast<const void*>(window_peel_kernel), peel_smem);
   if (err) return err;
   window_peel_kernel<<<w, kThreads, peel_smem, st>>>(p);
-  const size_t prod_smem = products_smem(n, s, rd + rp, p.x_smem);
-  err = set_smem(reinterpret_cast<const void*>(window_products_kernel), prod_smem);
+  const size_t prod_smem = prod_layout(n, rd + rp, t, p.x_smem, tiles).total;
+  const void* prod = tiles == 1 ? reinterpret_cast<const void*>(window_products_kernel<1>)
+                                : reinterpret_cast<const void*>(window_products_kernel<2>);
+  err = set_smem(prod, prod_smem);
   if (err) return err;
-  window_products_kernel<<<dim3(w, p.nct), kThreads, prod_smem, st>>>(p);
+  if (tiles == 1)
+    window_products_kernel<1><<<dim3(w, p.nct), rp::threads(1), prod_smem, st>>>(p, dmap);
+  else
+    window_products_kernel<2><<<dim3(w, p.nct), rp::threads(2), prod_smem, st>>>(p, dmap);
   window_dots_kernel<<<(w * t + kThreads - 1) / kThreads, kThreads, 0, st>>>(p, w);
   return static_cast<int>(cudaGetLastError());
 }

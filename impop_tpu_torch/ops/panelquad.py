@@ -8,14 +8,17 @@
   version of the window kernel, which must never reach a kernel.
 - :func:`masked_pair_sums`: the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch ``csrc/panelquad.cu``'s
-  ``masked_rows_pack_kernel`` (is each Wp row 0/1?  then bit-pack it) and
-  ``masked_pair_sums_kernel`` (one block per window and 64 columns, sim /
-  present read once per column tile), or raise.  The weighted scan, the
-  matrices-out route and the per-statistic drivers call it.
+  ``masked_rows_pack_kernel`` (is each row of Wd and Wp 0/1?) and
+  ``masked_pair_sums_kernel`` (one block per window, 64 columns and two
+  64-row tiles of the stacks; sim / present come in by TMA once per
+  block), or raise.  The weighted scan, the matrices-out route and the
+  per-statistic drivers call it.
 
-Yd carries real values ((1 - sim), group weights) in fp32 FMA, so it
-agrees with the plain version to float32 rounding, not bit for bit; a 0/1
-row of Wp is counted by AND + popcount and its Yp is exactly equal.
+The products run on the tensor cores in exact bf16 pieces (three for a
+row with other values than 0 and 1, one for a 0/1 row) with fp32
+accumulation (``csrc/rowprod.cuh``), so Yd agrees with the plain version
+to float32 rounding, not bit for bit; a 0/1 row of Wp sums exact 0/1
+products to integers, so its Yp is exactly equal.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from impop_tpu_torch.device import on_device
 
 __all__ = ["masked_pair_sums", "masked_pair_sums_plain"]
 
-# bytes of mask words the kernel keeps in shared memory (kMcolSmemMax)
-_MCOL_SMEM_MAX = 32 * 1024
+# the kernel's TMA views read rows a multiple of 16 elements apart, from
+# 16-byte aligned bases
+_ROW_ALIGN = 16
 
 
 def masked_pair_sums_plain(sim: torch.Tensor, present: torch.Tensor,
@@ -73,33 +77,34 @@ def _masked_pair_sums_cuda(sim, present, wd, wp):
     if w > 65535:
         raise ValueError(f"masked_pair_sums: {w} windows exceed the grid's "
                          "65535")
-    simc = sim.contiguous()
-    presc = present.contiguous().view(torch.uint8)
-    wdc, wpc = wd.contiguous(), wp.contiguous()
+    ld = -(-n // _ROW_ALIGN) * _ROW_ALIGN
+    simc, presc, wdc, wpc = (_tma_rows(t, n, ld) for t in (
+        sim, present.contiguous().view(torch.uint8), wd, wp))
     yd = torch.empty(lead + (rd, n), dtype=torch.float32, device=dev)
     yp = torch.empty(lead + (rp, n), dtype=torch.float32, device=dev)
     if w > 0 and n > 0 and rd + rp > 0:
-        nwc = -(-n // 32)
-        # scratch: the 0/1 flag and packed bits of every Wp row, and each
-        # column tile's mask words where they outgrow the kernel's shared
-        # memory (N > 4096; the kernel writes all it reads)
-        flags = torch.empty((w, rp), dtype=torch.int32, device=dev)
-        wbits = torch.empty((w, rp, nwc), dtype=torch.int32, device=dev)
-        mcol = None
-        if 4 * nwc * 64 > _MCOL_SMEM_MAX:
-            mcol = torch.empty((w, -(-n // 64), nwc, 64), dtype=torch.int32,
-                               device=dev)
+        # scratch: the 0/1 flag of every row of Wd and Wp
+        flags = torch.empty((w, rd + rp), dtype=torch.int32, device=dev)
         lib = load_library()
         with on_device(dev):   # the launch goes to the current device
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.impop_masked_pair_sums(
                 simc.data_ptr(), presc.data_ptr(), wdc.data_ptr(),
-                wpc.data_ptr(), w, n, rd, rp, flags.data_ptr(),
-                wbits.data_ptr(), None if mcol is None else mcol.data_ptr(),
+                wpc.data_ptr(), w, n, ld, rd, rp, flags.data_ptr(),
                 yd.data_ptr(), yp.data_ptr(), stream)
         check(lib, err, "masked_rows_pack_kernel / masked_pair_sums_kernel")
         masked_pair_sums.launches += 1
     return yd, yp
+
+
+def _tma_rows(t: torch.Tensor, n: int, ld: int) -> torch.Tensor:
+    """t contiguous with its last axis padded from n to ld elements (zeros
+    the kernel never reads) and a 16-byte aligned base: a copy only when
+    N is not a multiple of 16 or the base is not aligned."""
+    t = t.contiguous()
+    if ld != n:
+        return torch.nn.functional.pad(t, (0, ld - n))
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def masked_pair_sums(sim: torch.Tensor, present: torch.Tensor,

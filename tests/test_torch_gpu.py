@@ -10,7 +10,7 @@ seed_risk, seeds, gid, EHH step sums and carriers); unit and weighted
 sim / present exact (integer counts, integer weights: every sum is exact
 in float32); quad, sum_*, gdxy and the masked panel sums rtol 1e-5
 (float32 sums in another order), the masked sums' 0/1 rows of Wp exact
-(counted by popcount).  The batch estimators of
+(sums of exact 0/1 products).  The batch estimators of
 ``parallel/scan`` run on the card against the same call on CPU tensors:
 integer fields exact, π and Dxy rtol 1e-5, Fst atol 2e-3.  Every kernel
 also meets the degenerate batches of ``impop_tpu_torch/bench/degenerate.py``
@@ -300,15 +300,16 @@ def test_masked_pair_sums_kernel_matches_plain(cuda_device, disjoint):
     (6, 512, 35, 35, "values"), (3, 100, 55, 55, "values"),
     (200, 512, 2, 2, "01"), (200, 512, 1, 1, "values"),
     (3, 256, 0, 3, "01"), (3, 256, 5, 0, "01"),
-    # value rows past one block's 128: a second grid layer
+    # stacks past a block's two 64-row tiles: further grid layers
     (2, 512, 150, 140, "values"),
-    # past N = 4096 the mask words live in the wrapper's scratch
+    # a wide window: 65 column tiles
     (2, 4160, 2, 2, "01")])
 def test_masked_pair_sums_kernel_shapes(cuda_device, w, n, rd, rp, wp_kind):
-    """Any N, the drivers' 1 + 1 and 2 + 2 rows, 35 + 35, 55 + 55, W = 200,
-    an asymmetric present, and Wp 0/1 (popcount rows: Yp exactly equal) or
-    with a row of other values (the fp32 branch: rtol 1e-5); N = 4160 keeps
-    the mask words in device memory."""
+    """Any N (rows padded to 16 elements for the TMA views when N is not
+    a multiple of 16), the drivers' 1 + 1 and 2 + 2 rows, 35 + 35, 55 + 55,
+    W = 200, an asymmetric present, and Wp 0/1 (one bf16 piece a row: Yp
+    exactly equal) or with a row of other values (three pieces: rtol 1e-5);
+    N = 4160 takes 65 column tiles."""
     geno, member, smask, _ = batch(56, w, n, 128, 2, True, False)
     rng = np.random.default_rng(56)
     g, m, sm = (torch.from_numpy(a).to(cuda_device)

@@ -31,6 +31,7 @@ MODULES = [
     "impop_tpu_torch.report.tables", "impop_tpu_torch.report.plots",
     "impop_tpu_torch.bench",
     "impop_tpu_torch.bench.gram_breakdown", "impop_tpu_torch.bench.inputs",
+    "impop_tpu_torch.bench.kernel_shapes",
     "impop_tpu_torch.bench.oracle", "impop_tpu_torch.bench.roofline",
     "impop_tpu_torch.bench.main", "impop_tpu_torch.bench.__main__",
     "impop_tpu_torch.bench.check_device_oracle",

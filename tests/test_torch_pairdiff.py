@@ -243,33 +243,37 @@ def test_partition_fills_the_card():
         "base", "nodiv", "nomirror", "nostores", "noepi", "nodecode", "nomma",
         "loadsonly")] + [
     ("window_breakdown", "windowstat.cu", v) for v in (
-        "base", "novalue", "nostage", "nomask", "nodots")] + [
+        "base", "novalue", "nostage", "nox", "nomask", "nodots")] + [
     ("sums_group_variants", "panelquad.cu", v) for v in (
-        "base", "occ3", "stages4", "unroll2", "nofma", "nowords", "nodiv",
-        "noload", "nopop")] + [
+        "base", "occ2", "ring8", "ring2", "allpieces", "nomma", "nodecode",
+        "nox", "nostore")] + [
     ("sums_group_variants", "idgroup.cu", v) for v in (
         "occ3", "orwords", "smemrows", "notab", "nomirror", "nostores")])
 def test_breakdown_variants_match_the_kernel_source(tool, source, variant):
     """Each variant of ``bench/gram_breakdown.py``,
     ``bench/window_breakdown.py`` and ``bench/sums_group_variants.py``
-    edits text the kernel source still has (the scripts build the variants
-    on the card only), and the unit identity kernel issues ``wgmma``."""
+    edits text the kernel source, or a header it includes, still has (the
+    scripts build the variants on the card only); the unit identity kernel
+    issues int8 ``wgmma`` and the shared value-row product bf16 ``wgmma``."""
     import importlib
     import os
 
+    from impop_tpu_torch.bench import variant_texts
     from impop_tpu_torch.ops._build import _CSRC
 
     bench = importlib.import_module(f"impop_tpu_torch.bench.{tool}")
-    with open(os.path.join(_CSRC, source)) as fh:
-        src = fh.read()
     if source == "pairdiff.cu":
-        assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in src
+        with open(os.path.join(_CSRC, source)) as fh:
+            assert ("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8"
+                    in fh.read())
+    with open(os.path.join(_CSRC, "rowprod.cuh")) as fh:
+        assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in fh.read()
     table = (bench.VARIANTS if tool != "sums_group_variants" else
              bench.SUMS_VARIANTS if source == "panelquad.cu" else
              bench.GROUP_VARIANTS)
     for old, new in table[variant]:
-        assert src.count(old) >= 1, old
         assert old != new
+    variant_texts(source, table[variant])   # raises when a text is gone
 
 
 def _rn32(x):

@@ -123,6 +123,16 @@ def test_card_scripts_refuse_cuda_without_a_card(module):
         module.main([])
 
 
+def test_kernel_shapes_needs_a_card():
+    """The parent-against-change timing script exits 2 without CUDA and
+    runs nothing on the CPU."""
+    from impop_tpu_torch.bench import kernel_shapes
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    assert kernel_shapes.main() == 2
+
+
 @pytest.mark.parametrize("kind", degenerate.KINDS)
 def test_degenerate_batches_carry_their_kind(kind):
     """The kind's windows (first, middle, last) have no segregating site

@@ -5,9 +5,10 @@
   overlapping panels, and the partial-coverage seed_risk case.
 - The algorithm of ``csrc/windowstat.cu`` (bit-packed words and popcount
   diffs, links by a per-window bound on the diff, sequential seed walk,
-  group size = 1 + what the seed absorbed, stacked X/Y rows, the 0/1 rows
-  by AND + popcount, row-dots from per-column-tile partials, the host's
-  (Y row, X row, column) dot triples) emulated in numpy against the plain
+  group size = 1 + what the seed absorbed, stacked X/Y rows, the value
+  rows by the bf16 piece product of ``csrc/rowprod.cuh``, the 0/1 rows by
+  AND + popcount, row-dots from per-column-tile partials, the host's (Y
+  row, X row, column) dot triples) emulated in numpy against the plain
   version and against ``window_stats_pallas`` in interpret mode, so the
   kernel's arithmetic and host-side contract are checked without a card.
 - Both on the degenerate windows of ``impop_tpu_torch/bench/degenerate.py``
@@ -34,6 +35,7 @@ from impop_tpu_torch.ops.windowstat import (_dot_triples, _pad, out_layout,
                                             window_kernel_fits, window_stats,
                                             window_stats_plain)
 from impop_tpu_torch.stats.panelstats import gdxy_rows, panel_mask_stack
+from test_torch_panelquad import piece_products
 
 torch.set_num_threads(1)
 THR, LEN = 0.9995, 5000.0
@@ -141,9 +143,11 @@ def emulate_kernel(geno, member, smask, stack, ma, mb, length, pair_a,
     """numpy model of csrc/windowstat.cu for one window -> raw dict: packed
     alt / valid words and popcount diff, links by the diff bound, the
     sequential seed walk (group size = 1 + what the seed absorbed), the
-    value rows as float32 products of (1 - sim) from the rounded table, the
-    0/1 rows as AND + popcount of packed words, and every row-dot summed
-    from per-column-tile partials in tile order."""
+    value rows against (1 - sim) from the rounded table by the bf16 piece
+    product (``piece_products``: three pieces a value, the kept products,
+    fp32 sums of 32-pair chunks in i order), the 0/1 rows as AND + popcount
+    of packed words, and every row-dot summed from per-column-tile
+    partials in tile order."""
     n, s = geno.shape
     r_count, q = stack.shape[0], ma.shape[0]
     pq = r_count - (0 if disjoint else 2 * q)
@@ -186,9 +190,7 @@ def emulate_kernel(geno, member, smask, stack, ma, mb, length, pair_a,
                                - np.arange(s + 1, dtype=np.float32) / ln)
     mask = present & ~eye
     div = np.where(mask, table[np.minimum(diff, s)], np.float32(0.0))
-    y_val = np.zeros((rd, n), np.float32)
-    for i in range(n):                      # i ascending, float32
-        y_val += x[:rd, i:i + 1] * div[i][None, :]
+    y_val = piece_products(x[:rd], div.astype(np.float32))
     # 0/1 rows: popcount of the row's packed bits and present column j
     # without the diagonal
     xb = pack_words(x[rd:] != 0)            # [rp, n / 32]
