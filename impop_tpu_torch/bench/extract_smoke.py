@@ -7,7 +7,8 @@ torch.
 Simulates a small pangenome (24 haplotypes, 60 kb) and extracts 2 kb
 windows through every native entry point of ``impop_tpu_torch.extract``:
 per window, the range batch, the threaded padded fill and the threaded
-wire pack (with skipped rows), then reopens the extractor through its
+wire pack (with skipped rows), an overlapping batch on the per-window
+path, the extractor's own counters, then reopens the extractor through its
 PAF index sidecar.  Each is checked against ``extract/pyfallback`` or a
 numpy reference.  Imports no torch, so the native library can run under
 a sanitizer preloaded into the process: ``--sanitize`` opens the
@@ -96,22 +97,23 @@ def main(argv=None) -> int:
         sim = simulate(tmp, ref_len=60_000, n_haps=24, site_pool=900,
                        seed=5, span=(0, 60_000))
         wins = [(lo, lo + 2000) for lo in range(0, 60_000, 2000)]
+        tgt = sim.ref_name      # the PAF's target name
         py = PyExtractor(sim.paf_path, sim.fasta_path)
         with NativeExtractor(sim.paf_path, sim.fasta_path,
                              sanitize=args.sanitize) as nat:
             for start, end in wins[:6]:
-                a = nat.extract("chr1", start, end)
-                b = py.extract("chr1", start, end)
+                a = nat.extract(tgt, start, end)
+                b = py.extract(tgt, start, end)
                 check(a.names == b.names and a.site_keys == b.site_keys
                       and np.array_equal(a.geno, b.geno),
                       f"window {start}-{end} against the Python extractor")
-            mats = nat.extract_batch("chr1", wins, threads=threads)
+            mats = nat.extract_batch(tgt, wins, threads=threads)
             for (start, end), wm in zip(wins, mats):
-                one = nat.extract("chr1", start, end)
+                one = nat.extract(tgt, start, end)
                 check(wm is not None and np.array_equal(wm.geno, one.geno),
                       f"range batch {start}-{end} against one window")
             geno, member, smask, wts, _names, errors = \
-                nat.extract_batch_padded("chr1", wins, threads=threads,
+                nat.extract_batch_padded(tgt, wins, threads=threads,
                                          want_weights=True)
             check(not any(errors), errors)
             for i, wm in enumerate(mats):
@@ -120,19 +122,33 @@ def main(argv=None) -> int:
                       and member[i, :n].all() and not member[i, n:].any()
                       and smask[i, :s].all() and not smask[i, s:].any(),
                       f"padded fill of window {i}")
-            batch = nat.extract_batch_open("chr1", wins, threads=threads)
+            batch = nat.extract_batch_open(tgt, wins, threads=threads)
             try:
                 check_pack(batch, mats, wts, threads)
             finally:
                 batch.close()
+            # overlapping windows leave the range walker: the threaded
+            # per-window path
+            over = [(lo, lo + 3000) for lo in range(0, 20_000, 2000)]
+            for (start, end), wm in zip(over, nat.extract_batch(
+                    tgt, over, threads=threads)):
+                check(wm is not None and np.array_equal(
+                    wm.geno, nat.extract(tgt, start, end).geno),
+                    f"overlapping batch {start}-{end} against one window")
+            st = nat.stats()
+            check(st["extract.range_windows"] == 3 * len(wins)
+                  and st["extract.fallback_windows"] == len(over)
+                  and st["extract.native_ns"] > 0
+                  and st["open.native_ns"] > 0
+                  and st["extractors.open"] >= 1, f"stats {st}")
         # reopen: the PAF index sidecar's load path
         with NativeExtractor(sim.paf_path, sim.fasta_path,
                              sanitize=args.sanitize) as nat2:
             for start, end in wins[:3]:
-                check(np.array_equal(nat2.extract("chr1", start, end).geno,
-                                     py.extract("chr1", start, end).geno),
+                check(np.array_equal(nat2.extract(tgt, start, end).geno,
+                                     py.extract(tgt, start, end).geno),
                       f"reopened window {start}-{end}")
-        whole = py.extract("chr1", 0, 8000)
+        whole = py.extract(tgt, 0, 8000)
         check(len(split_window_matrix(whole, [(0, 4000), (4000, 8000)]))
               == 2, "split_window_matrix")
     finally:

@@ -74,7 +74,8 @@ from impop_tpu_torch.hostio import (DirSimSource, GenoSource, GfaDirSource,
                                     round_half_even, site_weights_from_keys,
                                     split_multiallelic, tables)
 from impop_tpu_torch.runtime.journal import ResultJournal
-from impop_tpu_torch.runtime.profiling import StageTimers, device_trace
+from impop_tpu_torch.runtime.profiling import (StageTimers, count,
+                                               device_trace, span)
 
 __all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
            "cmd_hud", "cmd_fst3pi", "cmd_afs", "cmd_panels_hfst",
@@ -124,7 +125,17 @@ def cmd_scan(args) -> int:
     however many GPUs there are, and its rows come back to the host from
     its own device.  With ``--distributed`` each process scans its
     contiguous share of the windows (``host_window_range``) into
-    ``<file>.partK`` outputs for ``merge-parts``."""
+    ``<file>.partK`` outputs for ``merge-parts``.
+
+    The call's spans and counters (``runtime/profiling.py``) are recorded
+    on the main thread and on the two workers of the host pipeline
+    (``extract``, ``build``), and written by ``--timing-json``."""
+    timers = StageTimers()
+    with timers.bound("main"):
+        return _scan(args, timers)
+
+
+def _scan(args, timers: StageTimers) -> int:
     from impop_tpu_torch.device import on_device
     from impop_tpu_torch.parallel.distributed import (finalize,
                                                       host_window_range,
@@ -132,116 +143,120 @@ def cmd_scan(args) -> int:
                                                       process_devices)
     from impop_tpu_torch.scanstep import (deal_wire, row_layout,
                                           rows_to_host, scan_step,
-                                          scan_step_fstg_exact)
+                                          scan_step_fstg_exact, step_event)
 
     rank, world = maybe_initialize(args.distributed)
-    timers = StageTimers()
-    setup = timers.stage("setup")
-    setup.__enter__()
+    with span("setup"):
+        devs = process_devices(args.device)
+        if devs[0].type == "cuda":
+            from impop_tpu_torch.ops._build import load_library
 
-    devs = process_devices(args.device)
-    if devs[0].type == "cuda":
-        from impop_tpu_torch.ops._build import load_library
+            with span("setup.build"):
+                load_library()
 
-        with timers.stage("setup.build"):
-            load_library()
+        with span("setup.bed"):
+            regions = read_bed(args.bed)
+        if world > 1:
+            lo, hi = host_window_range(len(regions), rank, world)
+            regions = regions[lo:hi]
+            for attr in ("output", "journal", "afs", "timing_json"):
+                if getattr(args, attr, None):
+                    setattr(args, attr, f"{getattr(args, attr)}.part{rank}")
+        geno_src = (GenoSource(args.geno_dir) if args.geno_dir
+                    else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
+        with span("setup.open"):
+            fasta_store = _resolve_fasta(args)
+            extractor = (_open_extractor(args.paf, fasta_store)
+                         if args.paf and fasta_store else None)
+        # the native extractor's clock and counts: its open now, its batch
+        # extractions at the end of the call
+        native_stats = getattr(extractor, "stats", None)
+        if native_stats is not None:
+            for key, v in native_stats().items():
+                if key.startswith("open.") or key == "extractors.open":
+                    count(key, v)
+        if geno_src is None and extractor is None:
+            raise SystemExit("error: provide --geno-dir, --gfa-dir, "
+                             "--paf + --fasta, or --paf + --agc")
 
-    with timers.stage("setup.bed"):
-        regions = read_bed(args.bed)
-    if world > 1:
-        lo, hi = host_window_range(len(regions), rank, world)
-        regions = regions[lo:hi]
-        for attr in ("output", "journal", "afs", "timing_json"):
-            if getattr(args, attr, None):
-                setattr(args, attr, f"{getattr(args, attr)}.part{rank}")
-    geno_src = (GenoSource(args.geno_dir) if args.geno_dir
-                else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
-    with timers.stage("setup.open"):
-        fasta_store = _resolve_fasta(args)
-        extractor = (_open_extractor(args.paf, fasta_store)
-                     if args.paf and fasta_store else None)
-    if geno_src is None and extractor is None:
-        raise SystemExit("error: provide --geno-dir, --gfa-dir, "
-                         "--paf + --fasta, or --paf + --agc")
+        with span("setup.panels"):
+            panel_files = sorted(args.panel or [])
+            panel_names = [_panel_label(p) for p in panel_files]
+            panel_lists = [read_panel_file(p) for p in panel_files]
+        p_count = max(1, len(panel_lists))
+        pair_list = [(i, j) for i in range(len(panel_lists))
+                     for j in range(i + 1, len(panel_lists))]
+        pair_key = tuple(pair_list)
+        with_pairs = bool(pair_list)
+        pair_a_np = np.asarray([i for i, _ in pair_list] or [0], np.int32)
+        pair_b_np = np.asarray([j for _, j in pair_list] or [0], np.int32)
+        thr = float(args.threshold)
 
-    with timers.stage("setup.panels"):
-        panel_files = sorted(args.panel or [])
-        panel_names = [_panel_label(p) for p in panel_files]
-        panel_lists = [read_panel_file(p) for p in panel_files]
-    p_count = max(1, len(panel_lists))
-    pair_list = [(i, j) for i in range(len(panel_lists))
-                 for j in range(i + 1, len(panel_lists))]
-    pair_key = tuple(pair_list)
-    with_pairs = bool(pair_list)
-    pair_a_np = np.asarray([i for i, _ in pair_list] or [0], np.int32)
-    pair_b_np = np.asarray([j for _, j in pair_list] or [0], np.int32)
-    thr = float(args.threshold)
+        with span("setup.journal"):
+            journal = ResultJournal(args.journal)
 
-    with timers.stage("setup.journal"):
-        journal = ResultJournal(args.journal)
+        use_weights = args.identity_mode == "columns"
+        want_ehh = bool(args.ehh)
+        want_afs = bool(args.afs)
+        afs_bins = args.afs_bins
+        afs_folded = not args.afs_unfolded
+        afs_total = (np.zeros((p_count, afs_bins + 1), np.int64) if want_afs
+                     else None)
+        # a window holding an --ehh-focal position anchors its EHH focal there
+        # instead of at the midpoint
+        ehh_targets = _read_ehh_targets(args.ehh_focal if want_ehh else None)
+        ehh_focal_pos: Dict[str, int] = {}   # region -> genomic position used
 
-    use_weights = args.identity_mode == "columns"
-    want_ehh = bool(args.ehh)
-    want_afs = bool(args.afs)
-    afs_bins = args.afs_bins
-    afs_folded = not args.afs_unfolded
-    afs_total = (np.zeros((p_count, afs_bins + 1), np.int64) if want_afs
-                 else None)
-    # a window holding an --ehh-focal position anchors its EHH focal there
-    # instead of at the midpoint
-    ehh_targets = _read_ehh_targets(args.ehh_focal if want_ehh else None)
-    ehh_focal_pos: Dict[str, int] = {}   # region -> genomic position used
+        def ehh_focal_index(reg, rs, pos_arr) -> int:
+            """Focal column = the variant nearest the target position; the
+            chosen position is recorded for the output row."""
+            if pos_arr is None or len(pos_arr) == 0:
+                return 0
+            target = (reg.start + reg.end) // 2
+            for pos in ehh_targets.get(reg.chrom, ()):
+                if reg.start <= pos < reg.end:
+                    target = pos
+                    break
+            pos_arr = np.asarray(pos_arr)
+            fi = int(np.argmin(np.abs(pos_arr - target)))
+            ehh_focal_pos[rs] = int(pos_arr[fi])
+            return fi
 
-    def ehh_focal_index(reg, rs, pos_arr) -> int:
-        """Focal column = the variant nearest the target position; the
-        chosen position is recorded for the output row."""
-        if pos_arr is None or len(pos_arr) == 0:
-            return 0
-        target = (reg.start + reg.end) // 2
-        for pos in ehh_targets.get(reg.chrom, ()):
-            if reg.start <= pos < reg.end:
-                target = pos
-                break
-        pos_arr = np.asarray(pos_arr)
-        fi = int(np.argmin(np.abs(pos_arr - target)))
-        ehh_focal_pos[rs] = int(pos_arr[fi])
-        return fi
+        @functools.lru_cache(maxsize=64)
+        def masks_for_stems(stems_key: tuple) -> np.ndarray:
+            masks = np.zeros((p_count, len(stems_key)), dtype=bool)
+            for pi_idx, plist in enumerate(panel_lists):
+                matched, _ = expand_population(plist, list(stems_key))
+                for k, nm in enumerate(stems_key):
+                    if nm in matched:
+                        masks[pi_idx, k] = True
+            return masks
 
-    @functools.lru_cache(maxsize=64)
-    def masks_for_stems(stems_key: tuple) -> np.ndarray:
-        masks = np.zeros((p_count, len(stems_key)), dtype=bool)
-        for pi_idx, plist in enumerate(panel_lists):
-            matched, _ = expand_population(plist, list(stems_key))
-            for k, nm in enumerate(stems_key):
-                if nm in matched:
-                    masks[pi_idx, k] = True
-        return masks
+        def panel_masks_for(names_key: tuple) -> np.ndarray:
+            # panel prefixes never reach into the ":start-end" range suffix of
+            # extracted names, so one cache entry serves a contiguous scan
+            return masks_for_stems(tuple(n.split(":", 1)[0]
+                                         for n in names_key))
 
-    def panel_masks_for(names_key: tuple) -> np.ndarray:
-        # panel prefixes never reach into the ":start-end" range suffix of
-        # extracted names, so one cache entry serves a contiguous scan
-        return masks_for_stems(tuple(n.split(":", 1)[0] for n in names_key))
+        header = ["REGION", "LENGTH", "SAMPLES", "SEGREGATING_SITES"]
+        if panel_lists:
+            for name in panel_names:
+                header += [f"PI_{name}", f"TAJD_{name}"]
+            for i, j in pair_list:
+                header += [f"FST_{panel_names[i]}_{panel_names[j]}",
+                           f"FSTG_{panel_names[i]}_{panel_names[j]}",
+                           f"FST3_{panel_names[i]}_{panel_names[j]}"]
+        else:
+            header += ["PI", "TAJIMAS_D"]
+        if want_ehh:
+            header += ["EHH_FOCAL", "EHH_AREA_REF", "EHH_CARR_REF",
+                       "EHH_AREA_ALT", "EHH_CARR_ALT"]
+        lay = row_layout(p_count, len(pair_list), want_ehh)
 
-    header = ["REGION", "LENGTH", "SAMPLES", "SEGREGATING_SITES"]
-    if panel_lists:
-        for name in panel_names:
-            header += [f"PI_{name}", f"TAJD_{name}"]
-        for i, j in pair_list:
-            header += [f"FST_{panel_names[i]}_{panel_names[j]}",
-                       f"FSTG_{panel_names[i]}_{panel_names[j]}",
-                       f"FST3_{panel_names[i]}_{panel_names[j]}"]
-    else:
-        header += ["PI", "TAJIMAS_D"]
-    if want_ehh:
-        header += ["EHH_FOCAL", "EHH_AREA_REF", "EHH_CARR_REF",
-                   "EHH_AREA_ALT", "EHH_CARR_ALT"]
-    lay = row_layout(p_count, len(pair_list), want_ehh)
+        def disjoint_of(panels: np.ndarray) -> bool:
+            return with_pairs and not bool(
+                (panels[:, pair_a_np] & panels[:, pair_b_np]).any())
 
-    def disjoint_of(panels: np.ndarray) -> bool:
-        return with_pairs and not bool(
-            (panels[:, pair_a_np] & panels[:, pair_b_np]).any())
-
-    setup.__exit__(None, None, None)
     out = _out_stream(args.output)
     try:
         print("\t".join(header), file=out)
@@ -287,10 +302,10 @@ def cmd_scan(args) -> int:
                 kept.append((reg, rs))
             return tiles, kept, failures
 
-        def extract_native(chunk):
+        def extract_native(chunk, batch):
             """One C++ call per target-contiguous window group; returns open
             native batch handles the build worker packs from."""
-            with timers.stage("extract"):
+            with span("extract", batch=batch):
                 groups: List[Tuple[str, list]] = []
                 for reg, rs in chunk:
                     tgt = rs.rsplit(":", 1)[0]
@@ -305,11 +320,11 @@ def cmd_scan(args) -> int:
                 ]
             return groups, batches
 
-        def prepare_native(extracted, n_chunks, dev):
+        def prepare_native(extracted, n_chunks, dev, batch):
             """Wire-pack straight from the native batches' memory + H2D to
             ``dev``."""
             groups, batches = extracted
-            with timers.stage("build"):
+            with span("build", batch=batch, cpu=True):
                 failures, kept, rows = [], [], []
                 for gi, ((_tgt, items), nb) in enumerate(zip(groups,
                                                             batches)):
@@ -336,7 +351,7 @@ def cmd_scan(args) -> int:
                                         want_ehh)
                 flat = np.zeros((w, blay["total"]), np.uint8)
                 row_of = {key: wi for wi, key in enumerate(rows)}
-                with timers.stage("build.pack"):
+                with span("build.pack"):
                     for gi, nb in enumerate(batches):
                         nb.pack_into(
                             flat, [row_of.get((gi, k), -1)
@@ -375,11 +390,11 @@ def cmd_scan(args) -> int:
                     flat[:, blay["f"]:blay["f"] + 4] = (
                         focals.astype("<u4").view(np.uint8).reshape(w, 4))
                 disjoint = disjoint_of(panels)
-            with timers.stage("h2d"):
+            with span("h2d", batch=batch):
                 wire = deal_wire(flat, dev)
             return wire, kept, failures, disjoint, (cap_n, cap_s)
 
-        def prepare_tiles(extracted, n_chunks, dev):
+        def prepare_tiles(extracted, n_chunks, dev, batch):
             """Pad + fused pack + H2D to ``dev`` for tiles from
             --geno-dir/--gfa-dir or the per-window extractor; padding
             windows are all-zero rows (no members, length 0) and come out
@@ -387,7 +402,7 @@ def cmd_scan(args) -> int:
             tiles, kept, failures = extracted
             if not tiles:
                 return None, kept, failures, False, (0, 0)
-            with timers.stage("build"):
+            with span("build", batch=batch, cpu=True):
                 cap_n = _capacity_for([t0.shape[0] for t0, *_ in tiles])
                 cap_s = max(128, max(t0.shape[1] for t0, *_ in tiles))
                 cap_s = ((cap_s + 127) // 128) * 128
@@ -419,24 +434,24 @@ def cmd_scan(args) -> int:
                 disjoint = disjoint_of(panels)
                 flat = pack_scan_batch(geno, member, smask, panels, lengths,
                                        wts, use_weights, focals)
-            with timers.stage("h2d"):
+            with span("h2d", batch=batch):
                 wire = deal_wire(flat, dev)
             return wire, kept, failures, disjoint, (cap_n, cap_s)
 
         native_path = (geno_src is None and extractor is not None
                        and hasattr(extractor, "extract_batch_open"))
 
-        def extract_stage(chunk):
+        def extract_stage(chunk, batch):
             if native_path:
-                return extract_native(chunk)
-            with timers.stage("extract"):
+                return extract_native(chunk, batch)
+            with span("extract", batch=batch):
                 return load_chunk(chunk)
 
         def prepare_stage(fx, k):
             """Chunk k, whole, goes to device k mod D: the deal depends on
             the chunk's index alone, not on thread timing."""
             prep = prepare_native if native_path else prepare_tiles
-            return prep(fx.result(), len(chunks), devs[k % len(devs)])
+            return prep(fx.result(), len(chunks), devs[k % len(devs)], k)
 
         # two-stage host pipeline: chunk k+1 extracts on one worker while
         # chunk k packs + copies on the other and the devices compute the
@@ -444,18 +459,21 @@ def cmd_scan(args) -> int:
         # device, are in flight
         chunks = [pending[lo:lo + batch_size]
                   for lo in range(0, len(pending), batch_size)]
-        pool_x = futures.ThreadPoolExecutor(max_workers=1)
-        pool_b = futures.ThreadPoolExecutor(max_workers=1)
-        inflight: collections.deque = collections.deque()
+        pool_x = futures.ThreadPoolExecutor(
+            max_workers=1, initializer=timers.bind, initargs=("extract",))
+        pool_b = futures.ThreadPoolExecutor(
+            max_workers=1, initializer=timers.bind, initargs=("build",))
+        inflight: collections.deque = collections.deque()  # (k, future)
         next_submit = 0
         depth = max(2, len(devs))
 
         def top_up():
             nonlocal next_submit
             while next_submit < len(chunks) and len(inflight) < depth:
-                fx = pool_x.submit(extract_stage, chunks[next_submit])
-                inflight.append(pool_b.submit(prepare_stage, fx,
-                                              next_submit))
+                fx = pool_x.submit(extract_stage, chunks[next_submit],
+                                   next_submit)
+                inflight.append((next_submit, pool_b.submit(
+                    prepare_stage, fx, next_submit)))
                 next_submit += 1
 
         n_done = n_failed = 0
@@ -525,7 +543,7 @@ def cmd_scan(args) -> int:
                 print(row, file=out)
                 n_done += 1
 
-        def exact_fstg(packed, kept, wire, caps):
+        def exact_fstg(packed, kept, wire, caps, k):
             """Windows flagged seed_risk re-run their grouped Fst through
             the exact first-found-pair program, on their batch's device;
             only their FSTG changes."""
@@ -534,7 +552,7 @@ def cmd_scan(args) -> int:
             risk = np.nonzero(packed[:len(kept), lay["risk"]] > 0)[0]
             if risk.size == 0:
                 return packed
-            with timers.stage("device.exact"), on_device(wire.device):
+            with span("device.exact", batch=k), on_device(wire.device):
                 exact = scan_step_fstg_exact(
                     wire, caps[0], caps[1], p_count, pair_key, thr,
                     rows=[int(r) for r in risk], use_weights=use_weights,
@@ -547,13 +565,15 @@ def cmd_scan(args) -> int:
             """Emit a group's batches in chunk order; rows past a batch's
             kept windows (the padding of a short last chunk) are never
             read."""
-            for (host, done), kept_b, wire_b, caps_b in metas:
-                with timers.stage("fetch"):
+            for k, began, (host, done), kept_b, wire_b, caps_b in metas:
+                with span("fetch", batch=k):
                     if done is not None:
                         done.synchronize()        # the barrier
+                        count("step.gpu_ns",
+                              round(began.elapsed_time(done) * 1e6))
                     packed_b = host.numpy()
-                packed_b = exact_fstg(packed_b, kept_b, wire_b, caps_b)
-                with timers.stage("emit"):
+                packed_b = exact_fstg(packed_b, kept_b, wire_b, caps_b, k)
+                with span("emit", batch=k):
                     emit_rows(packed_b, kept_b)
 
         # grouped drains: each batch's rows are copied to the host from its
@@ -561,7 +581,7 @@ def cmd_scan(args) -> int:
         # devices); every drain_group batches the host waits for and emits
         # the group before, so the devices compute while it drains
         drain_group = max(1, int(args.drain_group or 4))
-        group: list = []        # [((host, event), kept, wire, caps)]
+        group: list = []    # [(k, began, (host, done), kept, wire, caps)]
         pending_out = None      # the group before, drained next
 
         def flush_group():
@@ -572,37 +592,42 @@ def cmd_scan(args) -> int:
                 drain(pending_out)
             pending_out, group = group, []
 
-        trace = device_trace(args.profile_dir)
-        trace.__enter__()
-        try:
-            top_up()
-            while inflight:
-                with timers.stage("wait_input"):
-                    (wire, kept, failures, disjoint,
-                     caps) = inflight.popleft().result()
+        with device_trace(args.profile_dir, timers):
+            try:
                 top_up()
-                for rs, err in failures:
-                    _warn(f"Warning: {rs}: {err}; recording NA")
-                    journal.record_failure(rs, err)
-                    n_failed += 1
-                if wire is None:
-                    continue
-                with timers.stage("device"), on_device(wire.device):
-                    out_dev = scan_step(
-                        wire, caps[0], caps[1], p_count, pair_key, thr,
-                        disjoint, use_weights, want_ehh, want_afs, afs_bins,
-                        afs_folded)
-                    fetched = rows_to_host(out_dev)
-                group.append((fetched, kept, wire, caps))
-                if len(group) >= drain_group:
-                    flush_group()
-            flush_group()
-            if pending_out is not None:
-                drain(pending_out)
-        finally:
-            pool_x.shutdown(wait=True, cancel_futures=True)
-            pool_b.shutdown(wait=True, cancel_futures=True)
-            trace.__exit__(None, None, None)
+                while inflight:
+                    k, prepared = inflight.popleft()
+                    with span("wait_input", batch=k):
+                        (wire, kept, failures, disjoint,
+                         caps) = prepared.result()
+                    top_up()
+                    for rs, err in failures:
+                        _warn(f"Warning: {rs}: {err}; recording NA")
+                        journal.record_failure(rs, err)
+                        n_failed += 1
+                    if wire is None:
+                        continue
+                    with span("device", batch=k, cpu=True), \
+                            on_device(wire.device):
+                        began = step_event(wire.device)
+                        out_dev = scan_step(
+                            wire, caps[0], caps[1], p_count, pair_key, thr,
+                            disjoint, use_weights, want_ehh, want_afs,
+                            afs_bins, afs_folded)
+                        fetched = rows_to_host(out_dev)
+                    group.append((k, began, fetched, kept, wire, caps))
+                    if len(group) >= drain_group:
+                        flush_group()
+                flush_group()
+                if pending_out is not None:
+                    drain(pending_out)
+            finally:
+                pool_x.shutdown(wait=True, cancel_futures=True)
+                pool_b.shutdown(wait=True, cancel_futures=True)
+        if native_stats is not None:
+            for key, v in native_stats().items():
+                if key.startswith("extract."):
+                    count(key, v)
         _print_counters(n_done, n_failed)
     finally:
         if out is not sys.stdout:

@@ -32,6 +32,7 @@ import struct
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -297,13 +298,29 @@ def _sidecar_overclaims(paf_path: str) -> bool:
             and n_records * _IDX_MIN_RECORD > size - _IDX_HEADER.size)
 
 
+def _range_walkable(wins) -> bool:
+    """Whether ``ix_extract_batch`` serves the batch with its range walker:
+    every window non-empty, each starting at or after the last one's end
+    (``cpp/capi.cc``).  Any other batch, or one whose range walk fails, is
+    extracted window by window."""
+    return all(e > s for s, e in wins) and all(
+        b[0] >= a[1] for a, b in zip(wins, wins[1:]))
+
+
 class NativeExtractor:
     """PAF + FASTA → per-window allele matrices (C++ fast path).
 
     A sidecar index whose header overclaims its record count is bypassed:
     the PAF is opened with ``IMPOP_PAF_INDEX=0`` for the duration of the
     call, so the C++ reparses it and neither loads nor rewrites the
-    sidecar."""
+    sidecar.
+
+    Each extractor times its native calls (ctypes lets go of the
+    interpreter lock for a call, so a call's wall is its native time, with
+    the wait to take the lock back) and counts the extractors open in the
+    process: :meth:`stats`."""
+
+    open_count = 0      # extractors opened and not yet closed
 
     def __init__(self, paf_path: str, fasta_path: str,
                  sanitize: Optional[str] = None):
@@ -317,9 +334,11 @@ class NativeExtractor:
             if bypass:
                 os.environ["IMPOP_PAF_INDEX"] = "0"
             try:
+                t0 = time.perf_counter_ns()
                 self._handle = self._lib.ix_open(
                     paf_path.encode(), fasta_path.encode()
                 )
+                self._open_ns = time.perf_counter_ns() - t0
             finally:
                 if bypass and saved is None:
                     del os.environ["IMPOP_PAF_INDEX"]
@@ -331,11 +350,57 @@ class NativeExtractor:
             self._lib.ix_close(self._handle)
             self._handle = None
             raise RuntimeError(f"extractor open failed: {msg}")
+        with _OPEN_LOCK:
+            NativeExtractor.open_count += 1
+            self._open_gauge = NativeExtractor.open_count
+        self._lock = threading.Lock()
+        self._extract_ns = self._range_windows = self._fallback_windows = 0
 
     def close(self) -> None:
         if self._handle is not None:
             self._lib.ix_close(self._handle)
             self._handle = None
+            with _OPEN_LOCK:
+                NativeExtractor.open_count -= 1
+
+    def stats(self) -> Dict[str, int]:
+        """The extractor's clock and counts, under the scan's counter
+        names: ``open.native_ns`` (the wall of its native open),
+        ``extractors.open`` (the extractors open in the process once it
+        had opened, itself included) and, over its batch extractions so
+        far, ``extract.native_ns`` (the native calls' walls),
+        ``extract.range_windows`` (windows of sorted, non-overlapping
+        batches, which the range walker serves) and ``extract.fallback_windows`` (windows of the others,
+        unsorted or overlapping, extracted one by one)."""
+        with self._lock:
+            return {"open.native_ns": self._open_ns,
+                    "extractors.open": self._open_gauge,
+                    "extract.native_ns": self._extract_ns,
+                    "extract.range_windows": self._range_windows,
+                    "extract.fallback_windows": self._fallback_windows}
+
+    def _extract_batch(self, target: str, wins, threads: int):
+        """One ``ix_extract_batch`` call over ``wins``, a non-empty list of
+        (start, end), timed and counted for :meth:`stats`: the open native
+        batch."""
+        count = len(wins)
+        starts = (ctypes.c_longlong * count)(*[s for s, _ in wins])
+        ends = (ctypes.c_longlong * count)(*[e for _, e in wins])
+        t0 = time.perf_counter_ns()
+        batch = self._lib.ix_extract_batch(
+            self._handle, target.encode(), starts, ends, count, threads
+        )
+        dt = time.perf_counter_ns() - t0
+        if not batch:
+            raise RuntimeError(f"extract_batch failed for {target}")
+        ranged = _range_walkable(wins)
+        with self._lock:
+            self._extract_ns += dt
+            if ranged:
+                self._range_windows += count
+            else:
+                self._fallback_windows += count
+        return batch
 
     def __enter__(self):
         return self
@@ -402,13 +467,7 @@ class NativeExtractor:
         self.last_errors: List[str] = [""] * count
         if count == 0:
             return []
-        starts = (ctypes.c_longlong * count)(*[s for s, _ in wins])
-        ends = (ctypes.c_longlong * count)(*[e for _, e in wins])
-        batch = self._lib.ix_extract_batch(
-            self._handle, target.encode(), starts, ends, count, threads
-        )
-        if not batch:
-            raise RuntimeError(f"extract_batch failed for {target}")
+        batch = self._extract_batch(target, wins, threads)
         try:
             out: List[Optional[WindowMatrix]] = []
             n = ctypes.c_longlong()
@@ -440,14 +499,8 @@ class NativeExtractor:
         count = len(wins)
         if count == 0:
             return NativeBatch(self._lib, None, 0)
-        starts = (ctypes.c_longlong * count)(*[s for s, _ in wins])
-        ends = (ctypes.c_longlong * count)(*[e for _, e in wins])
-        batch = self._lib.ix_extract_batch(
-            self._handle, target.encode(), starts, ends, count, threads
-        )
-        if not batch:
-            raise RuntimeError(f"extract_batch failed for {target}")
-        return NativeBatch(self._lib, batch, count)
+        return NativeBatch(self._lib,
+                           self._extract_batch(target, wins, threads), count)
 
     def extract_batch_padded(self, target: str, windows, threads: int = 0,
                              min_cap_n: int = 1, min_cap_s: int = 128,
@@ -470,13 +523,7 @@ class NativeExtractor:
         if count == 0:
             return (np.zeros((0, 0, 0), np.int8), np.zeros((0, 0), bool),
                     np.zeros((0, 0), bool), None, [], [])
-        starts = (ctypes.c_longlong * count)(*[s for s, _ in wins])
-        ends = (ctypes.c_longlong * count)(*[e for _, e in wins])
-        batch = self._lib.ix_extract_batch(
-            self._handle, target.encode(), starts, ends, count, threads
-        )
-        if not batch:
-            raise RuntimeError(f"extract_batch failed for {target}")
+        batch = self._extract_batch(target, wins, threads)
         try:
             n_c = ctypes.c_longlong()
             s_c = ctypes.c_longlong()

@@ -37,6 +37,7 @@ import torch
 from impop_tpu_torch.device import on_device
 from impop_tpu_torch.hostio import _scan_buf_layout
 from impop_tpu_torch.parallel.mesh import gather_windows, split_rows
+from impop_tpu_torch.runtime.profiling import count, span
 from impop_tpu_torch.stats.allele import (identity_from_alleles, panel_afs,
                                           segregating_sites)
 from impop_tpu_torch.stats.ehh import ehh_area_dynamic
@@ -47,7 +48,8 @@ from impop_tpu_torch.stats.tajima import tajimas_d
 
 __all__ = ["wire_unpack", "scan_step",
            "scan_step_fstg_exact", "row_layout", "deal_wire", "rows_to_host",
-           "shard_wire", "scan_step_over", "scan_step_fstg_exact_over"]
+           "step_event", "shard_wire", "scan_step_over",
+           "scan_step_fstg_exact_over"]
 
 
 def _bits(seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -112,43 +114,50 @@ def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
               use_weights: bool = False, want_ehh: bool = False,
               want_afs: bool = False, afs_bins: int = 512,
               afs_folded: bool = True) -> torch.Tensor:
-    """Wire batch on a device -> packed rows [W, row width] f32 on it."""
-    geno, member, smask, panels, length, wts, focal = wire_unpack(
-        flat, cap_n, cap_s, p_count, use_weights, want_ehh)
-    pair_a, pair_b = _pairs(pair_key)
-    if use_weights:
-        sim, present = identity_from_alleles(geno, member, smask, length,
-                                             site_weights=wts)
-        s_count = segregating_sites(geno, member, smask).to(torch.float32)
-        res = fused_panel_stats(sim, present, member, panels, pair_a, pair_b,
-                                threshold, pairs_disjoint)
-    else:
-        _, _, s_count, res = fused_window_stats(
-            geno, member, smask, length, panels, pair_a, pair_b, threshold,
-            pairs_disjoint, return_matrices=False)
-    pi_panel = res.pi[:, :p_count]
-    pi_c = res.pi[:, p_count:]
-    d = tajimas_d(res.n[:, :p_count], s_count[:, None],
-                  pi_panel / length[:, None])
-    fst = res.hudson.fst
-    fstg = res.hudson_grouped.fst if pair_key else torch.zeros_like(fst)
-    pi_ab = 0.5 * (take(pi_panel, pair_a, 1) + take(pi_panel, pair_b, 1))
-    nz = pi_c != 0
-    f3 = torch.where(nz, (pi_c - pi_ab) / torch.where(nz, pi_c, 1.0),
-                     torch.nan)
-    n_all = member.sum(dim=1, dtype=torch.float32)
-    cols = [pi_panel, d, fst, fstg, f3, s_count[:, None], n_all[:, None],
-            res.seed_risk[:, None].float()]
-    if want_ehh:
-        area, carr = ehh_area_dynamic(geno, member, smask, focal)
-        cols += [area, carr.to(torch.float32)]
-    if want_afs:
-        afs = panel_afs(geno, member, smask, panels, afs_bins, afs_folded)
-        cols.append(afs.reshape(flat.shape[0], -1).to(torch.float32))
-    else:
-        cols.append(torch.zeros((flat.shape[0], p_count),
-                                dtype=torch.float32, device=flat.device))
-    return torch.cat(cols, dim=1)
+    """Wire batch on a device -> packed rows [W, row width] f32 on it.
+
+    Spans (when a recorder is bound): ``step.stats`` (the wire decode,
+    the kernels and the grouping) and ``step.epilogue`` (Tajima's D, the
+    Fst assembly, 3-π, EHH and the spectrum, the row's concatenation)."""
+    with span("step.stats"):
+        geno, member, smask, panels, length, wts, focal = wire_unpack(
+            flat, cap_n, cap_s, p_count, use_weights, want_ehh)
+        pair_a, pair_b = _pairs(pair_key)
+        if use_weights:
+            sim, present = identity_from_alleles(geno, member, smask, length,
+                                                 site_weights=wts)
+            s_count = segregating_sites(geno, member, smask).to(
+                torch.float32)
+            res = fused_panel_stats(sim, present, member, panels, pair_a,
+                                    pair_b, threshold, pairs_disjoint)
+        else:
+            _, _, s_count, res = fused_window_stats(
+                geno, member, smask, length, panels, pair_a, pair_b,
+                threshold, pairs_disjoint, return_matrices=False)
+    with span("step.epilogue"):
+        pi_panel = res.pi[:, :p_count]
+        pi_c = res.pi[:, p_count:]
+        d = tajimas_d(res.n[:, :p_count], s_count[:, None],
+                      pi_panel / length[:, None])
+        fst = res.hudson.fst
+        fstg = res.hudson_grouped.fst if pair_key else torch.zeros_like(fst)
+        pi_ab = 0.5 * (take(pi_panel, pair_a, 1) + take(pi_panel, pair_b, 1))
+        nz = pi_c != 0
+        f3 = torch.where(nz, (pi_c - pi_ab) / torch.where(nz, pi_c, 1.0),
+                         torch.nan)
+        n_all = member.sum(dim=1, dtype=torch.float32)
+        cols = [pi_panel, d, fst, fstg, f3, s_count[:, None], n_all[:, None],
+                res.seed_risk[:, None].float()]
+        if want_ehh:
+            area, carr = ehh_area_dynamic(geno, member, smask, focal)
+            cols += [area, carr.to(torch.float32)]
+        if want_afs:
+            afs = panel_afs(geno, member, smask, panels, afs_bins, afs_folded)
+            cols.append(afs.reshape(flat.shape[0], -1).to(torch.float32))
+        else:
+            cols.append(torch.zeros((flat.shape[0], p_count),
+                                    dtype=torch.float32, device=flat.device))
+        return torch.cat(cols, dim=1)
 
 
 def scan_step_fstg_exact(flat: torch.Tensor, cap_n: int, cap_s: int,
@@ -165,6 +174,7 @@ def scan_step_fstg_exact(flat: torch.Tensor, cap_n: int, cap_s: int,
     pair_a, pair_b = _pairs(pair_key)
     if rows is None:
         rows = range(flat.shape[0])
+    count("windows.exact", len(rows))
     out = []
     for wi in rows:
         sim, present = identity_from_alleles(
@@ -186,28 +196,43 @@ def deal_wire(flat: np.ndarray, device: torch.device) -> torch.Tensor:
     """The whole wire batch [W, K] uint8 on ``device``.  On a GPU: one
     copy through pinned memory, ``non_blocking``, queued on the calling
     thread's current stream of ``device`` (the default stream unless the
-    caller set another: the scan's step is queued on the same one)."""
+    caller set another: the scan's step is queued on the same one).
+    Counts its bytes in ``bytes.h2d`` (on a CPU: the bytes dealt, with no
+    copy)."""
     if flat.dtype != np.uint8 or flat.ndim != 2:
         raise ValueError(f"wire batch must be uint8 [W, K], got {flat.dtype} "
                          f"{tuple(flat.shape)}")
+    count("bytes.h2d", flat.nbytes)
     wire = torch.from_numpy(flat)
     if device.type != "cuda":
         return wire
     return wire.pin_memory().to(device, non_blocking=True)
 
 
+def step_event(device: torch.device):
+    """A timing event recorded now on the current stream of ``device`` (a
+    GPU; None on a CPU): with :func:`rows_to_host`'s event, the step's
+    span on the stream, the device's waits for the host included."""
+    if device.type != "cuda":
+        return None
+    with on_device(device):
+        began = torch.cuda.Event(enable_timing=True)
+        began.record()
+    return began
+
+
 def rows_to_host(out: torch.Tensor):
     """Queue the copy of a step's packed rows to the host: (host tensor,
     event).  On a GPU the copy goes into pinned memory on the current
-    stream of ``out``'s device and the event is recorded after it: wait on
-    the event before reading the host tensor.  A CPU tensor is returned as
-    it is, with no event."""
+    stream of ``out``'s device and a timing event is recorded after it:
+    wait on the event before reading the host tensor.  A CPU tensor is
+    returned as it is, with no event."""
     if out.device.type != "cuda":
         return out, None
     with on_device(out.device):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
+        done = torch.cuda.Event(enable_timing=True)
         done.record()
     return host, done
 

@@ -1,0 +1,331 @@
+"""The port's span recorder (``runtime/profiling.py``) and what ``scan``
+records with it: spans on the pipeline's three threads with their batch,
+parent and CPU time; the ``--timing-json`` schema; the counters of the
+wire bytes, of the extractor's fallback windows and open handles; the
+main thread's marks on a ``torch.profiler`` trace's clock; the workers'
+spans in a ``--profile-dir`` trace."""
+from __future__ import annotations
+
+import json
+import threading
+import time
+
+import pytest
+import torch
+
+from impop_tpu_torch import cli
+from impop_tpu_torch.runtime import profiling
+from impop_tpu_torch.runtime.profiling import StageTimers, count, span
+
+torch.set_num_threads(1)
+
+
+def _rows(doc):
+    f = doc["span_fields"]
+    return [dict(zip(f, r)) for r in doc["spans"]]
+
+
+def _busy(ms: float) -> None:
+    t_end = time.perf_counter() + ms / 1e3
+    while time.perf_counter() < t_end:
+        pass
+
+
+def test_spans_on_three_threads_carry_parent_batch_and_cpu():
+    timers = StageTimers()
+
+    def worker(label, k):
+        timers.bind(label)
+        with span("outer", batch=k):
+            with span("inner", cpu=True):
+                _busy(2)
+        count("work", 1)
+
+    with timers.bound("main"):
+        with span("device", batch=7, cpu=True):
+            with span("step.stats", cpu=True):
+                _busy(1)
+            with span("step.epilogue", batch=8):
+                pass
+        threads = [threading.Thread(target=worker, args=(lab, k))
+                   for k, lab in enumerate(("extract", "build"))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    doc = timers.to_json()
+    rows = _rows(doc)
+    by_id = {r["id"]: r for r in rows}
+    assert len(rows) == 7
+    assert {r["thread"] for r in rows} == {"main", "extract", "build"}
+    for r in rows:
+        if r["name"] in ("outer", "step.epilogue"):   # no CPU clock asked
+            assert r["cpu_ns"] is None
+        else:
+            assert 0 <= r["cpu_ns"] <= r["end_ns"] - r["start_ns"]
+        if r["name"] in ("device", "outer"):
+            assert r["parent"] is None
+        else:
+            parent = by_id[r["parent"]]
+            assert parent["thread"] == r["thread"]
+            assert parent["start_ns"] <= r["start_ns"] <= r["end_ns"] \
+                <= parent["end_ns"]
+    names = {(r["thread"], r["name"]): r for r in rows}
+    assert names[("main", "step.stats")]["batch"] == 7     # the parent's
+    assert names[("main", "step.epilogue")]["batch"] == 8  # its own
+    for k, lab in enumerate(("extract", "build")):
+        assert names[(lab, "outer")]["batch"] == k
+        assert names[(lab, "inner")]["batch"] == k
+        assert names[(lab, "inner")]["parent"] == names[(lab, "outer")]["id"]
+    assert names[("extract", "inner")]["cpu_ns"] > 1e6   # a busy 2 ms
+    assert doc["counters"] == {"work": 2}
+    assert doc["stages"]["outer"]["calls"] == 2
+    assert set(doc["stages"]["outer"]) == {"total_sec", "calls"}
+    assert doc["stages"]["device"]["total_sec"] == pytest.approx(
+        (names[("main", "device")]["end_ns"]
+         - names[("main", "device")]["start_ns"]) * 1e-9)
+
+
+def test_span_and_count_without_a_recorder_do_nothing():
+    timers = StageTimers()
+    seen = {}
+
+    def unbound():
+        with span("x", batch=1):
+            count("n", 3)
+        seen["ok"] = True
+
+    t = threading.Thread(target=unbound)
+    t.start()
+    t.join()
+    assert seen["ok"]
+    with timers.bound("main"):
+        pass
+    with span("after"):            # the binding ended with its block
+        count("n")
+    assert timers.spans == [] and timers.counters == {}
+
+
+def test_recorder_loses_nothing_under_thread_switches():
+    """More threads than cores, switching every microsecond: every span,
+    stage count and counter increment is kept, every id once."""
+    import os
+    import sys
+
+    timers = StageTimers()
+    n_threads, per = 2 * (os.cpu_count() or 4) + 2, 300
+
+    def worker(i):
+        timers.bind(f"w{i}")
+        for k in range(per):
+            with span("s", batch=k):
+                count("c")
+
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(before)
+    assert not any(t.is_alive() for t in threads)
+    doc = timers.to_json()
+    assert doc["stages"]["s"]["calls"] == n_threads * per
+    assert doc["counters"]["c"] == n_threads * per
+    assert len({r[0] for r in doc["spans"]}) == n_threads * per
+
+
+def test_stage_is_a_span_of_one_name():
+    """``StageTimers.stage(name)``, the form a caller outside the program
+    may wrap, records as :func:`span` does on a bound thread."""
+    timers = StageTimers()
+    with timers.bound("main"):
+        with timers.stage("x"):
+            with span("y", batch=3):
+                pass
+    doc = timers.to_json()
+    x, y = _rows(doc)
+    assert x["thread"] == y["thread"] == "main"
+    assert (x["batch"], y["batch"], y["parent"]) == (None, 3, x["id"])
+    assert x["cpu_ns"] is None
+    assert doc["stages"]["x"]["calls"] == 1
+    assert getattr(profiling._bound, "rec", None) is None
+
+
+@pytest.fixture(scope="module")
+def scan_inputs(tmp_path_factory):
+    from impop_tpu_torch.extract.simulate import simulate
+
+    tmp = tmp_path_factory.mktemp("profiling_scan")
+    sim = simulate(str(tmp), ref_len=6000, n_haps=10, seed=5, site_pool=40,
+                   span=(0, 6000))
+    (tmp / "sorted.bed").write_text("chr1\t0\t1500\nchr1\t1500\t3000\n"
+                                    "chr1\t3000\t4500\nchr1\t4500\t6000\n")
+    (tmp / "overlap.bed").write_text("chr1\t0\t1500\nchr1\t1000\t2500\n"
+                                     "chr1\t2500\t4000\nchr1\t3500\t6000\n")
+    (tmp / "agc.P1").write_text("HG00900\nHG00901\nHG00902\n")
+    (tmp / "agc.P2").write_text("HG00903\nHG00904\n")
+
+    def run(bed="sorted.bed", batch=2, extra=()):
+        timing = tmp / "timing.json"
+        argv = ["scan", "-b", str(tmp / bed), "--paf", sim.paf_path,
+                "--fasta", sim.fasta_path, "-P", "CHM13#0#", "--batch",
+                str(batch), "--panel", str(tmp / "agc.P1"), "--panel",
+                str(tmp / "agc.P2"), "-o", str(tmp / "out.tsv"),
+                "--device", "cpu", "--timing-json", str(timing), *extra]
+        assert cli.main(argv) == 0
+        return json.loads(timing.read_text())
+
+    return tmp, run
+
+
+def test_timing_json_schema_and_wire_bytes(scan_inputs, monkeypatch):
+    from impop_tpu_torch import scanstep
+
+    dealt = []
+    deal = scanstep.deal_wire
+
+    def counted(flat, device):
+        dealt.append(flat.nbytes)
+        return deal(flat, device)
+
+    monkeypatch.setattr(scanstep, "deal_wire", counted)
+    _, run = scan_inputs
+    doc = run()
+    assert doc["windows"] == 4
+    for name in ("setup", "setup.open", "extract", "build", "build.pack",
+                 "h2d", "wait_input", "device", "step.stats",
+                 "step.epilogue", "fetch", "emit"):
+        st = doc["stages"][name]
+        assert set(st) == {"total_sec", "calls"} and st["total_sec"] >= 0
+    assert doc["stages"]["device"]["calls"] == 2
+    assert set(doc["clock"]) == {"perf_ns", "unix_ns"}
+    rows = _rows(doc)
+    assert len(rows) == sum(st["calls"] for st in doc["stages"].values())
+    threads = {r["name"]: r["thread"] for r in rows}
+    assert threads["extract"] == "extract" and threads["build"] == "build"
+    assert threads["device"] == threads["setup"] == "main"
+    for name in ("extract", "build", "h2d", "wait_input", "device", "fetch",
+                 "emit", "step.stats", "step.epilogue", "build.pack"):
+        assert sorted(r["batch"] for r in rows if r["name"] == name) == [0, 1]
+    assert all(r["batch"] is None for r in rows
+               if r["name"].startswith("setup"))
+    for r in rows:     # the thread's CPU clock where a reader needs it
+        if r["name"] in ("device", "build"):
+            assert 0 <= r["cpu_ns"] <= r["end_ns"] - r["start_ns"]
+        else:
+            assert r["cpu_ns"] is None
+    c = doc["counters"]
+    assert len(dealt) == 2 and c["bytes.h2d"] == sum(dealt)
+    assert c["extract.range_windows"] == 4
+    assert c["extract.fallback_windows"] == 0
+    assert c["extract.native_ns"] > 0 and c["open.native_ns"] > 0
+    assert doc["stages"]["setup.open"]["total_sec"] * 1e9 \
+        >= c["open.native_ns"]
+    assert "step.gpu_ns" not in c       # no events on a CPU
+
+
+@pytest.mark.parametrize("bed,fallback", [("sorted.bed", 0),
+                                          ("overlap.bed", 4)])
+def test_fallback_windows(scan_inputs, bed, fallback):
+    _, run = scan_inputs
+    c = run(bed=bed, batch=4)["counters"]
+    assert c["extract.fallback_windows"] == fallback
+    assert c["extract.range_windows"] == 4 - fallback
+    assert c["extract.native_ns"] > 0
+
+
+def test_extractors_open_gauge(scan_inputs):
+    from impop_tpu_torch.extract import NativeExtractor
+
+    tmp, run = scan_inputs
+    first = run()["counters"]["extractors.open"]
+    assert run()["counters"]["extractors.open"] == first + 1  # left open
+    paf = next(tmp.glob("*.paf"))
+    fasta = next(p for p in tmp.iterdir()
+                 if p.suffix in (".fa", ".fasta"))
+    with NativeExtractor(str(paf), str(fasta)) as a:
+        n_a = a.stats()["extractors.open"]
+        b = NativeExtractor(str(paf), str(fasta))
+        assert b.stats()["extractors.open"] == n_a + 1
+        b.close()
+        assert a.stats()["extractors.open"] == n_a
+        assert NativeExtractor.open_count == n_a
+    assert NativeExtractor.open_count == n_a - 1
+
+
+def test_setup_span_closes_on_error(scan_inputs):
+    tmp, _ = scan_inputs
+    args = cli.build_parser().parse_args(
+        ["scan", "-b", str(tmp / "sorted.bed"), "--device", "cpu"])
+    timers = StageTimers()
+    with timers.bound("main"):
+        with pytest.raises(SystemExit):
+            cli._scan(args, timers)       # no input: set-up fails
+        with span("later"):
+            pass
+    rows = {r["name"]: r for r in _rows(timers.to_json())}
+    assert rows["setup"]["end_ns"] > 0
+    assert rows["later"]["parent"] is None
+
+
+def test_profiler_marks_sit_on_their_spans(scan_inputs, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    _, run = scan_inputs
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        doc = run()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = trace["baseTimeNanoseconds"]
+    shift = doc["clock"]["unix_ns"] - doc["clock"]["perf_ns"] - base
+    marks = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X" and e.get("name", "").startswith("stage:"):
+            marks.setdefault(e["name"][6:], []).append(
+                (float(e["ts"]) * 1e3, float(e["ts"] + e["dur"]) * 1e3))
+    main = [r for r in _rows(doc) if r["thread"] == "main"]
+    assert {"device", "step.stats", "step.epilogue", "wait_input",
+            "fetch", "emit", "setup"} <= {r["name"] for r in main}
+    for name in {r["name"] for r in main}:
+        spans = sorted((r["start_ns"] + shift, r["end_ns"] + shift)
+                       for r in main if r["name"] == name)
+        got = sorted(marks[name])
+        assert len(got) == len(spans), name
+        for (a, b), (ma, mb) in zip(spans, got):
+            assert abs(a - ma) <= 2e6 and abs(b - mb) <= 2e6, name
+
+
+def test_profile_dir_trace_holds_worker_spans(scan_inputs, tmp_path):
+    _, run = scan_inputs
+    doc = run(extra=("--profile-dir", str(tmp_path)))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "thread_name"
+             and str(e["args"].get("name", "")).startswith("spans ")}
+    assert set(names.values()) == {"spans main", "spans extract",
+                                   "spans build"}
+    spans = [e for e in trace["traceEvents"]
+             if e.get("cat") == "program_span"]
+    on = {(names[e["tid"]], e["name"]) for e in spans}
+    assert {("spans extract", "extract"), ("spans build", "build"),
+            ("spans main", "device")} <= on
+    # every span of the pipeline ended inside the session
+    pipeline = [r for r in _rows(doc) if not r["name"].startswith("setup")]
+    assert len(spans) == len(pipeline)
+    for e in spans:
+        assert e["dur"] >= 0 and {"batch", "parent", "cpu_ns"} <= set(
+            e["args"])
+        assert (e["args"]["cpu_ns"] is not None) == (e["name"] in
+                                                     ("device", "build"))
+
+
+def test_scans_leave_no_recorder_bound(scan_inputs):
+    _, run = scan_inputs
+    run()
+    assert getattr(profiling._bound, "rec", None) is None
