@@ -238,6 +238,28 @@ def _scan(args, timers: StageTimers) -> int:
             return masks_for_stems(tuple(n.split(":", 1)[0]
                                          for n in names_key))
 
+        # The native path's masks by row set, cached for the call (the build
+        # worker is their only user).  A row set's key is the target and the
+        # window's name blob with its reference row, the whole line equal to
+        # its region string, blanked to a NUL line, which no name holds.  Two
+        # windows of one key hold the same names at the same sorted positions
+        # but that row, whose stem the target fixes, and membership is a
+        # prefix test on the stem: their masks are equal.
+        def row_set_key(tgt: str, blob: bytes, rs: str) -> Tuple[str, bytes]:
+            ref = rs.encode()
+            at = (b"\n" + blob).find(b"\n" + ref + b"\n")
+            if at >= 0:
+                blob = blob[:at] + b"\0" + blob[at + len(ref):]
+            return tgt, blob
+
+        @functools.lru_cache(maxsize=64)
+        def row_set_masks(key: Tuple[str, bytes]) -> np.ndarray:
+            tgt, blob = key
+            names = blob.decode().splitlines()
+            if "\0" in names:
+                names[names.index("\0")] = tgt
+            return panel_masks_for(tuple(names))
+
         header = ["REGION", "LENGTH", "SAMPLES", "SEGREGATING_SITES"]
         if panel_lists:
             for name in panel_names:
@@ -362,24 +384,24 @@ def _scan(args, timers: StageTimers) -> int:
                 lengths = np.zeros(w, np.uint32)
                 lengths[:len(kept)] = [reg.length for reg, _ in kept]
                 focals = np.zeros(w, np.uint32)
-                mask_rows: dict = {}
-                mask_vals: dict = {}
+                by_row_set: dict = {}   # key -> buffer rows
                 for wi, ((gi, k), (reg, rs)) in enumerate(zip(rows, kept)):
-                    nm = batches[gi].names(k)
+                    nb = batches[gi]
                     if want_ehh:
-                        focals[wi] = ehh_focal_index(
-                            reg, rs, batches[gi].site_pos(k))
-                    key = id(nm)
-                    if key not in mask_vals:
-                        mask_vals[key] = (panel_masks_for(tuple(nm))
-                                          if panel_lists else len(nm))
-                    mask_rows.setdefault(key, []).append(wi)
-                for key, wis in mask_rows.items():
-                    m = mask_vals[key]
-                    if panel_lists:
+                        focals[wi] = ehh_focal_index(reg, rs, nb.site_pos(k))
+                    if not panel_lists:
+                        panels[wi, 0, :nb.dims[k][0]] = True
+                        continue
+                    key = row_set_key(groups[gi][0], nb.names_blob(k), rs)
+                    by_row_set.setdefault(key, []).append(wi)
+                if panel_lists:
+                    misses = row_set_masks.cache_info().misses
+                    for key, wis in by_row_set.items():
+                        m = row_set_masks(key)
                         panels[np.asarray(wis), :, :m.shape[1]] = m
-                    else:
-                        panels[np.asarray(wis), 0, :m] = True
+                    resolved = row_set_masks.cache_info().misses - misses
+                    count("masks.resolved_windows", resolved)
+                    count("masks.cached_windows", len(kept) - resolved)
                 for nb in batches:
                     nb.close()
                 flat[:, blay["p"]:blay["l"]] = np.packbits(

@@ -223,17 +223,12 @@ class NativeBatch:
                 self.dims.append((0, 0))
             else:
                 self.dims.append((n.value, s.value))
-        self._blob_cache: dict = {}
 
-    def names(self, i: int) -> List[str]:
-        """Row names of window i (deduplicated across the batch)."""
+    def names_blob(self, i: int) -> bytes:
+        """Row names of window i as the native blob: each name and a
+        newline, in the rows' sorted order."""
         res = self._lib.ix_batch_result(self._handle, i)
-        blob = self._lib.ix_names_blob(res) or b""
-        cached = self._blob_cache.get(blob)
-        if cached is None:
-            cached = blob.decode().splitlines()
-            self._blob_cache[blob] = cached
-        return cached
+        return self._lib.ix_names_blob(res) or b""
 
     def site_pos(self, i: int) -> np.ndarray:
         """Absolute variant positions of window i's site columns."""

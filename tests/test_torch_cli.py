@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from torch_helpers import partial_pangenome
 
 from impop_tpu.cli import main as jax_main
 from impop_tpu_torch.cli import main as torch_main
@@ -49,20 +50,26 @@ def paf_inputs(tmp_path_factory):
     from impop_tpu.extract.simulate import simulate
 
     tmp = tmp_path_factory.mktemp("torch_scan")
-    sim = simulate(str(tmp), ref_len=6000, n_haps=10, seed=5, site_pool=40,
-                   span=(0, 6000))
+    sims = {"full": simulate(str(tmp), ref_len=6000, n_haps=10, seed=5,
+                             site_pool=40, span=(0, 6000)),
+            "partial": partial_pangenome(str(tmp / "partial"))}
     (tmp / "w.bed").write_text("chr1\t0\t1500\nchr1\t1000\t2500\n"
                                "chr1\t2500\t4000\nchr1\t4000\t6000\n")
     (tmp / "w2.bed").write_text("chr1\t0\t1500\nchr1\t1000\t2500\n")
+    # sorted 500-bp windows: batches of the range walker that mix row sets
+    (tmp / "w500.bed").write_text("".join(f"chr1\t{s}\t{s + 500}\n"
+                                          for s in range(0, 6000, 500)))
     # P3 overlaps P1 (HG00902): the non-disjoint program
     (tmp / "agc.P1").write_text("HG00900\nHG00901\nHG00902\n")
     (tmp / "agc.P2").write_text("HG00903\nHG00904\n")
     (tmp / "agc.P3").write_text("HG00902\nHG00905\n")
     (tmp / "focal.txt").write_text("# chrom pos\nchr1 3000\nchr1 4100\n")
 
-    def argv(bed="w.bed", panels=("P1", "P2", "P3")):
-        args = ["scan", "-b", str(tmp / bed), "--paf", sim.paf_path,
-                "--fasta", sim.fasta_path, "-P", "CHM13#0#", "--batch", "2"]
+    def argv(bed="w.bed", panels=("P1", "P2", "P3"), sim="full",
+             batch=2):
+        args = ["scan", "-b", str(tmp / bed), "--paf", sims[sim].paf_path,
+                "--fasta", sims[sim].fasta_path, "-P", "CHM13#0#",
+                "--batch", str(batch)]
         for p in panels:
             args += ["--panel", str(tmp / f"agc.{p}")]
         return args
@@ -70,15 +77,23 @@ def paf_inputs(tmp_path_factory):
     return tmp, argv
 
 
-@pytest.mark.parametrize("panels", [("P1", "P2", "P3"), ("P1", "P2")])
-def test_scan_table_matches_jax(paf_inputs, tmp_path, panels):
+@pytest.mark.parametrize("panels,inputs,n_rows", [
+    (("P1", "P2", "P3"), {}, 4),
+    (("P1", "P2"), {}, 4),
+    # assemblies over part of the reference, in sorted batches of five
+    # windows that mix row sets (tests/test_torch_build_masks.py)
+    (("P1", "P2", "P3"), {"sim": "partial", "bed": "w500.bed", "batch": 5},
+     12),
+], ids=["panels0", "panels1", "partial_coverage"])
+def test_scan_table_matches_jax(paf_inputs, tmp_path, panels, inputs,
+                                n_rows):
     _, argv = paf_inputs
     out_j, out_t = tmp_path / "jax.tsv", tmp_path / "torch.tsv"
-    assert jax_main(argv(panels=panels) + ["-o", str(out_j)]) == 0
-    assert torch_main(argv(panels=panels) + ["-o", str(out_t),
-                                             "--device", "cpu"]) == 0
+    args = argv(panels=panels, **inputs)
+    assert jax_main(args + ["-o", str(out_j)]) == 0
+    assert torch_main(args + ["-o", str(out_t), "--device", "cpu"]) == 0
     assert_tables_close(out_j, out_t)
-    assert len(read_table(out_t)[1]) == 4
+    assert len(read_table(out_t)[1]) == n_rows
 
 
 def test_scan_geno_dir_partial_coverage_matches_jax(tmp_path):

@@ -12,6 +12,7 @@ import time
 
 import pytest
 import torch
+from torch_helpers import partial_pangenome
 
 from impop_tpu_torch import cli
 from impop_tpu_torch.runtime import profiling
@@ -161,8 +162,11 @@ def scan_inputs(tmp_path_factory):
     from impop_tpu_torch.extract.simulate import simulate
 
     tmp = tmp_path_factory.mktemp("profiling_scan")
-    sim = simulate(str(tmp), ref_len=6000, n_haps=10, seed=5, site_pool=40,
-                   span=(0, 6000))
+    sims = {"uniform": simulate(str(tmp), ref_len=6000, n_haps=10, seed=5,
+                                site_pool=40, span=(0, 6000)),
+            "partial": partial_pangenome(str(tmp / "partial"))}
+    (tmp / "w500.bed").write_text("".join(f"chr1\t{s}\t{s + 500}\n"
+                                          for s in range(0, 6000, 500)))
     (tmp / "sorted.bed").write_text("chr1\t0\t1500\nchr1\t1500\t3000\n"
                                     "chr1\t3000\t4500\nchr1\t4500\t6000\n")
     (tmp / "overlap.bed").write_text("chr1\t0\t1500\nchr1\t1000\t2500\n"
@@ -170,10 +174,10 @@ def scan_inputs(tmp_path_factory):
     (tmp / "agc.P1").write_text("HG00900\nHG00901\nHG00902\n")
     (tmp / "agc.P2").write_text("HG00903\nHG00904\n")
 
-    def run(bed="sorted.bed", batch=2, extra=()):
+    def run(bed="sorted.bed", batch=2, extra=(), sim="uniform"):
         timing = tmp / "timing.json"
-        argv = ["scan", "-b", str(tmp / bed), "--paf", sim.paf_path,
-                "--fasta", sim.fasta_path, "-P", "CHM13#0#", "--batch",
+        argv = ["scan", "-b", str(tmp / bed), "--paf", sims[sim].paf_path,
+                "--fasta", sims[sim].fasta_path, "-P", "CHM13#0#", "--batch",
                 str(batch), "--panel", str(tmp / "agc.P1"), "--panel",
                 str(tmp / "agc.P2"), "-o", str(tmp / "out.tsv"),
                 "--device", "cpu", "--timing-json", str(timing), *extra]
@@ -237,6 +241,26 @@ def test_fallback_windows(scan_inputs, bed, fallback):
     assert c["extract.fallback_windows"] == fallback
     assert c["extract.range_windows"] == 4 - fallback
     assert c["extract.native_ns"] > 0
+
+
+@pytest.mark.parametrize("sim,bed,row_sets", [
+    ("uniform", "sorted.bed", 1),      # every assembly end to end
+    ("partial", "w500.bed", None),     # assemblies over part of it
+])
+def test_mask_counters(scan_inputs, sim, bed, row_sets):
+    """Every emitted window's masks are cached or resolved; the resolved
+    windows are the row sets: one where every window holds every
+    assembly, more where they do not (tests/test_torch_build_masks.py
+    counts them)."""
+    _, run = scan_inputs
+    doc = run(bed=bed, batch=5, sim=sim)
+    c = doc["counters"]
+    assert c["masks.cached_windows"] + c["masks.resolved_windows"] \
+        == doc["windows"] > 0
+    if row_sets is None:
+        assert c["masks.resolved_windows"] > 1
+    else:
+        assert c["masks.resolved_windows"] == row_sets
 
 
 def test_extractors_open_gauge(scan_inputs):
