@@ -1,0 +1,12 @@
+"""Scan step (``scanstep.scan_step``, columns mode with --ehh --afs): the
+wall of the ``step.afs`` spans, inside ``step.epilogue``, per ``device``
+span (batch), in ms: the per-panel spectrum (``stats.allele.panel_afs``).
+The host's enqueue, not the device's time; a scan without the option, or a
+program that does not record the span, drops the metric out of its line."""
+from benchmark.spans import span_sums
+
+
+def read(run):
+    part, dev = span_sums(run, "step.afs"), span_sums(run, "device")
+    return (1e-6 * part[1] / dev[0] if part and part[0] and dev and dev[0]
+            else None)

@@ -552,16 +552,21 @@ def _scan(args, timers: StageTimers) -> int:
                 if want_afs:
                     # the window's spectrum, sparse, so that a resumed scan
                     # still merges it (allele count 0 is never meaningful)
-                    hist = row_v[lay["afs"]:].reshape(p_count, -1)
-                    sparse = {}
-                    for pi_idx in range(p_count):
-                        for k in np.nonzero(hist[pi_idx])[0]:
-                            if k == 0:
-                                continue
-                            sparse[f"{pi_idx}:{int(k)}"] = int(hist[pi_idx, k])
-                            afs_total[pi_idx, k] += int(hist[pi_idx, k])
-                    rec["afs"] = sparse
-                journal.record(rs, rec)
+                    with span("emit.afs"):
+                        hist = row_v[lay["afs"]:].reshape(p_count, -1)
+                        sparse = {}
+                        for pi_idx in range(p_count):
+                            for k in np.nonzero(hist[pi_idx])[0]:
+                                if k == 0:
+                                    continue
+                                sparse[f"{pi_idx}:{int(k)}"] = int(
+                                    hist[pi_idx, k])
+                                afs_total[pi_idx, k] += int(hist[pi_idx, k])
+                        count("afs.bins_emitted", len(sparse))
+                        rec["afs"] = sparse
+                        journal.record(rs, rec)
+                else:
+                    journal.record(rs, rec)
                 print(row, file=out)
                 n_done += 1
 

@@ -77,15 +77,21 @@ class _Span:
         else:
             self.parent = None
         stack.append((self.id, self.batch))
+        # Each clock is read just before the mark's call: a torch op lets
+        # go of the interpreter lock and takes its timestamp at once, but
+        # taking the lock back after it can wait for another thread (or a
+        # first entry's set-up) for milliseconds, so a clock read after
+        # the call would fall that much later than the mark's edge.
         self.mark = None
         if rec._profiling():
             from torch.profiler import record_function
 
             self.mark = record_function("stage:" + self.name)
-            self.mark.__enter__()
         self.t0 = time.perf_counter_ns()
         if self.cpu:
             self.c0 = time.thread_time_ns()
+        if self.mark is not None:
+            self.mark.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
@@ -108,11 +114,17 @@ class StageTimers:
         self.windows = 0
         self._start = time.perf_counter()
         # the two clocks read together: perf_counter_ns + (unix_ns -
-        # perf_ns) is a span's Unix time
-        p0 = time.perf_counter_ns()
-        unix = time.time_ns()
-        self.clock = {"perf_ns": (p0 + time.perf_counter_ns()) // 2,
-                      "unix_ns": unix}
+        # perf_ns) is a span's Unix time; of a few readings the one whose
+        # Unix read the two perf reads bracket closest (a thread switched
+        # out between them would shift every span)
+        brackets = []
+        for _ in range(5):
+            p0 = time.perf_counter_ns()
+            unix = time.time_ns()
+            p1 = time.perf_counter_ns()
+            brackets.append((p1 - p0, (p0 + p1) // 2, unix))
+        _, perf, unix = min(brackets)
+        self.clock = {"perf_ns": perf, "unix_ns": unix}
         self._ids = itertools.count()
         self._lock = threading.Lock()
         self._threads: Dict[int, tuple] = {}    # ident -> (label, stack)

@@ -118,18 +118,25 @@ def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
 
     Spans (when a recorder is bound): ``step.stats`` (the wire decode,
     the kernels and the grouping) and ``step.epilogue`` (Tajima's D, the
-    Fst assembly, 3-π, EHH and the spectrum, the row's concatenation)."""
+    Fst assembly, 3-π, EHH and the spectrum, the row's concatenation).
+    The option branches open child spans only where they run: in
+    ``step.stats``, ``step.identity`` (the weighted identity) and
+    ``step.groups`` (the grouping and the masked sums) with column
+    weights; in ``step.epilogue``, ``step.ehh`` and ``step.afs``."""
     with span("step.stats"):
         geno, member, smask, panels, length, wts, focal = wire_unpack(
             flat, cap_n, cap_s, p_count, use_weights, want_ehh)
         pair_a, pair_b = _pairs(pair_key)
         if use_weights:
-            sim, present = identity_from_alleles(geno, member, smask, length,
-                                                 site_weights=wts)
+            with span("step.identity"):
+                sim, present = identity_from_alleles(
+                    geno, member, smask, length, site_weights=wts)
             s_count = segregating_sites(geno, member, smask).to(
                 torch.float32)
-            res = fused_panel_stats(sim, present, member, panels, pair_a,
-                                    pair_b, threshold, pairs_disjoint)
+            with span("step.groups"):
+                res = fused_panel_stats(sim, present, member, panels,
+                                        pair_a, pair_b, threshold,
+                                        pairs_disjoint)
         else:
             _, _, s_count, res = fused_window_stats(
                 geno, member, smask, length, panels, pair_a, pair_b,
@@ -149,10 +156,13 @@ def scan_step(flat: torch.Tensor, cap_n: int, cap_s: int, p_count: int,
         cols = [pi_panel, d, fst, fstg, f3, s_count[:, None], n_all[:, None],
                 res.seed_risk[:, None].float()]
         if want_ehh:
-            area, carr = ehh_area_dynamic(geno, member, smask, focal)
+            with span("step.ehh"):
+                area, carr = ehh_area_dynamic(geno, member, smask, focal)
             cols += [area, carr.to(torch.float32)]
         if want_afs:
-            afs = panel_afs(geno, member, smask, panels, afs_bins, afs_folded)
+            with span("step.afs"):
+                afs = panel_afs(geno, member, smask, panels, afs_bins,
+                                afs_folded)
             cols.append(afs.reshape(flat.shape[0], -1).to(torch.float32))
         else:
             cols.append(torch.zeros((flat.shape[0], p_count),

@@ -27,8 +27,11 @@ def _rows(doc):
 
 
 def _busy(ms: float) -> None:
-    t_end = time.perf_counter() + ms / 1e3
-    while time.perf_counter() < t_end:
+    """Spin until the calling thread has run ``ms`` on the CPU (not on the
+    wall clock: a thread switched out for the other spinning thread, or
+    for another process, would spin less CPU time than that)."""
+    t_end = time.thread_time_ns() + ms * 1e6
+    while time.thread_time_ns() < t_end:
         pass
 
 
@@ -353,3 +356,51 @@ def test_scans_leave_no_recorder_bound(scan_inputs):
     _, run = scan_inputs
     run()
     assert getattr(profiling._bound, "rec", None) is None
+
+
+OPTION_SPANS = {"step.identity": "step.stats", "step.groups": "step.stats",
+                "step.ehh": "step.epilogue", "step.afs": "step.epilogue",
+                "emit.afs": "emit"}
+
+
+@pytest.mark.parametrize("options,due", [
+    (("--identity-mode", "columns", "--ehh", "--afs"), set(OPTION_SPANS)),
+    (("--identity-mode", "columns"), {"step.identity", "step.groups"}),
+    (("--ehh",), {"step.ehh"}),
+    ((), set()),                     # the events scan: none of them
+])
+def test_option_spans_sit_under_their_parents(scan_inputs, tmp_path,
+                                              options, due):
+    """The step's option branches open their spans, one a batch under
+    their parent, and the spectrum's emit one a window under its batch's
+    ``emit``, only where they run; the counter ``afs.bins_emitted``
+    counts the journal's spectrum bins."""
+    _, run = scan_inputs
+    journal = tmp_path / "journal.jsonl"
+    extra = [*options, "--journal", str(journal)]
+    if "--afs" in options:
+        extra.insert(extra.index("--afs") + 1, str(tmp_path / "afs.tsv"))
+    doc = run(extra=extra)
+    rows = _rows(doc)
+    by_id = {r["id"]: r for r in rows}
+    batches = sorted(r["batch"] for r in rows if r["name"] == "device")
+    assert {r["name"] for r in rows} & set(OPTION_SPANS) == due
+    entries = [json.loads(ln) for ln in journal.read_text().splitlines()]
+    for name in due:
+        got = [r for r in rows if r["name"] == name]
+        if name == "emit.afs":      # one a window
+            assert sorted({r["batch"] for r in got}) == batches
+            assert len(got) == len(entries)
+        else:
+            assert sorted(r["batch"] for r in got) == batches, name
+        for r in got:
+            parent = by_id[r["parent"]]
+            assert parent["name"] == OPTION_SPANS[name]
+            assert parent["batch"] == r["batch"]
+            assert parent["start_ns"] <= r["start_ns"] <= r["end_ns"] \
+                <= parent["end_ns"]
+    bins = sum(len(e.get("afs", {})) for e in entries)
+    if "emit.afs" in due:
+        assert doc["counters"]["afs.bins_emitted"] == bins > 0
+    else:
+        assert "afs.bins_emitted" not in doc["counters"] and bins == 0
