@@ -79,8 +79,8 @@ from impop_tpu_torch.runtime.profiling import (StageTimers, count,
 
 __all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
            "cmd_hud", "cmd_fst3pi", "cmd_afs", "cmd_panels_hfst",
-           "cmd_panels_tajd", "cmd_sfs", "cmd_ehh", "GenoSimSource",
-           "main"]
+           "cmd_panels_tajd", "cmd_sfs", "cmd_ehh", "emit_batch",
+           "GenoSimSource", "main"]
 
 
 def _read_ehh_targets(path: Optional[str]) -> Dict[str, list]:
@@ -106,6 +106,111 @@ def _write_afs(path: str, afs_total: np.ndarray, panel_names: List[str]
             if afs_total[:, k].any():
                 fh.write(f"{k}\t" + "\t".join(
                     str(int(v)) for v in afs_total[:, k]) + "\n")
+
+
+@functools.lru_cache(maxsize=8)
+def _afs_keys(p_count: int, bins: int) -> np.ndarray:
+    """The journal's spectrum keys ``"<panel>:<allele count>"`` for the
+    counts 1..``bins`` of every panel, panel-major, as one object array."""
+    return np.array([f"{p}:{k}" for p in range(p_count)
+                     for k in range(1, bins + 1)], dtype=object)
+
+
+def emit_batch(packed: np.ndarray, kept: Sequence[Tuple[object, str]],
+               lay: dict, panel_names: Sequence[str],
+               pair_list: Sequence[Tuple[int, int]], out,
+               journal: ResultJournal,
+               ehh_focal_pos: Optional[Dict[str, int]] = None,
+               afs_total: Optional[np.ndarray] = None,
+               log_dir: Optional[str] = None,
+               threshold: Optional[float] = None) -> None:
+    """Emit one batch of ``scan`` rows: the table's lines in one write,
+    with ``afs_total`` the spectra summed in, with a journal file one
+    append of the batch's records, with ``log_dir`` a log a window.
+
+    ``packed`` is the step's [W, row width] rows (``scanstep.row_layout``
+    gives ``lay``); the first ``len(kept)`` are the windows ``kept``
+    lists, ``(region, region string)``, and rows past them (a short last
+    chunk's padding) are never read.  ``ehh_focal_pos`` (region string ->
+    focal position) is given with ``--ehh``, ``afs_total`` ([P, bins + 1]
+    int64) with ``--afs``.  Each column group is read once for the batch;
+    the cells are the per-window formulas' text, byte for byte."""
+    w = len(kept)
+    rows = packed[:w]
+    p_count = max(1, len(panel_names))
+    q = len(pair_list)
+
+    def cols(name: str, k: int) -> list:
+        return rows[:, lay[name]:lay[name] + k].astype(np.float64).tolist()
+
+    n_v = rows[:, lay["n"]].astype(np.int64).tolist()
+    s_v = rows[:, lay["s"]].astype(np.int64).tolist()
+    pi_v, d_v = cols("pi", p_count), cols("d", p_count)
+    fst_v, fstg_v, f3_v = cols("fst", q), cols("fstg", q), cols("f3", q)
+    if ehh_focal_pos is not None:
+        # [area_ref, area_alt, carriers_ref, carriers_alt]
+        area_v = cols("ehh", 2)
+        carr_v = rows[:, lay["ehh"] + 2:lay["ehh"] + 4].astype(
+            np.int64).tolist()
+    lines = []
+    for wi, (reg, rs) in enumerate(kept):
+        length = reg.length
+        cells = [rs, str(length), str(n_v[wi]), str(s_v[wi])]
+        for pv, dv in zip(pi_v[wi], d_v[wi]):
+            cells += (f"{pv / length:.8f}", "NA" if dv != dv else f"{dv:.6f}")
+        for fv, gv, tv in zip(fst_v[wi], fstg_v[wi], f3_v[wi]):
+            cells += (f"{fv:.8f}", f"{gv:.8f}",
+                      "NA" if tv != tv else f"{tv:.8f}")
+        if ehh_focal_pos is not None:
+            fp = ehh_focal_pos.get(rs)
+            (a_ref, a_alt), (c_ref, c_alt) = area_v[wi], carr_v[wi]
+            cells += ("NA" if fp is None else str(fp), f"{a_ref:.6f}",
+                      str(c_ref), f"{a_alt:.6f}", str(c_alt))
+        lines.append("\t".join(cells))
+        if log_dir:
+            payload = {"region": rs, "length": length,
+                       "threshold": threshold, "n": n_v[wi],
+                       "segregating_sites": s_v[wi]}
+            for pname, pv, dv in zip(panel_names or ["ALL"], pi_v[wi],
+                                     d_v[wi]):
+                payload[f"pi_{pname}"] = pv / length
+                payload[f"tajd_{pname}"] = "NA" if dv != dv else dv
+            for (i, j), fv, gv, tv in zip(pair_list, fst_v[wi], fstg_v[wi],
+                                          f3_v[wi]):
+                tag = f"{panel_names[i]}_{panel_names[j]}"
+                payload[f"fst_{tag}"] = fv
+                payload[f"fstg_{tag}"] = gv
+                payload[f"fst3_{tag}"] = "NA" if tv != tv else tv
+            _write_window_log(log_dir, rs, "Fused Scan Window", payload)
+    records = [{"row": ln} for ln in lines] if journal.path else None
+    if afs_total is not None:
+        # each window's spectrum, sparse in its journal record so that a
+        # resumed scan still merges it (allele count 0 is never meaningful)
+        with span("emit.afs"):
+            # the counts are exact integers in float32: [W, P, bins]
+            hist = rows[:, lay["afs"]:].reshape(w, p_count, -1)[:, :, 1:]
+            hist = hist.astype(np.int64).reshape(w, -1)
+            afs_total[:, 1:] += hist.sum(axis=0).reshape(p_count, -1)
+            if records is None:
+                count("afs.bins_emitted", np.count_nonzero(hist))
+            else:
+                # window-major, then panel, then count: each window's run
+                # of nonzero bins in the journal's order
+                at = np.flatnonzero(hist)
+                count("afs.bins_emitted", at.size)
+                per_w = hist.shape[1]
+                keys = _afs_keys(p_count, per_w // p_count)[
+                    at % per_w].tolist()
+                vals = hist.ravel()[at].tolist()
+                ends = np.searchsorted(at, per_w * np.arange(1, w + 1))
+                lo = 0
+                for rec, hi in zip(records, ends.tolist()):
+                    rec["afs"] = dict(zip(keys[lo:hi], vals[lo:hi]))
+                    lo = hi
+    if records is not None:
+        journal.record_many(zip((rs for _, rs in kept), records))
+        count("journal.writes")
+    out.write("".join(ln + "\n" for ln in lines))
 
 
 def _open_device(name: str):
@@ -500,76 +605,6 @@ def _scan(args, timers: StageTimers) -> int:
 
         n_done = n_failed = 0
 
-        def emit_rows(packed, kept):
-            nonlocal n_done
-            timers.add_windows(len(kept))
-            for wi, (reg, rs) in enumerate(kept):
-                row_v = packed[wi]
-                n_v, s_v = int(row_v[lay["n"]]), int(row_v[lay["s"]])
-                cells = [rs, str(reg.length), str(n_v), str(s_v)]
-                for pi_idx in range(p_count):
-                    d_val = float(row_v[lay["d"] + pi_idx])
-                    cells += [f"{float(row_v[lay['pi'] + pi_idx]) / reg.length:.8f}",
-                              "NA" if np.isnan(d_val) else f"{d_val:.6f}"]
-                if panel_lists:
-                    for qi in range(len(pair_list)):
-                        f3_val = float(row_v[lay["f3"] + qi])
-                        cells += [
-                            f"{float(row_v[lay['fst'] + qi]):.8f}",
-                            f"{float(row_v[lay['fstg'] + qi]):.8f}",
-                            "NA" if np.isnan(f3_val) else f"{f3_val:.8f}",
-                        ]
-                if want_ehh:
-                    # [area_ref, area_alt, carriers_ref, carriers_alt]
-                    e = lay["ehh"]
-                    fp = ehh_focal_pos.get(rs)
-                    cells += ["NA" if fp is None else str(fp),
-                              f"{float(row_v[e]):.6f}",
-                              str(int(row_v[e + 2])),
-                              f"{float(row_v[e + 1]):.6f}",
-                              str(int(row_v[e + 3]))]
-                row = "\t".join(cells)
-                if args.log_dir:
-                    payload = {"region": rs, "length": reg.length,
-                               "threshold": args.threshold, "n": n_v,
-                               "segregating_sites": s_v}
-                    for pi_idx, pname in enumerate(panel_names or ["ALL"]):
-                        payload[f"pi_{pname}"] = (
-                            float(row_v[lay["pi"] + pi_idx]) / reg.length)
-                        dv = float(row_v[lay["d"] + pi_idx])
-                        payload[f"tajd_{pname}"] = "NA" if np.isnan(dv) else dv
-                    for qi, (i, j) in enumerate(pair_list):
-                        tag = f"{panel_names[i]}_{panel_names[j]}"
-                        payload[f"fst_{tag}"] = float(row_v[lay["fst"] + qi])
-                        payload[f"fstg_{tag}"] = float(
-                            row_v[lay["fstg"] + qi])
-                        f3v = float(row_v[lay["f3"] + qi])
-                        payload[f"fst3_{tag}"] = ("NA" if np.isnan(f3v)
-                                                  else f3v)
-                    _write_window_log(args.log_dir, rs, "Fused Scan Window",
-                                      payload)
-                rec = {"row": row}
-                if want_afs:
-                    # the window's spectrum, sparse, so that a resumed scan
-                    # still merges it (allele count 0 is never meaningful)
-                    with span("emit.afs"):
-                        hist = row_v[lay["afs"]:].reshape(p_count, -1)
-                        sparse = {}
-                        for pi_idx in range(p_count):
-                            for k in np.nonzero(hist[pi_idx])[0]:
-                                if k == 0:
-                                    continue
-                                sparse[f"{pi_idx}:{int(k)}"] = int(
-                                    hist[pi_idx, k])
-                                afs_total[pi_idx, k] += int(hist[pi_idx, k])
-                        count("afs.bins_emitted", len(sparse))
-                        rec["afs"] = sparse
-                        journal.record(rs, rec)
-                else:
-                    journal.record(rs, rec)
-                print(row, file=out)
-                n_done += 1
-
         def exact_fstg(packed, kept, wire, caps, k):
             """Windows flagged seed_risk re-run their grouped Fst through
             the exact first-found-pair program, on their batch's device;
@@ -592,6 +627,7 @@ def _scan(args, timers: StageTimers) -> int:
             """Emit a group's batches in chunk order; rows past a batch's
             kept windows (the padding of a short last chunk) are never
             read."""
+            nonlocal n_done
             for k, began, (host, done), kept_b, wire_b, caps_b in metas:
                 with span("fetch", batch=k):
                     if done is not None:
@@ -601,7 +637,12 @@ def _scan(args, timers: StageTimers) -> int:
                     packed_b = host.numpy()
                 packed_b = exact_fstg(packed_b, kept_b, wire_b, caps_b, k)
                 with span("emit", batch=k):
-                    emit_rows(packed_b, kept_b)
+                    timers.add_windows(len(kept_b))
+                    emit_batch(packed_b, kept_b, lay, panel_names, pair_list,
+                               out, journal,
+                               ehh_focal_pos if want_ehh else None,
+                               afs_total, args.log_dir, args.threshold)
+                n_done += len(kept_b)
 
         # grouped drains: each batch's rows are copied to the host from its
         # own device as soon as its step is queued (no tensor moves between

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 __all__ = ["ResultJournal"]
 
@@ -36,14 +36,21 @@ class ResultJournal:
                         self._records[key] = rec
 
     def record(self, region: str, payload: dict) -> None:
-        rec = {"region": region, **payload}
-        self._records[region] = rec
+        self.record_many([(region, payload)])
+
+    def record_many(self, records: Iterable[Tuple[str, dict]]) -> None:
+        """Append ``(region, payload)`` records in their order with one
+        open and one write; nothing without a file."""
         if self.path:
             with open(self.path, "a") as handle:
-                handle.write(json.dumps(rec) + "\n")
+                handle.write("".join(
+                    json.dumps({"region": region, **payload}) + "\n"
+                    for region, payload in records))
 
     def record_failure(self, region: str, reason: str) -> None:
         self.record(region, {"status": "NA", "reason": reason})
 
     def get(self, region: str) -> Optional[dict]:
+        """The region's record as the file held it when the journal was
+        opened: what a resumed scan replays."""
         return self._records.get(region)

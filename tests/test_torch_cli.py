@@ -124,32 +124,45 @@ def test_scan_geno_dir_partial_coverage_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("first,second", [("jax", "torch"),
-                                          ("torch", "jax")])
+                                          ("torch", "jax"),
+                                          ("torch", "torch")])
 def test_journal_resumes_across_packages(paf_inputs, tmp_path, first,
                                          second):
-    """One package journals the first two windows; the other resumes the
-    full scan: the journaled rows come back verbatim and the rest agree
-    with a clean run of the first package."""
+    """One package journals the first batch of two windows, spectra
+    included (``--afs``), and stops; the other resumes the full scan: the
+    journaled rows come back verbatim, the rest agree with a clean run of
+    the first package, and the resumed spectrum file is the clean run's,
+    byte for byte (the whole table too where one package ran both)."""
     _, argv = paf_inputs
     run = {"jax": lambda a: jax_main(a),
            "torch": lambda a: torch_main(a + ["--device", "cpu"])}
     journal = tmp_path / "scan.jsonl"
     part, full, clean = (tmp_path / f"{k}.tsv"
                          for k in ("part", "full", "clean"))
+
+    def afs(out):
+        return ["--afs", str(out.with_suffix(".afs"))]
+
     assert run[first](argv("w2.bed") + ["--journal", str(journal), "-o",
-                                        str(part)]) == 0
+                                        str(part)] + afs(part)) == 0
     assert run[second](argv() + ["--journal", str(journal), "-o",
-                                 str(full)]) == 0
-    assert run[first](argv() + ["-o", str(clean)]) == 0
+                                 str(full)] + afs(full)) == 0
+    assert run[first](argv() + ["-o", str(clean)] + afs(clean)) == 0
     _, rows_part = read_table(part)
     _, rows_full = read_table(full)
     assert rows_full[:2] == rows_part
     assert_tables_close(clean, full)
-    # a second resume replays every row
+    assert full.with_suffix(".afs").read_bytes() == \
+        clean.with_suffix(".afs").read_bytes()
+    if first == second:
+        assert full.read_text() == clean.read_text()
+    # a second resume replays every row and every window's spectrum
     again = tmp_path / "again.tsv"
     assert run[first](argv() + ["--journal", str(journal), "-o",
-                                str(again)]) == 0
+                                str(again)] + afs(again)) == 0
     assert again.read_text() == full.read_text()
+    assert again.with_suffix(".afs").read_bytes() == \
+        full.with_suffix(".afs").read_bytes()
 
 
 def run_both(args, tmp_path, extra):

@@ -371,10 +371,11 @@ OPTION_SPANS = {"step.identity": "step.stats", "step.groups": "step.stats",
 ])
 def test_option_spans_sit_under_their_parents(scan_inputs, tmp_path,
                                               options, due):
-    """The step's option branches open their spans, one a batch under
-    their parent, and the spectrum's emit one a window under its batch's
-    ``emit``, only where they run; the counter ``afs.bins_emitted``
-    counts the journal's spectrum bins."""
+    """The step's option branches and the spectrum's emit open their
+    spans, one a batch under their parent (``emit.afs`` under its batch's
+    ``emit``), only where they run; the counter ``afs.bins_emitted``
+    counts the journal's spectrum bins and ``journal.writes`` one append
+    a batch."""
     _, run = scan_inputs
     journal = tmp_path / "journal.jsonl"
     extra = [*options, "--journal", str(journal)]
@@ -386,13 +387,10 @@ def test_option_spans_sit_under_their_parents(scan_inputs, tmp_path,
     batches = sorted(r["batch"] for r in rows if r["name"] == "device")
     assert {r["name"] for r in rows} & set(OPTION_SPANS) == due
     entries = [json.loads(ln) for ln in journal.read_text().splitlines()]
+    assert len(entries) == doc["windows"] == 4
     for name in due:
         got = [r for r in rows if r["name"] == name]
-        if name == "emit.afs":      # one a window
-            assert sorted({r["batch"] for r in got}) == batches
-            assert len(got) == len(entries)
-        else:
-            assert sorted(r["batch"] for r in got) == batches, name
+        assert sorted(r["batch"] for r in got) == batches, name
         for r in got:
             parent = by_id[r["parent"]]
             assert parent["name"] == OPTION_SPANS[name]
@@ -404,3 +402,23 @@ def test_option_spans_sit_under_their_parents(scan_inputs, tmp_path,
         assert doc["counters"]["afs.bins_emitted"] == bins > 0
     else:
         assert "afs.bins_emitted" not in doc["counters"] and bins == 0
+    assert doc["counters"]["journal.writes"] == len(batches) == 2
+
+
+def test_spectrum_bins_counted_without_a_journal(scan_inputs, tmp_path):
+    """Without ``--journal`` the spectrum's emit still counts the nonzero
+    bins, as many as a journaled scan writes, in one ``emit.afs`` a batch,
+    and counts no journal append."""
+    _, run = scan_inputs
+    afs = ["--afs", str(tmp_path / "afs.tsv")]
+    journal = tmp_path / "journal.jsonl"
+    journaled = run(extra=[*afs, "--journal", str(journal)])
+    bins = sum(len(json.loads(ln)["afs"])
+               for ln in journal.read_text().splitlines())
+    doc = run(extra=afs)
+    assert doc["counters"]["afs.bins_emitted"] == bins > 0
+    assert journaled["counters"]["afs.bins_emitted"] == bins
+    assert doc["counters"].get("journal.writes", 0) == 0
+    rows = _rows(doc)
+    assert sorted(r["batch"] for r in rows if r["name"] == "emit.afs") \
+        == sorted(r["batch"] for r in rows if r["name"] == "emit") == [0, 1]
