@@ -111,21 +111,20 @@ Phases (one line each; any failure exits non-zero):
 
   C1 the multi-device and multi-host paths on the one card: the scan's
      first 320 windows as one device batch (plain, then ``--identity-mode
-     columns --ehh --afs``) through ``scan``, and the batch the command
-     stepped split again on [cuda:0] x 2 and x 4
-     (``scanstep.scan_step_over``) against one ``scan_step`` (integers
-     exact, pi/D/EHH rtol 1e-5, Fst atol 2e-3; bitwise equality
-     reported), once under the sync debug mode "error"; the exact FSTG
-     recompute (``scanstep.scan_step_fstg_exact_over``) on [cuda:0] x 4
-     for windows in every shard against the whole batch's, its identity
-     kernel launched by the split call; then the same windows dealt by
-     ``scan`` in four batches of 80 to [cuda:0] x 1, 2 and 4, three
+     columns --ehh --afs``) through ``scan``, and that batch's step
+     again under the sync debug mode "error" against the scan's step
+     (integers exact, pi/D/EHH rtol 1e-5, Fst atol 2e-3; bitwise
+     equality reported); the exact FSTG recompute
+     (``scanstep.scan_step_fstg_exact``) of windows across the batch in
+     one call against each window's own call, its identity kernel
+     launched; then the same windows dealt by ``scan`` in four batches
+     of 80 to [cuda:0] x 1, 2 and 4, three
      times in turns (``process_devices`` patched): batch j on entry j
      mod k, one ``scan_step`` each, the copy and the step on one stream,
      table, journal and spectrum byte-equal at every k, the scan's walls,
      and the dealt copy, step and copy back under the sync debug mode
-     "error"; split and dealt steps timed per batch at 1, 2 and 4
-     entries, and the step alone; ``scan --distributed
+     "error"; the dealt step timed per batch at 1, 2 and 4 entries, and
+     the step alone; ``scan --distributed
      --afs`` in two processes on the card (gloo, ranks 0 and 1, one GPU
      each) merged by ``merge-parts`` / ``--sum`` against the tables of
      phases 3 and 5; ``pair_sharded_direct_stats`` on [cuda:0] x 4 at N =
@@ -1992,13 +1991,13 @@ def compare_scan_rows(got, want, lay, tag) -> bool:
                                np.nan_to_num(w, nan=7.0)))
 
 
-def c1_split_scan(tag, flat, args, step):
-    """The 320-window batch the scan stepped, again on [cuda:0] x 2 and x 4
-    (``scan_step_over``) against one ``scan_step``, once under the sync
-    debug mode "error"; then the exact FSTG recompute
-    (``scan_step_fstg_exact_over``) on [cuda:0] x 4 for windows in every
-    shard against the whole batch's, its identity kernel counted over the
-    split call alone.  Returns the line's text."""
+def c1_one_batch(tag, flat, args, step):
+    """The 320-window batch the scan stepped, stepped again under the sync
+    debug mode "error" (no call of ``scan_step`` waits for the card), its
+    rows against the first step's; then the exact FSTG recompute
+    (``scan_step_fstg_exact``) of windows across the batch in one call
+    against each window's own call, its identity kernel counted over the
+    one call.  Returns the line's text."""
     import numpy as np
     import torch
 
@@ -2009,46 +2008,34 @@ def c1_split_scan(tag, flat, args, step):
     w = flat.shape[0]
     lay = scanstep.row_layout(args[2], len(args[3]), args[7])
     one = scanstep.scan_step(flat, *args)
-    shards = {k: scanstep.shard_wire(flat, [flat.device] * k)
-              for k in (1, 2, 4)}
-    same = []
-    for k in (2, 4):
-        got = scanstep.scan_step_over(shards[k], *args, n_rows=w)
-        same.append(compare_scan_rows(got, one, lay, f"C1 {tag} x {k}"))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        scanstep.scan_step_over(shards[4], *args, n_rows=w)
+        again = scanstep.scan_step(flat, *args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    same = compare_scan_rows(again, one, lay, f"C1 {tag} no-sync step")
     rows = [0, w // 4 - 1, w // 4, w // 2 + 1, 3 * w // 4 + 2, w - 1]
     kw = dict(use_weights=args[6], use_ehh=args[7])
-    want_x = scanstep.scan_step_fstg_exact(flat, *args[:5], rows=rows, **kw)
     ident = pairwise_identity_weighted if args[6] else pairwise_identity
     before = ident.launches
-    got_x = scanstep.scan_step_fstg_exact_over(shards[4], *args[:5], rows,
-                                               **kw)
+    got_x = scanstep.scan_step_fstg_exact(flat, *args[:5], rows=rows, **kw)
     ident_launches = ident.launches - before
     if ident_launches == 0:
-        raise SmokeError(f"C1 {tag}: the split exact recompute launched "
-                         f"no {ident.__name__}")
+        raise SmokeError(f"C1 {tag}: the exact recompute launched no "
+                         f"{ident.__name__}")
+    want_x = torch.cat([scanstep.scan_step_fstg_exact(
+        flat, *args[:5], rows=[r], **kw) for r in rows])
     gx, wx = got_x.cpu().numpy(), want_x.cpu().numpy()
-    if gx.shape != wx.shape or not np.array_equal(np.isnan(gx),
-                                                  np.isnan(wx)):
-        raise SmokeError(f"C1 {tag}: split exact FSTG {gx.shape} vs "
-                         f"{wx.shape} or NaN at other places")
-    if not np.allclose(np.nan_to_num(gx), np.nan_to_num(wx), rtol=0.0,
-                       atol=2e-3):
-        raise SmokeError(f"C1 {tag}: split exact FSTG differs")
-    same_x = np.array_equal(gx, wx, equal_nan=True)
-    step.setdefault("c1_scan", []).append((tag, shards, args, w))
-    return (f"[cuda:0] x 2 and x 4 split equal one scan_step (integers "
-            f"exact, pi/D/EHH rtol 1e-5, Fst atol 2e-3), bitwise "
-            f"{'yes' if all(same) else 'no'}; the sync debug mode found no "
-            "synchronising call in the split step; exact FSTG of windows "
-            f"{rows} on [cuda:0] x 4 equals the whole batch's (atol 2e-3, "
-            f"bitwise {'yes' if same_x else 'no'}), {ident.__name__} "
-            f"launched {ident_launches} times by the split call")
+    if gx.shape != wx.shape or not np.array_equal(gx, wx, equal_nan=True):
+        raise SmokeError(f"C1 {tag}: exact FSTG of rows {rows} in one call "
+                         "differs from each row's own call")
+    step.setdefault("c1_scan", []).append((tag, flat, args, w))
+    return (f"the step again under the sync debug mode \"error\": no "
+            f"synchronising call, rows equal the first step's (bitwise "
+            f"{'yes' if same else 'no'}); exact FSTG of windows {rows} in "
+            f"one call equals each window's own call bitwise, "
+            f"{ident.__name__} launched {ident_launches} times by it")
 
 
 class DealSpy:
@@ -2115,8 +2102,8 @@ class DealSpy:
 
 def c1_scan(dev, tmp, pg, step):
     """``scan`` over the first 320 windows (plain, then ``--identity-mode
-    columns --ehh --afs``): once as one device batch, whose batch is split
-    again by :func:`c1_split_scan`; then dealt in four batches of 80 to
+    columns --ehh --afs``): once as one device batch, whose batch
+    :func:`c1_one_batch` steps again; then dealt in four batches of 80 to
     [cuda:0] x 1, 2 and 4, three times in turns, through
     ``process_devices``: batch j
     on entry j mod k, one step on each, the copy and the step on one
@@ -2147,7 +2134,7 @@ def c1_scan(dev, tmp, pg, step):
             wall = time.perf_counter() - t0
         spy.check(tag, 1)
         flat, args, _ = spy.stepped[0]
-        split_text = c1_split_scan(tag, flat, args, step)
+        batch_text = c1_one_batch(tag, flat, args, step)
 
         walls, outputs, spies = [], [], {}
         for k in C1_ENTRIES:
@@ -2195,7 +2182,7 @@ def c1_scan(dev, tmp, pg, step):
                 for k in sorted(set(C1_ENTRIES))}
         say("C1", f"scan {tag}: [{args[0]},{args[1]}]x{C1_WINDOWS}, "
             f"{args[2]} panels / {len(args[3])} pairs, one batch (scan "
-            f"{wall:.2f} s wall); {split_text}; dealt in "
+            f"{wall:.2f} s wall); {batch_text}; dealt in "
             f"{C1_WINDOWS // C1_DEAL_BATCH} batches of {C1_DEAL_BATCH} to "
             "[cuda:0] x " + " / ".join(str(k) for k in C1_ENTRIES)
             + ": batch j on entry j mod k, one scan_step each, copy and "
@@ -2477,27 +2464,16 @@ def phase_multidevice(dev, tmp, pg, step):
 
 
 def time_multidevice(step, smi):
-    """C1's timings, outside the counted path: the split scan step at 1, 2
-    and 4 entries of cuda:0 (CUDA events, and the card's busy share of
-    one step by torch.profiler), the pair shard against the replicated
-    path, and the long window's (2, 2) grid against (1, 1)."""
+    """C1's timings, outside the counted path: the dealt scan step at 1, 2
+    and 4 entries of cuda:0 and the step alone (CUDA events, and the
+    card's busy share by torch.profiler), the pair shard against the
+    replicated path, and the long window's (2, 2) grid against (1, 1)."""
     import torch
 
     from impop_tpu_torch import scanstep
     from impop_tpu_torch.device import on_device
 
-    for tag, shards, args, w in step["c1_scan"]:
-        fns = {k: (lambda sh=sh: scanstep.scan_step_over(sh, *args,
-                                                         n_rows=w))
-               for k, sh in shards.items()}
-        ms = {k: cuda_time_ms(fn, 10) for k, fn in fns.items()}
-        say("C1", f"split scan step {tag} [{args[0]},{args[1]}]x{w}: "
-            + ", ".join(f"x {k} {v:.4f} ms" for k, v in ms.items())
-            + f" (CUDA events; {smi}); x 1 by kernel: "
-            + profile_ops(fns[1], ms[1], top=4) + "; x 4 by kernel: "
-            + profile_ops(fns[4], ms[4], top=4))
-        wire = shards[1][0]
-
+    for tag, wire, args, w in step["c1_scan"]:
         def dealt(k, wire=wire, args=args):
             entries = [torch.device(wire.device.type, wire.device.index)
                        for _ in range(k)]

@@ -11,13 +11,13 @@ Every subcommand takes the flags of the same subcommand of
 ``python -m impop_tpu.cli``, plus ``--device {cuda,cpu}``, and writes the
 same table, window logs and counters.
 
-``scan``: per batch of windows the host extracts allele tiles, packs them
-into the shared 2-bit wire buffer, and one device step computes π and
-Tajima's D per panel and Hudson direct / grouped / 3-π Fst per pair
-(``scanstep.scan_step``), with ``--ehh`` the EHH decay areas at a focal
-variant, with ``--afs`` the per-panel allele frequency spectra, and with
-``--identity-mode columns`` column-weighted identity; windows flagged
-``seed_risk`` re-run their grouped Fst exactly.
+``scan`` (``scanrun``): per batch of windows the host extracts allele
+tiles, packs them into the shared 2-bit wire buffer, and one device step
+computes π and Tajima's D per panel and Hudson direct / grouped / 3-π Fst
+per pair (``scanstep.scan_step``), with ``--ehh`` the EHH decay areas at
+a focal variant, with ``--afs`` the per-panel allele frequency spectra,
+and with ``--identity-mode columns`` column-weighted identity; windows
+flagged ``seed_risk`` re-run their grouped Fst exactly.
 
 ``tajd``: S, pica2-grouped π per site and Tajima's D per window, from allele
 tiles (``--geno-dir`` / ``--gfa-dir``, all windows padded into one batch)
@@ -50,9 +50,6 @@ of windows over the local devices (``parallel.pairspace``).
 from __future__ import annotations
 
 import argparse
-import collections
-import concurrent.futures as futures
-import functools
 import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -66,151 +63,17 @@ from impop_tpu_torch.hostio import (DirSimSource, GenoSource, GfaDirSource,
                                     _add_sim_args, _capacity_for,
                                     _load_windows, _open_extractor,
                                     _out_stream, _panel_label,
-                                    _print_counters, _resolve_fasta,
-                                    _scan_buf_layout, _warn,
+                                    _print_counters, _resolve_fasta, _warn,
                                     _write_window_log, expand_population,
-                                    pack_scan_batch, parse_region, read_bed,
-                                    read_panel_file, read_similarity_tsv,
-                                    round_half_even, site_weights_from_keys,
-                                    split_multiallelic, tables)
-from impop_tpu_torch.runtime.journal import ResultJournal
-from impop_tpu_torch.runtime.profiling import (StageTimers, count,
-                                               device_trace, span)
+                                    parse_region, read_bed, read_panel_file,
+                                    read_similarity_tsv, round_half_even,
+                                    site_weights_from_keys, tables)
+from impop_tpu_torch.runtime.profiling import StageTimers
 
 __all__ = ["build_parser", "cmd_scan", "cmd_tajd", "cmd_pi", "cmd_hfst",
            "cmd_hud", "cmd_fst3pi", "cmd_afs", "cmd_panels_hfst",
-           "cmd_panels_tajd", "cmd_sfs", "cmd_ehh", "emit_batch",
-           "GenoSimSource", "main"]
-
-
-def _read_ehh_targets(path: Optional[str]) -> Dict[str, list]:
-    """--ehh-focal: "chrom pos" lines (``#`` comments skipped)."""
-    targets: Dict[str, list] = {}
-    if path:
-        with open(path) as fh:
-            for ln in fh:
-                parts = ln.split()
-                if len(parts) >= 2 and not ln.startswith("#"):
-                    targets.setdefault(parts[0], []).append(int(parts[1]))
-    return targets
-
-
-def _write_afs(path: str, afs_total: np.ndarray, panel_names: List[str]
-               ) -> None:
-    """The genome-wide spectrum file of the JAX scan: one row per allele
-    count k >= 1 that any panel has, one column per panel."""
-    with open(path, "w") as fh:
-        fh.write("ALLELE_COUNT\t" + "\t".join(
-            f"SITES_{n}" for n in (panel_names or ["ALL"])) + "\n")
-        for k in range(1, afs_total.shape[1]):
-            if afs_total[:, k].any():
-                fh.write(f"{k}\t" + "\t".join(
-                    str(int(v)) for v in afs_total[:, k]) + "\n")
-
-
-@functools.lru_cache(maxsize=8)
-def _afs_keys(p_count: int, bins: int) -> np.ndarray:
-    """The journal's spectrum keys ``"<panel>:<allele count>"`` for the
-    counts 1..``bins`` of every panel, panel-major, as one object array."""
-    return np.array([f"{p}:{k}" for p in range(p_count)
-                     for k in range(1, bins + 1)], dtype=object)
-
-
-def emit_batch(packed: np.ndarray, kept: Sequence[Tuple[object, str]],
-               lay: dict, panel_names: Sequence[str],
-               pair_list: Sequence[Tuple[int, int]], out,
-               journal: ResultJournal,
-               ehh_focal_pos: Optional[Dict[str, int]] = None,
-               afs_total: Optional[np.ndarray] = None,
-               log_dir: Optional[str] = None,
-               threshold: Optional[float] = None) -> None:
-    """Emit one batch of ``scan`` rows: the table's lines in one write,
-    with ``afs_total`` the spectra summed in, with a journal file one
-    append of the batch's records, with ``log_dir`` a log a window.
-
-    ``packed`` is the step's [W, row width] rows (``scanstep.row_layout``
-    gives ``lay``); the first ``len(kept)`` are the windows ``kept``
-    lists, ``(region, region string)``, and rows past them (a short last
-    chunk's padding) are never read.  ``ehh_focal_pos`` (region string ->
-    focal position) is given with ``--ehh``, ``afs_total`` ([P, bins + 1]
-    int64) with ``--afs``.  Each column group is read once for the batch;
-    the cells are the per-window formulas' text, byte for byte."""
-    w = len(kept)
-    rows = packed[:w]
-    p_count = max(1, len(panel_names))
-    q = len(pair_list)
-
-    def cols(name: str, k: int) -> list:
-        return rows[:, lay[name]:lay[name] + k].astype(np.float64).tolist()
-
-    n_v = rows[:, lay["n"]].astype(np.int64).tolist()
-    s_v = rows[:, lay["s"]].astype(np.int64).tolist()
-    pi_v, d_v = cols("pi", p_count), cols("d", p_count)
-    fst_v, fstg_v, f3_v = cols("fst", q), cols("fstg", q), cols("f3", q)
-    if ehh_focal_pos is not None:
-        # [area_ref, area_alt, carriers_ref, carriers_alt]
-        area_v = cols("ehh", 2)
-        carr_v = rows[:, lay["ehh"] + 2:lay["ehh"] + 4].astype(
-            np.int64).tolist()
-    lines = []
-    for wi, (reg, rs) in enumerate(kept):
-        length = reg.length
-        cells = [rs, str(length), str(n_v[wi]), str(s_v[wi])]
-        for pv, dv in zip(pi_v[wi], d_v[wi]):
-            cells += (f"{pv / length:.8f}", "NA" if dv != dv else f"{dv:.6f}")
-        for fv, gv, tv in zip(fst_v[wi], fstg_v[wi], f3_v[wi]):
-            cells += (f"{fv:.8f}", f"{gv:.8f}",
-                      "NA" if tv != tv else f"{tv:.8f}")
-        if ehh_focal_pos is not None:
-            fp = ehh_focal_pos.get(rs)
-            (a_ref, a_alt), (c_ref, c_alt) = area_v[wi], carr_v[wi]
-            cells += ("NA" if fp is None else str(fp), f"{a_ref:.6f}",
-                      str(c_ref), f"{a_alt:.6f}", str(c_alt))
-        lines.append("\t".join(cells))
-        if log_dir:
-            payload = {"region": rs, "length": length,
-                       "threshold": threshold, "n": n_v[wi],
-                       "segregating_sites": s_v[wi]}
-            for pname, pv, dv in zip(panel_names or ["ALL"], pi_v[wi],
-                                     d_v[wi]):
-                payload[f"pi_{pname}"] = pv / length
-                payload[f"tajd_{pname}"] = "NA" if dv != dv else dv
-            for (i, j), fv, gv, tv in zip(pair_list, fst_v[wi], fstg_v[wi],
-                                          f3_v[wi]):
-                tag = f"{panel_names[i]}_{panel_names[j]}"
-                payload[f"fst_{tag}"] = fv
-                payload[f"fstg_{tag}"] = gv
-                payload[f"fst3_{tag}"] = "NA" if tv != tv else tv
-            _write_window_log(log_dir, rs, "Fused Scan Window", payload)
-    records = [{"row": ln} for ln in lines] if journal.path else None
-    if afs_total is not None:
-        # each window's spectrum, sparse in its journal record so that a
-        # resumed scan still merges it (allele count 0 is never meaningful)
-        with span("emit.afs"):
-            # the counts are exact integers in float32: [W, P, bins]
-            hist = rows[:, lay["afs"]:].reshape(w, p_count, -1)[:, :, 1:]
-            hist = hist.astype(np.int64).reshape(w, -1)
-            afs_total[:, 1:] += hist.sum(axis=0).reshape(p_count, -1)
-            if records is None:
-                count("afs.bins_emitted", np.count_nonzero(hist))
-            else:
-                # window-major, then panel, then count: each window's run
-                # of nonzero bins in the journal's order
-                at = np.flatnonzero(hist)
-                count("afs.bins_emitted", at.size)
-                per_w = hist.shape[1]
-                keys = _afs_keys(p_count, per_w // p_count)[
-                    at % per_w].tolist()
-                vals = hist.ravel()[at].tolist()
-                ends = np.searchsorted(at, per_w * np.arange(1, w + 1))
-                lo = 0
-                for rec, hi in zip(records, ends.tolist()):
-                    rec["afs"] = dict(zip(keys[lo:hi], vals[lo:hi]))
-                    lo = hi
-    if records is not None:
-        journal.record_many(zip((rs for _, rs in kept), records))
-        count("journal.writes")
-    out.write("".join(ln + "\n" for ln in lines))
+           "cmd_panels_tajd", "cmd_sfs", "cmd_ehh", "GenoSimSource",
+           "main"]
 
 
 def _open_device(name: str):
@@ -222,497 +85,14 @@ def _open_device(name: str):
 
 
 def cmd_scan(args) -> int:
-    """Fused scan with a result journal for idempotent resume.
+    """Fused scan with a result journal for idempotent resume
+    (``scanrun.run``), its spans and counters recorded for
+    ``--timing-json`` with the main thread bound as ``main``."""
+    from impop_tpu_torch import scanrun
 
-    Whole batches are dealt to the local devices in turn (``--device
-    cuda``: every GPU; ``cuda:K`` or ``cpu``: that one): batch k runs on
-    device k mod D, so each batch costs one host enqueue of the step
-    however many GPUs there are, and its rows come back to the host from
-    its own device.  With ``--distributed`` each process scans its
-    contiguous share of the windows (``host_window_range``) into
-    ``<file>.partK`` outputs for ``merge-parts``.
-
-    The call's spans and counters (``runtime/profiling.py``) are recorded
-    on the main thread and on the two workers of the host pipeline
-    (``extract``, ``build``), and written by ``--timing-json``."""
     timers = StageTimers()
     with timers.bound("main"):
-        return _scan(args, timers)
-
-
-def _scan(args, timers: StageTimers) -> int:
-    from impop_tpu_torch.device import on_device
-    from impop_tpu_torch.parallel.distributed import (finalize,
-                                                      host_window_range,
-                                                      maybe_initialize,
-                                                      process_devices)
-    from impop_tpu_torch.scanstep import (deal_wire, row_layout,
-                                          rows_to_host, scan_step,
-                                          scan_step_fstg_exact, step_event)
-
-    rank, world = maybe_initialize(args.distributed)
-    with span("setup"):
-        devs = process_devices(args.device)
-        if devs[0].type == "cuda":
-            from impop_tpu_torch.ops._build import load_library
-
-            with span("setup.build"):
-                load_library()
-
-        with span("setup.bed"):
-            regions = read_bed(args.bed)
-        if world > 1:
-            lo, hi = host_window_range(len(regions), rank, world)
-            regions = regions[lo:hi]
-            for attr in ("output", "journal", "afs", "timing_json"):
-                if getattr(args, attr, None):
-                    setattr(args, attr, f"{getattr(args, attr)}.part{rank}")
-        geno_src = (GenoSource(args.geno_dir) if args.geno_dir
-                    else GfaDirSource(args.gfa_dir) if args.gfa_dir else None)
-        with span("setup.open"):
-            fasta_store = _resolve_fasta(args)
-            extractor = (_open_extractor(args.paf, fasta_store)
-                         if args.paf and fasta_store else None)
-        # the native extractor's clock and counts: its open now, its batch
-        # extractions at the end of the call
-        native_stats = getattr(extractor, "stats", None)
-        if native_stats is not None:
-            for key, v in native_stats().items():
-                if key.startswith("open.") or key == "extractors.open":
-                    count(key, v)
-        if geno_src is None and extractor is None:
-            raise SystemExit("error: provide --geno-dir, --gfa-dir, "
-                             "--paf + --fasta, or --paf + --agc")
-
-        with span("setup.panels"):
-            panel_files = sorted(args.panel or [])
-            panel_names = [_panel_label(p) for p in panel_files]
-            panel_lists = [read_panel_file(p) for p in panel_files]
-        p_count = max(1, len(panel_lists))
-        pair_list = [(i, j) for i in range(len(panel_lists))
-                     for j in range(i + 1, len(panel_lists))]
-        pair_key = tuple(pair_list)
-        with_pairs = bool(pair_list)
-        pair_a_np = np.asarray([i for i, _ in pair_list] or [0], np.int32)
-        pair_b_np = np.asarray([j for _, j in pair_list] or [0], np.int32)
-        thr = float(args.threshold)
-
-        with span("setup.journal"):
-            journal = ResultJournal(args.journal)
-
-        use_weights = args.identity_mode == "columns"
-        want_ehh = bool(args.ehh)
-        want_afs = bool(args.afs)
-        afs_bins = args.afs_bins
-        afs_folded = not args.afs_unfolded
-        afs_total = (np.zeros((p_count, afs_bins + 1), np.int64) if want_afs
-                     else None)
-        # a window holding an --ehh-focal position anchors its EHH focal there
-        # instead of at the midpoint
-        ehh_targets = _read_ehh_targets(args.ehh_focal if want_ehh else None)
-        ehh_focal_pos: Dict[str, int] = {}   # region -> genomic position used
-
-        def ehh_focal_index(reg, rs, pos_arr) -> int:
-            """Focal column = the variant nearest the target position; the
-            chosen position is recorded for the output row."""
-            if pos_arr is None or len(pos_arr) == 0:
-                return 0
-            target = (reg.start + reg.end) // 2
-            for pos in ehh_targets.get(reg.chrom, ()):
-                if reg.start <= pos < reg.end:
-                    target = pos
-                    break
-            pos_arr = np.asarray(pos_arr)
-            fi = int(np.argmin(np.abs(pos_arr - target)))
-            ehh_focal_pos[rs] = int(pos_arr[fi])
-            return fi
-
-        @functools.lru_cache(maxsize=64)
-        def masks_for_stems(stems_key: tuple) -> np.ndarray:
-            masks = np.zeros((p_count, len(stems_key)), dtype=bool)
-            for pi_idx, plist in enumerate(panel_lists):
-                matched, _ = expand_population(plist, list(stems_key))
-                for k, nm in enumerate(stems_key):
-                    if nm in matched:
-                        masks[pi_idx, k] = True
-            return masks
-
-        def panel_masks_for(names_key: tuple) -> np.ndarray:
-            # panel prefixes never reach into the ":start-end" range suffix of
-            # extracted names, so one cache entry serves a contiguous scan
-            return masks_for_stems(tuple(n.split(":", 1)[0]
-                                         for n in names_key))
-
-        # The native path's masks by row set, cached for the call (the build
-        # worker is their only user).  A row set's key is the target and the
-        # window's name blob with its reference row, the whole line equal to
-        # its region string, blanked to a NUL line, which no name holds.  Two
-        # windows of one key hold the same names at the same sorted positions
-        # but that row, whose stem the target fixes, and membership is a
-        # prefix test on the stem: their masks are equal.
-        def row_set_key(tgt: str, blob: bytes, rs: str) -> Tuple[str, bytes]:
-            ref = rs.encode()
-            at = (b"\n" + blob).find(b"\n" + ref + b"\n")
-            if at >= 0:
-                blob = blob[:at] + b"\0" + blob[at + len(ref):]
-            return tgt, blob
-
-        @functools.lru_cache(maxsize=64)
-        def row_set_masks(key: Tuple[str, bytes]) -> np.ndarray:
-            tgt, blob = key
-            names = blob.decode().splitlines()
-            if "\0" in names:
-                names[names.index("\0")] = tgt
-            return panel_masks_for(tuple(names))
-
-        header = ["REGION", "LENGTH", "SAMPLES", "SEGREGATING_SITES"]
-        if panel_lists:
-            for name in panel_names:
-                header += [f"PI_{name}", f"TAJD_{name}"]
-            for i, j in pair_list:
-                header += [f"FST_{panel_names[i]}_{panel_names[j]}",
-                           f"FSTG_{panel_names[i]}_{panel_names[j]}",
-                           f"FST3_{panel_names[i]}_{panel_names[j]}"]
-        else:
-            header += ["PI", "TAJIMAS_D"]
-        if want_ehh:
-            header += ["EHH_FOCAL", "EHH_AREA_REF", "EHH_CARR_REF",
-                       "EHH_AREA_ALT", "EHH_CARR_ALT"]
-        lay = row_layout(p_count, len(pair_list), want_ehh)
-
-        def disjoint_of(panels: np.ndarray) -> bool:
-            return with_pairs and not bool(
-                (panels[:, pair_a_np] & panels[:, pair_b_np]).any())
-
-    out = _out_stream(args.output)
-    try:
-        print("\t".join(header), file=out)
-        pending: List[Tuple[object, str]] = []
-        for reg in regions:
-            rs = reg.region_string(args.prefix)
-            rec = journal.get(rs)
-            if rec is not None and "row" in rec:
-                print(rec["row"], file=out)
-                if want_afs:
-                    sparse = rec.get("afs")
-                    if sparse is None:
-                        _warn(f"Warning: journal row for {rs} predates "
-                              "--afs; spectrum will miss it")
-                    else:
-                        for pk, c in sparse.items():
-                            pi_idx, k = map(int, pk.split(":"))
-                            afs_total[pi_idx, k] += int(c)
-                continue
-            pending.append((reg, rs))
-
-        batch_size = args.batch
-        cap_hint = [64, 128]  # [n, s] shape floors, grown per chunk
-
-        def load_chunk(chunk):
-            tiles, kept, failures = [], [], []
-            for reg, rs in chunk:
-                try:
-                    if geno_src is not None:
-                        g, names, keys = geno_src.load(rs)
-                        g, keys = split_multiallelic(
-                            np.asarray(g, np.int8), keys)
-                    else:
-                        wm = extractor.extract(rs.rsplit(":", 1)[0],
-                                               reg.start, reg.end)
-                        g, names, keys = wm.geno, wm.names, wm.site_keys
-                except Exception as e:  # per-window skip-and-record
-                    failures.append((rs, str(e)))
-                    continue
-                order = np.argsort(names)
-                tiles.append((np.asarray(g, np.int8)[order],
-                              [names[i] for i in order], keys))
-                kept.append((reg, rs))
-            return tiles, kept, failures
-
-        def extract_native(chunk, batch):
-            """One C++ call per target-contiguous window group; returns open
-            native batch handles the build worker packs from."""
-            with span("extract", batch=batch):
-                groups: List[Tuple[str, list]] = []
-                for reg, rs in chunk:
-                    tgt = rs.rsplit(":", 1)[0]
-                    if groups and groups[-1][0] == tgt:
-                        groups[-1][1].append((reg, rs))
-                    else:
-                        groups.append((tgt, [(reg, rs)]))
-                batches = [
-                    extractor.extract_batch_open(
-                        tgt, [(reg.start, reg.end) for reg, _ in items])
-                    for tgt, items in groups
-                ]
-            return groups, batches
-
-        def prepare_native(extracted, n_chunks, dev, batch):
-            """Wire-pack straight from the native batches' memory + H2D to
-            ``dev``."""
-            groups, batches = extracted
-            with span("build", batch=batch, cpu=True):
-                failures, kept, rows = [], [], []
-                for gi, ((_tgt, items), nb) in enumerate(zip(groups,
-                                                            batches)):
-                    for k, (reg, rs) in enumerate(items):
-                        if nb.errors[k]:
-                            failures.append((rs, nb.errors[k]))
-                        else:
-                            kept.append((reg, rs))
-                            rows.append((gi, k))
-                if not kept:
-                    for nb in batches:
-                        nb.close()
-                    return None, kept, failures, False, (0, 0)
-                n_max = max(max((n for n, _ in nb.dims), default=1)
-                            for nb in batches)
-                s_max = max(max((s for _, s in nb.dims), default=1)
-                            for nb in batches)
-                cap_n = _capacity_for([max(cap_hint[0], n_max)])
-                cap_s = ((max(cap_hint[1], s_max, 128) + 127) // 128) * 128
-                cap_hint[0] = max(cap_hint[0], cap_n)
-                cap_hint[1] = max(cap_hint[1], cap_s)
-                w = batch_size if n_chunks > 1 else len(kept)
-                blay = _scan_buf_layout(cap_n, cap_s, p_count, use_weights,
-                                        want_ehh)
-                flat = np.zeros((w, blay["total"]), np.uint8)
-                row_of = {key: wi for wi, key in enumerate(rows)}
-                with span("build.pack"):
-                    for gi, nb in enumerate(batches):
-                        nb.pack_into(
-                            flat, [row_of.get((gi, k), -1)
-                                   for k in range(nb.count)],
-                            cap_n, cap_s, blay["m"], blay["sm"],
-                            blay["w"] if use_weights else -1)
-                panels = np.zeros((w, p_count, cap_n), bool)
-                lengths = np.zeros(w, np.uint32)
-                lengths[:len(kept)] = [reg.length for reg, _ in kept]
-                focals = np.zeros(w, np.uint32)
-                by_row_set: dict = {}   # key -> buffer rows
-                for wi, ((gi, k), (reg, rs)) in enumerate(zip(rows, kept)):
-                    nb = batches[gi]
-                    if want_ehh:
-                        focals[wi] = ehh_focal_index(reg, rs, nb.site_pos(k))
-                    if not panel_lists:
-                        panels[wi, 0, :nb.dims[k][0]] = True
-                        continue
-                    key = row_set_key(groups[gi][0], nb.names_blob(k), rs)
-                    by_row_set.setdefault(key, []).append(wi)
-                if panel_lists:
-                    misses = row_set_masks.cache_info().misses
-                    for key, wis in by_row_set.items():
-                        m = row_set_masks(key)
-                        panels[np.asarray(wis), :, :m.shape[1]] = m
-                    resolved = row_set_masks.cache_info().misses - misses
-                    count("masks.resolved_windows", resolved)
-                    count("masks.cached_windows", len(kept) - resolved)
-                for nb in batches:
-                    nb.close()
-                flat[:, blay["p"]:blay["l"]] = np.packbits(
-                    panels, axis=-1, bitorder="little").reshape(w, -1)
-                flat[:, blay["l"]:blay["l"] + 4] = (
-                    lengths.astype("<u4").view(np.uint8).reshape(w, 4))
-                if want_ehh:
-                    flat[:, blay["f"]:blay["f"] + 4] = (
-                        focals.astype("<u4").view(np.uint8).reshape(w, 4))
-                disjoint = disjoint_of(panels)
-            with span("h2d", batch=batch):
-                wire = deal_wire(flat, dev)
-            return wire, kept, failures, disjoint, (cap_n, cap_s)
-
-        def prepare_tiles(extracted, n_chunks, dev, batch):
-            """Pad + fused pack + H2D to ``dev`` for tiles from
-            --geno-dir/--gfa-dir or the per-window extractor; padding
-            windows are all-zero rows (no members, length 0) and come out
-            inert."""
-            tiles, kept, failures = extracted
-            if not tiles:
-                return None, kept, failures, False, (0, 0)
-            with span("build", batch=batch, cpu=True):
-                cap_n = _capacity_for([t0.shape[0] for t0, *_ in tiles])
-                cap_s = max(128, max(t0.shape[1] for t0, *_ in tiles))
-                cap_s = ((cap_s + 127) // 128) * 128
-                w = batch_size if n_chunks > 1 else len(tiles)
-                geno = np.full((w, cap_n, cap_s), -1, dtype=np.int8)
-                member = np.zeros((w, cap_n), bool)
-                smask = np.zeros((w, cap_s), bool)
-                panels = np.zeros((w, p_count, cap_n), bool)
-                lengths = np.zeros(w, np.float32)
-                wts = np.ones((w, cap_s), np.float32)
-                focals = np.zeros(w, np.uint32) if want_ehh else None
-                for wi, ((g, names, keys), (reg, rs)) in enumerate(
-                        zip(tiles, kept)):
-                    n, s = g.shape
-                    geno[wi, :n, :s] = g
-                    member[wi, :n] = True
-                    smask[wi, :s] = True
-                    lengths[wi] = reg.length
-                    if use_weights and keys is not None:
-                        wts[wi, :s] = site_weights_from_keys(keys)
-                    if want_ehh:
-                        pos = ([int(k.split(":", 1)[0]) for k in keys]
-                               if keys is not None else None)
-                        focals[wi] = ehh_focal_index(reg, rs, pos)
-                    if panel_lists:
-                        panels[wi, :, :n] = panel_masks_for(tuple(names))
-                    else:
-                        panels[wi, 0, :n] = True
-                disjoint = disjoint_of(panels)
-                flat = pack_scan_batch(geno, member, smask, panels, lengths,
-                                       wts, use_weights, focals)
-            with span("h2d", batch=batch):
-                wire = deal_wire(flat, dev)
-            return wire, kept, failures, disjoint, (cap_n, cap_s)
-
-        native_path = (geno_src is None and extractor is not None
-                       and hasattr(extractor, "extract_batch_open"))
-
-        def extract_stage(chunk, batch):
-            if native_path:
-                return extract_native(chunk, batch)
-            with span("extract", batch=batch):
-                return load_chunk(chunk)
-
-        def prepare_stage(fx, k):
-            """Chunk k, whole, goes to device k mod D: the deal depends on
-            the chunk's index alone, not on thread timing."""
-            prep = prepare_native if native_path else prepare_tiles
-            return prep(fx.result(), len(chunks), devs[k % len(devs)], k)
-
-        # two-stage host pipeline: chunk k+1 extracts on one worker while
-        # chunk k packs + copies on the other and the devices compute the
-        # chunks before it; at least two prepared batches, and one per
-        # device, are in flight
-        chunks = [pending[lo:lo + batch_size]
-                  for lo in range(0, len(pending), batch_size)]
-        pool_x = futures.ThreadPoolExecutor(
-            max_workers=1, initializer=timers.bind, initargs=("extract",))
-        pool_b = futures.ThreadPoolExecutor(
-            max_workers=1, initializer=timers.bind, initargs=("build",))
-        inflight: collections.deque = collections.deque()  # (k, future)
-        next_submit = 0
-        depth = max(2, len(devs))
-
-        def top_up():
-            nonlocal next_submit
-            while next_submit < len(chunks) and len(inflight) < depth:
-                fx = pool_x.submit(extract_stage, chunks[next_submit],
-                                   next_submit)
-                inflight.append((next_submit, pool_b.submit(
-                    prepare_stage, fx, next_submit)))
-                next_submit += 1
-
-        n_done = n_failed = 0
-
-        def exact_fstg(packed, kept, wire, caps, k):
-            """Windows flagged seed_risk re-run their grouped Fst through
-            the exact first-found-pair program, on their batch's device;
-            only their FSTG changes."""
-            if not with_pairs:
-                return packed
-            risk = np.nonzero(packed[:len(kept), lay["risk"]] > 0)[0]
-            if risk.size == 0:
-                return packed
-            with span("device.exact", batch=k), on_device(wire.device):
-                exact = scan_step_fstg_exact(
-                    wire, caps[0], caps[1], p_count, pair_key, thr,
-                    rows=[int(r) for r in risk], use_weights=use_weights,
-                    use_ehh=want_ehh).cpu().numpy()
-            packed = packed.copy()
-            packed[risk, lay["fstg"]:lay["f3"]] = exact
-            return packed
-
-        def drain(metas):
-            """Emit a group's batches in chunk order; rows past a batch's
-            kept windows (the padding of a short last chunk) are never
-            read."""
-            nonlocal n_done
-            for k, began, (host, done), kept_b, wire_b, caps_b in metas:
-                with span("fetch", batch=k):
-                    if done is not None:
-                        done.synchronize()        # the barrier
-                        count("step.gpu_ns",
-                              round(began.elapsed_time(done) * 1e6))
-                    packed_b = host.numpy()
-                packed_b = exact_fstg(packed_b, kept_b, wire_b, caps_b, k)
-                with span("emit", batch=k):
-                    timers.add_windows(len(kept_b))
-                    emit_batch(packed_b, kept_b, lay, panel_names, pair_list,
-                               out, journal,
-                               ehh_focal_pos if want_ehh else None,
-                               afs_total, args.log_dir, args.threshold)
-                n_done += len(kept_b)
-
-        # grouped drains: each batch's rows are copied to the host from its
-        # own device as soon as its step is queued (no tensor moves between
-        # devices); every drain_group batches the host waits for and emits
-        # the group before, so the devices compute while it drains
-        drain_group = max(1, int(args.drain_group or 4))
-        group: list = []    # [(k, began, (host, done), kept, wire, caps)]
-        pending_out = None      # the group before, drained next
-
-        def flush_group():
-            nonlocal pending_out, group
-            if not group:
-                return
-            if pending_out is not None:
-                drain(pending_out)
-            pending_out, group = group, []
-
-        with device_trace(args.profile_dir, timers):
-            try:
-                top_up()
-                while inflight:
-                    k, prepared = inflight.popleft()
-                    with span("wait_input", batch=k):
-                        (wire, kept, failures, disjoint,
-                         caps) = prepared.result()
-                    top_up()
-                    for rs, err in failures:
-                        _warn(f"Warning: {rs}: {err}; recording NA")
-                        journal.record_failure(rs, err)
-                        n_failed += 1
-                    if wire is None:
-                        continue
-                    with span("device", batch=k, cpu=True), \
-                            on_device(wire.device):
-                        began = step_event(wire.device)
-                        out_dev = scan_step(
-                            wire, caps[0], caps[1], p_count, pair_key, thr,
-                            disjoint, use_weights, want_ehh, want_afs,
-                            afs_bins, afs_folded)
-                        fetched = rows_to_host(out_dev)
-                    group.append((k, began, fetched, kept, wire, caps))
-                    if len(group) >= drain_group:
-                        flush_group()
-                flush_group()
-                if pending_out is not None:
-                    drain(pending_out)
-            finally:
-                pool_x.shutdown(wait=True, cancel_futures=True)
-                pool_b.shutdown(wait=True, cancel_futures=True)
-        if native_stats is not None:
-            for key, v in native_stats().items():
-                if key.startswith("extract."):
-                    count(key, v)
-        _print_counters(n_done, n_failed)
-    finally:
-        if out is not sys.stdout:
-            out.close()
-    if want_afs:
-        _write_afs(args.afs, afs_total, panel_names)
-        _warn(f"wrote genome-wide spectrum -> {args.afs}")
-    if args.verbose_timing:
-        _warn(timers.report())
-    if args.timing_json:
-        import json
-
-        with open(args.timing_json, "w") as fh:
-            json.dump(timers.to_json(), fh)
-    if args.distributed:
-        finalize()
-    return 0
+        return scanrun.run(args, timers)
 
 
 def _tajd_log(args, rs, length, n_val, s_val, pi_val, d_val, **extra):

@@ -10,8 +10,10 @@ one-device result:
 2. ``site_sharded_window_stats`` on the whole grid against a (1, 1) grid;
 3. ``pair_sharded_direct_stats`` over ``data`` against
    ``stats.fst.hudson_fst_direct_pairs`` on the full identity;
-4. the scan's device step over ``data`` (``scanstep.scan_step_over``)
-   against ``scan_step`` on one device.
+4. the scan's batches dealt over ``data`` as the scan deals them (batch
+   k to entry k mod D: ``scanstep.deal_wire``, ``scan_step``,
+   ``rows_to_host``) against ``scan_step`` on the whole batch on one
+   device.
 
 On CUDA tensors these dispatch the real kernels (seed peel, masked sums,
 unit identity, window kernel), not a plain twin.  Tolerances: integers
@@ -76,8 +78,8 @@ def dryrun_multidevice(n_devices: int, device) -> dict:
     from impop_tpu_torch.parallel.pairspace import pair_sharded_direct_stats
     from impop_tpu_torch.parallel.scan import (WindowBatch, batch_hudson,
                                                batch_over)
-    from impop_tpu_torch.scanstep import (scan_step, scan_step_over,
-                                          shard_wire)
+    from impop_tpu_torch.device import on_device
+    from impop_tpu_torch.scanstep import deal_wire, rows_to_host, scan_step
     from impop_tpu_torch.stats.allele import (identity_from_alleles,
                                               segregating_sites)
     from impop_tpu_torch.stats.fst import hudson_fst_direct_pairs
@@ -152,7 +154,7 @@ def dryrun_multidevice(n_devices: int, device) -> dict:
         _close("pair shard fst", got[3], ref.fst, atol=FST_ATOL),
         _close("pair shard S", got[4], want_s, exact=True))
 
-    # 4: the scan's device step over data
+    # 4: the scan's batches of two windows dealt over data
     cap_n, cap_s, p3 = 64, 128, 3
     geno = np.full((w, cap_n, cap_s), -1, np.int8)
     geno[:, :40, :90] = _geno(rng, (w, 40, 90))
@@ -167,13 +169,21 @@ def dryrun_multidevice(n_devices: int, device) -> dict:
                            np.full(w, 5000, np.uint32), None, False)
     pair_key = ((0, 1), (0, 2), (1, 2))
     step_args = (cap_n, cap_s, p3, pair_key, 0.999, True)
-    got = scan_step_over(shard_wire(flat, mesh.axis_devices("data")),
-                         *step_args, n_rows=w)
+    entries = mesh.axis_devices("data")
+    fetched = []
+    for k, lo in enumerate(range(0, w, 2)):
+        entry = entries[k % len(entries)]
+        wire = deal_wire(flat[lo:lo + 2], entry)
+        with on_device(entry):
+            fetched.append(rows_to_host(scan_step(wire, *step_args)))
+    for _, done in fetched:
+        if done is not None:
+            done.synchronize()
+    got = torch.cat([host for host, _ in fetched])
     want = scan_step(torch.from_numpy(flat).to(dev), *step_args)
     # every column at once: rtol 1e-5 with atol 2e-3 holds integers exact
     # (they differ by 1 or not at all) and Fst within its budget
-    report["scan_step_over"] = _close("scan step rows", got, want,
-                                      atol=FST_ATOL)
-    report["scan_step_over bitwise"] = bool(torch.equal(
+    report["scan_deal"] = _close("scan step rows", got, want, atol=FST_ATOL)
+    report["scan_deal bitwise"] = bool(torch.equal(
         got.cpu().nan_to_num(7.0), want.cpu().nan_to_num(7.0)))
     return report

@@ -7,12 +7,8 @@
   when it opened), its wall in ``time.perf_counter_ns()`` and, where asked
   for, the thread's CPU time over it (``time.thread_time_ns()``).  Every
   span also adds its wall to its stage's total and count.  Stages are
-  host-clock spans: ``device`` times the enqueue of a batch's step,
-  ``fetch`` (the device-to-host copy) is the barrier that waits for it,
-  and the counter ``step.gpu_ns`` sums the step's span on the device's
-  stream, from an event at the enqueue's start to one after the rows'
-  copy: it holds the device's waits for the enqueue, so it is not the
-  device's busy time.
+  host-clock spans: ``device`` times the enqueue of a batch's step, and
+  ``fetch`` (the device-to-host copy) is the barrier that waits for it.
 - :func:`span` / :func:`count` — record into the recorder bound to the
   calling thread (:meth:`StageTimers.bind`), for library code such as the
   scan's step; with no recorder bound they do nothing (tracing off: one

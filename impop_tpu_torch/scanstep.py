@@ -18,16 +18,6 @@ k mod D by :func:`deal_wire` (one host-to-device copy), its step is queued
 there, and :func:`rows_to_host` brings its packed rows back (one
 device-to-host copy).  Each batch costs one host enqueue of the step
 whatever D is, and no tensor moves between devices.
-
-The counterpart of the JAX scan's ``shard_map`` over every local chip
-(``impop_tpu.cli._shard_windows``) stays as a library: :func:`shard_wire`
-splits one wire batch into contiguous row chunks, one per device, padded
-with all-zero rows (no members, length 0: inert); :func:`scan_step_over`
-queues the step of each chunk on its device and gathers the rows back in
-window order on the first device.  In eager PyTorch each chunk costs a
-whole step's host enqueue, so the scan does not split.  No window's
-statistics depend on another's, so either way the rows equal the
-one-device step's.
 """
 from __future__ import annotations
 
@@ -36,7 +26,6 @@ import torch
 
 from impop_tpu_torch.device import on_device
 from impop_tpu_torch.hostio import _scan_buf_layout
-from impop_tpu_torch.parallel.mesh import gather_windows, split_rows
 from impop_tpu_torch.runtime.profiling import count, span
 from impop_tpu_torch.stats.allele import (identity_from_alleles, panel_afs,
                                           segregating_sites)
@@ -46,10 +35,8 @@ from impop_tpu_torch.stats.panelstats import (fused_panel_stats,
                                               fused_window_stats, take)
 from impop_tpu_torch.stats.tajima import tajimas_d
 
-__all__ = ["wire_unpack", "scan_step",
-           "scan_step_fstg_exact", "row_layout", "deal_wire", "rows_to_host",
-           "step_event", "shard_wire", "scan_step_over",
-           "scan_step_fstg_exact_over"]
+__all__ = ["wire_unpack", "scan_step", "scan_step_fstg_exact", "row_layout",
+           "deal_wire", "rows_to_host"]
 
 
 def _bits(seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -219,18 +206,6 @@ def deal_wire(flat: np.ndarray, device: torch.device) -> torch.Tensor:
     return wire.pin_memory().to(device, non_blocking=True)
 
 
-def step_event(device: torch.device):
-    """A timing event recorded now on the current stream of ``device`` (a
-    GPU; None on a CPU): with :func:`rows_to_host`'s event, the step's
-    span on the stream, the device's waits for the host included."""
-    if device.type != "cuda":
-        return None
-    with on_device(device):
-        began = torch.cuda.Event(enable_timing=True)
-        began.record()
-    return began
-
-
 def rows_to_host(out: torch.Tensor):
     """Queue the copy of a step's packed rows to the host: (host tensor,
     event).  On a GPU the copy goes into pinned memory on the current
@@ -245,48 +220,3 @@ def rows_to_host(out: torch.Tensor):
         done = torch.cuda.Event(enable_timing=True)
         done.record()
     return host, done
-
-
-def shard_wire(flat, devices) -> list:
-    """The wire batch [W, K] uint8 (numpy or a tensor) as contiguous row
-    chunks, one on each of ``devices`` (which may repeat), after padding
-    with all-zero rows to a multiple of their count."""
-    if flat.dtype not in (np.uint8, torch.uint8) or flat.ndim != 2:
-        raise ValueError(f"wire batch must be uint8 [W, K], got {flat.dtype} "
-                         f"{tuple(flat.shape)}")
-    return split_rows(flat, list(devices))
-
-
-def scan_step_over(shards, *step_args, n_rows=None) -> torch.Tensor:
-    """:func:`scan_step` (``step_args``: its arguments after the batch) on
-    every chunk of :func:`shard_wire`, each queued on its own device, then
-    the packed rows in window order on the first chunk's device, cut to
-    ``n_rows`` (the batch before padding)."""
-    outs = []
-    for flat in shards:
-        with on_device(flat.device):
-            outs.append(scan_step(flat, *step_args))
-    return gather_windows(outs, n_rows)
-
-
-def scan_step_fstg_exact_over(shards, cap_n: int, cap_s: int, p_count: int,
-                              pair_key: tuple, threshold: float, rows,
-                              use_weights: bool = False,
-                              use_ehh: bool = False) -> torch.Tensor:
-    """:func:`scan_step_fstg_exact` for the windows ``rows`` (ascending
-    indices into the batch before padding) of a batch split by
-    :func:`shard_wire`: each chunk's rows on its device, the results in
-    the order of ``rows`` on the first chunk's device."""
-    rows = [int(r) for r in rows]
-    if rows != sorted(rows):
-        raise ValueError("scan_step_fstg_exact_over: rows must ascend")
-    size = shards[0].shape[0]
-    outs = []
-    for k, flat in enumerate(shards):
-        local = [r - k * size for r in rows if k * size <= r < (k + 1) * size]
-        if local or (k == 0 and not rows):
-            with on_device(flat.device):
-                outs.append(scan_step_fstg_exact(
-                    flat, cap_n, cap_s, p_count, pair_key, threshold,
-                    rows=local, use_weights=use_weights, use_ehh=use_ehh))
-    return gather_windows(outs)

@@ -1,5 +1,5 @@
 """The native scan path's panel masks, computed once per row set
-(``cli.prepare_native``), against the per-window computation they
+(``scanrun.build_native``), against the per-window computation they
 replace: every wire buffer dealt to the device byte for byte, and the
 ``masks.*`` counters against the row sets the windows hold."""
 from __future__ import annotations

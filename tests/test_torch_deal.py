@@ -10,9 +10,8 @@ windows goes, whole, to entry k mod 3.
   recompute, and a short last chunk whose padding row is dropped) and on
   the PAF extractor.
 - Entry i gets exactly the chunks k with k = i mod 3: each dealt wire
-  batch is stepped once (``scan_step``), the exact recompute runs on the
-  batch's own wire, and the scan calls none of ``shard_wire``,
-  ``scan_step_over`` or ``scan_step_fstg_exact_over``.
+  batch is stepped once (``scan_step``), and the exact recompute runs on
+  the batch's own wire.
 - The table stays within ``tests/test_torch_cli.py``'s budget of the JAX
   ``scan`` (integers exact, π / D / EHH areas rtol 1e-5, Fst atol 2e-3)
   and the spectrum equals the JAX one byte for byte.
@@ -117,8 +116,8 @@ def paf_source(tmp_path_factory):
 
 class DealSpy:
     """``process_devices`` -> ``n`` distinct CPU entries; records which
-    entry each dealt wire batch went to, the wire of every step and exact
-    recompute, and fails any call of the split functions."""
+    entry each dealt wire batch went to, and the wire of every step and
+    exact recompute."""
 
     def __init__(self, monkeypatch, n):
         self.devs = [torch.device("cpu") for _ in range(n)]
@@ -143,15 +142,9 @@ class DealSpy:
             self.exact.append(flat)
             return real_exact(flat, *args, **kwargs)
 
-        def split(*args, **kwargs):
-            raise AssertionError("the scan split a batch")
-
         monkeypatch.setattr(scanstep, "deal_wire", deal)
         monkeypatch.setattr(scanstep, "scan_step", step)
         monkeypatch.setattr(scanstep, "scan_step_fstg_exact", exact)
-        for name in ("shard_wire", "scan_step_over",
-                     "scan_step_fstg_exact_over"):
-            monkeypatch.setattr(scanstep, name, split)
 
     def check(self, n_chunks):
         assert [i for i, _ in self.dealt] == [k % len(self.devs)

@@ -1,4 +1,4 @@
-"""``cli.emit_batch``, the scan's drain of one batch, against the
+"""``scanrun.emit_batch``, the scan's drain of one batch, against the
 per-window formulas it replaced (``oracle_emit`` below, one window, one
 panel and one spectrum bin at a time): the table's text, the genome-wide
 spectrum, the journal's lines and the window logs, byte for byte."""
@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import pytest
 
-from impop_tpu_torch import cli
+from impop_tpu_torch import scanrun
 from impop_tpu_torch.hostio import _write_window_log
 from impop_tpu_torch.runtime.journal import ResultJournal
 from impop_tpu_torch.scanstep import row_layout
@@ -143,8 +143,9 @@ def test_emit_batch_matches_the_per_window_formulas(tmp_path, panels, ehh,
     got_total = start.copy() if afs else None
     got_out = io.StringIO()
     journal = ResultJournal(str(tmp_path / "got.jsonl"))
-    cli.emit_batch(packed.copy(), kept, lay, names, pairs, got_out, journal,
-                   focal, got_total, str(tmp_path / "got_logs"), 0.999)
+    scanrun.emit_batch(packed.copy(), kept, lay, names, pairs, got_out,
+                       journal, focal, got_total, str(tmp_path / "got_logs"),
+                       0.999)
     assert got_out.getvalue() == want_out.getvalue()
     assert (tmp_path / "got.jsonl").read_bytes() == \
         (tmp_path / "want.jsonl").read_bytes()
@@ -170,8 +171,8 @@ def test_emit_batch_matches_the_per_window_formulas(tmp_path, panels, ehh,
     bare = ResultJournal(None)
     bare_total = start.copy() if afs else None
     bare_out = io.StringIO()
-    cli.emit_batch(packed, kept, lay, names, pairs, bare_out, bare, focal,
-                   bare_total)
+    scanrun.emit_batch(packed, kept, lay, names, pairs, bare_out, bare,
+                       focal, bare_total)
     assert bare_out.getvalue() == want_out.getvalue()
     assert bare._records == {} and all(bare.get(rs) is None
                                        for _, rs in kept)

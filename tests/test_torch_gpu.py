@@ -681,17 +681,16 @@ def test_wrappers_launch_on_their_tensors_device(cuda_device, kernel):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("flags", [(False, False, False), (True, True, True)])
-def test_split_scan_on_repeated_device_matches_one(cuda_device, flags):
-    """scan_step_over on [cuda:0] x 2 (and x 4) gives the rows of one
-    scan_step, bitwise (no kernel mixes windows); after one warm-up the
-    split step makes no synchronising call (torch.cuda sync debug mode
-    "error"): no host read serialises the devices of a split batch.  The
-    exact FSTG recompute of windows in every shard, split, launches its
-    identity kernel and gives the whole batch's values bitwise."""
+def test_dealt_step_makes_no_sync_call(cuda_device, flags):
+    """A wire batch dealt as the scan deals it (``deal_wire``, ``scan_step``
+    and ``rows_to_host`` on [cuda:0] x 2 entries, one chunk each) gives
+    the rows of one ``scan_step`` on the whole batch, bitwise (no kernel
+    mixes windows); after one warm-up the copy, the step and the copy
+    back make no synchronising call (torch.cuda sync debug mode
+    "error")."""
+    from impop_tpu_torch.device import on_device
     from impop_tpu_torch.hostio import pack_scan_batch
-    from impop_tpu_torch.scanstep import (scan_step, scan_step_fstg_exact,
-                                          scan_step_fstg_exact_over,
-                                          scan_step_over, shard_wire)
+    from impop_tpu_torch.scanstep import deal_wire, rows_to_host, scan_step
 
     use_weights, use_ehh, want_afs = flags
     geno, member, smask, pmasks = batch(62, 7, 512, 128, 5, True, False)
@@ -703,30 +702,28 @@ def test_split_scan_on_repeated_device_matches_one(cuda_device, flags):
     pairs = tuple((i, j) for i in range(5) for j in range(i + 1, 5))
     args = (512, 128, 5, pairs, THR, True, use_weights, use_ehh, want_afs,
             512, True)
-    dev0 = torch.device("cuda", 0)
-    one = scan_step(torch.from_numpy(flat).to(dev0), *args)
-    for k in (2, 4):
-        shards = shard_wire(flat, [dev0] * k)
-        got = scan_step_over(shards, *args, n_rows=7)
-        assert torch.equal(got.nan_to_num(9.0), one.nan_to_num(9.0))
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            again = scan_step_over(shards, *args, n_rows=7)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        assert torch.equal(again.nan_to_num(9.0), one.nan_to_num(9.0))
-        rows = [0, 3, 6]                  # in the first and last shards
-        ident = (pairwise_identity_weighted if use_weights
-                 else pairwise_identity)
-        before = ident.launches
-        exact = scan_step_fstg_exact_over(shards, *args[:5], rows,
-                                          use_weights=use_weights,
-                                          use_ehh=use_ehh)
-        assert ident.launches > before
-        want = scan_step_fstg_exact(torch.from_numpy(flat).to(dev0),
-                                    *args[:5], rows=rows,
-                                    use_weights=use_weights, use_ehh=use_ehh)
-        assert torch.equal(exact.nan_to_num(9.0), want.nan_to_num(9.0))
+    entries = [torch.device("cuda", 0), torch.device("cuda", 0)]
+    one = scan_step(torch.from_numpy(flat).to(entries[0]), *args).cpu()
+
+    def dealt():
+        fetched = []
+        for k, lo in enumerate((0, 4)):
+            wire = deal_wire(flat[lo:lo + 4], entries[k % 2])
+            with on_device(entries[k % 2]):
+                fetched.append(rows_to_host(scan_step(wire, *args)))
+        return fetched
+
+    dealt()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fetched = dealt()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _, done in fetched:
+        done.synchronize()
+    got = torch.cat([host for host, _ in fetched])
+    assert torch.equal(got.nan_to_num(9.0), one.nan_to_num(9.0))
 
 
 @pytest.mark.gpu
@@ -737,7 +734,7 @@ def test_dryrun_multidevice_on_card(cuda_device):
 
     peel, sums = seed_peel.launches, masked_pair_sums.launches
     report = dryrun_multidevice(8, "cuda:0")
-    assert report["scan_step_over bitwise"] is True
+    assert report["scan_deal bitwise"] is True
     assert seed_peel.launches > peel and masked_pair_sums.launches > sums
 
 

@@ -22,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "impop_tpu_torch", "impop_tpu_torch.cli", "impop_tpu_torch.device",
     "impop_tpu_torch.hostio", "impop_tpu_torch.hostcmds",
-    "impop_tpu_torch.scanstep",
+    "impop_tpu_torch.scanstep", "impop_tpu_torch.scanrun",
     "impop_tpu_torch.io", "impop_tpu_torch.io.bed", "impop_tpu_torch.io.bgzf",
     "impop_tpu_torch.io.panels", "impop_tpu_torch.io.simtsv",
     "impop_tpu_torch.extract", "impop_tpu_torch.extract.agc",

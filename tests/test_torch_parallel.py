@@ -18,9 +18,9 @@ split, pad, gather and reduction runs here).  Compared:
   rtol 1e-6) and the JAX function per window;
 - ``host_window_range`` over the partition grid of
   ``tests/test_distributed.py``;
-- ``scanstep.scan_step_over`` on ``[cpu] x 3`` against ``scan_step`` on the
-  CPU (7 windows: the padding path) and against the JAX step sharded
-  over 3 devices; the exact FSTG recompute likewise.
+- ``dryrun_multidevice`` on grids of 2 and 8 entries: every path above
+  and the scan's batches dealt over the ``data`` entries against one
+  device.
 
 Tolerances: integers exact (S, n, num_groups, pairs, AFS bins, EHH
 carriers), π / Dxy / EHH areas rtol 1e-5, Fst and D atol 2e-3; one device
@@ -348,62 +348,15 @@ def test_take_matches_list_indexing(idx):
     assert torch.equal(take(x, last, -1), x[..., last])
 
 
-# ------------------------------------------------------------- scan step
-
-
-@pytest.mark.parametrize("use_weights,use_ehh,want_afs", [
-    (False, False, False), (True, True, True)])
-def test_scan_step_over_matches_one_device_and_jax(use_weights, use_ehh,
-                                                   want_afs):
-    from impop_tpu.cli import _scan_step
-    from impop_tpu_torch.scanstep import scan_step, scan_step_over, shard_wire
-    from test_torch_scanstep import assert_rows, batch
-
-    flat, _, pairs = batch(7, w=7, n=64, s=64, n_mem=50, p=3,
-                           use_weights=use_weights, use_ehh=use_ehh)
-    args = (64, 64, 3, pairs, THR, True, use_weights, use_ehh, want_afs,
-            64, True)
-    shards = shard_wire(flat, cpus(3))
-    assert [s.shape[0] for s in shards] == [3, 3, 3]
-    assert not shards[-1][1:].any()       # the padding rows are zero
-    got = scan_step_over(shards, *args, n_rows=7)
-    one = scan_step(torch.from_numpy(flat), *args)
-    assert got.shape == one.shape
-    assert torch.equal(got.nan_to_num(9.0), one.nan_to_num(9.0))
-    devs = tuple(jax.devices()[:3])
-    step = _scan_step(64, 64, 3, pairs, THR, use_weights, want_afs, 64, True,
-                      True, devs, use_ehh)
-    padded = np.concatenate([flat, np.zeros((2, flat.shape[1]), np.uint8)])
-    want = np.asarray(step(padded))[:7]
-    assert_rows(got.numpy(), want, 3, len(pairs), use_ehh)
-
-
-def test_fstg_exact_over_matches_one_device():
-    from impop_tpu_torch.scanstep import (scan_step_fstg_exact,
-                                          scan_step_fstg_exact_over,
-                                          shard_wire)
-    from test_torch_scanstep import batch
-
-    flat, _, pairs = batch(11, w=7, n=64, s=64, n_mem=50, p=3,
-                           partial=True)
-    shards = shard_wire(flat, cpus(3))
-    rows = [0, 2, 4, 5]                   # in shards 0, 0, 1, 1
-    got = scan_step_fstg_exact_over(shards, 64, 64, 3, pairs, THR, rows)
-    want = scan_step_fstg_exact(torch.from_numpy(flat), 64, 64, 3, pairs,
-                                THR, rows=rows)
-    assert torch.equal(got.nan_to_num(9.0), want.nan_to_num(9.0))
-    assert scan_step_fstg_exact_over(shards, 64, 64, 3, pairs, THR,
-                                     []).shape == (0, len(pairs))
-    with pytest.raises(ValueError, match="ascend"):
-        scan_step_fstg_exact_over(shards, 64, 64, 3, pairs, THR, [4, 0])
+# ---------------------------------------------------------------- dry run
 
 
 @pytest.mark.parametrize("n_devices", [2, 8])
 def test_dryrun_multidevice_cpu(n_devices):
     report = dryrun_multidevice(n_devices, "cpu")
     assert set(report) == {"batch_hudson", "site_sharded_window_stats",
-                           "pair_sharded_direct_stats", "scan_step_over",
-                           "scan_step_over bitwise"}
-    assert report["scan_step_over bitwise"] is True
+                           "pair_sharded_direct_stats", "scan_deal",
+                           "scan_deal bitwise"}
+    assert report["scan_deal bitwise"] is True
     with pytest.raises(ValueError, match="even"):
         dryrun_multidevice(3, "cpu")

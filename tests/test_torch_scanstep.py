@@ -16,9 +16,8 @@ import torch
 
 from impop_tpu.cli import (_scan_step, _scan_step_fstg_exact,
                            pack_scan_batch)
-from impop_tpu_torch.scanstep import (row_layout, shard_wire,
-                                      scan_step, scan_step_fstg_exact,
-                                      wire_unpack)
+from impop_tpu_torch.scanstep import (deal_wire, row_layout, scan_step,
+                                      scan_step_fstg_exact, wire_unpack)
 
 torch.set_num_threads(1)
 THR = 0.999
@@ -26,7 +25,7 @@ THR = 0.999
 
 def on_cpu(flat):
     """The wire batch as the scan hands it to the step on one device."""
-    return shard_wire(flat, [torch.device("cpu")])[0]
+    return deal_wire(flat, torch.device("cpu"))
 
 
 def one_device():
