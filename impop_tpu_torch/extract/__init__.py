@@ -1,12 +1,14 @@
 """Python interface to the native extraction layer (the port's copy of
-``impop_tpu/extract/__init__.py``; only the build of the library differs).
+``impop_tpu/extract/__init__.py``; only the build of the library and the
+batch metadata calls of :class:`NativeBatch` differ).
 
 The C++ library (cpp/) replaces the capabilities the reference consumes from
 impg / odgi / povu (SURVEY.md §2.2): PAF+CIGAR window projection over a FASTA
 sequence store, producing the haplotype-by-site allele matrices that feed the
 statistics.  Binding is ctypes over a plain C ABI.
 
-The library is built from the repository's ``cpp/*.cc`` at first use, by
+The library is built from the repository's ``cpp/*.cc`` and the port's own
+``batchmeta.cc`` (beside this file) at first use, by
 :func:`library_path`, with the system ``g++`` and the flags of
 ``cpp/Makefile``, into ``impop_tpu_torch/_build/`` under a name keyed by a
 hash of the sources and the flags.  It never inherits ``$CXX`` (a toolchain
@@ -33,7 +35,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,6 +43,7 @@ __all__ = ["WindowMatrix", "NativeExtractor", "load_library", "library_path", "S
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CPP_DIR = os.path.join(_REPO_ROOT, "cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 _CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread"]
 _LDFLAGS = ["-shared", "-lz", "-pthread"]
@@ -58,7 +61,9 @@ class WindowMatrix(NamedTuple):
 
 
 def _cpp_sources() -> List[str]:
-    return sorted(glob.glob(os.path.join(_CPP_DIR, "*.cc")))
+    """``cpp/*.cc``, then the port's sources beside this file."""
+    return (sorted(glob.glob(os.path.join(_CPP_DIR, "*.cc")))
+            + sorted(glob.glob(os.path.join(_HERE, "*.cc"))))
 
 
 def _flags(sanitize: Optional[str]):
@@ -87,8 +92,8 @@ def _lib_target(sanitize: Optional[str] = None) -> str:
 
 def library_path(sanitize: Optional[str] = None) -> str:
     """The native library (``sanitize``: that instrumented variant), built
-    from ``cpp/*.cc`` when it is not built yet (one ``g++ -c`` per source,
-    all at once, then one link; the library is renamed into place only
+    from :func:`_cpp_sources` when it is not built yet (one ``g++ -c`` per
+    source, all at once, then one link; the library is renamed into place only
     when every step succeeded).  Raises on a failed build."""
     target = _lib_target(sanitize)
     if os.path.exists(target):
@@ -191,9 +196,23 @@ def load_library(rebuild: bool = False,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int,
     ]
+    lib.ix_batch_row_sets.restype = ctypes.c_longlong
+    lib.ix_batch_row_sets.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.ix_batch_nearest_sites.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+    ]
     lib.ix_batch_free.argtypes = [ctypes.c_void_p]
     _libs[sanitize] = lib
     return lib
+
+
+def _ll_ptr(arr: np.ndarray):
+    """A contiguous int64 array as a ``long long*``."""
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong))
 
 
 class NativeBatch:
@@ -240,6 +259,48 @@ class NativeBatch:
                 res, out.ctypes.data_as(
                     ctypes.POINTER(ctypes.c_longlong)))
         return out[:s]
+
+    def row_sets(self, regions: Sequence[str]) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+        """The windows grouped by row set (ix_batch_row_sets of
+        ``batchmeta.cc``): two windows share one when their name blobs are
+        equal with each one's reference row, its first name equal to its
+        region string ``regions[i]``, blanked in place, as
+        ``scanrun.PanelMasks.row_set_key`` keys them.  Returns
+        ``(set_of, first)``: the set of each window (-1 for a failed one)
+        and the first window of each set, sets in their first window's
+        order."""
+        if len(regions) != self.count:
+            raise ValueError(f"{len(regions)} region strings for "
+                             f"{self.count} windows")
+        if not self.count:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        c_regions = (ctypes.c_char_p * self.count)(
+            *[rs.encode() for rs in regions])
+        set_of = np.empty(self.count, np.int64)
+        first = np.empty(self.count, np.int64)
+        n_sets = self._lib.ix_batch_row_sets(
+            self._handle, self.count, c_regions, _ll_ptr(set_of),
+            _ll_ptr(first))
+        return set_of, first[:n_sets]
+
+    def nearest_sites(self, targets: np.ndarray) -> Tuple[np.ndarray,
+                                                          np.ndarray]:
+        """For each window, the index of the site nearest ``targets[i]``
+        (the first of equally near sites, as ``np.argmin``) and that site's
+        position (ix_batch_nearest_sites); -1 and -1 for a window without
+        sites or a failed one."""
+        targets = np.ascontiguousarray(targets, np.int64)
+        if targets.shape != (self.count,):
+            raise ValueError(f"targets of shape {targets.shape} for "
+                             f"{self.count} windows")
+        index = np.full(self.count, -1, np.int64)
+        pos = np.full(self.count, -1, np.int64)
+        if self.count:
+            self._lib.ix_batch_nearest_sites(
+                self._handle, self.count, _ll_ptr(targets), _ll_ptr(index),
+                _ll_ptr(pos))
+        return index, pos
 
     def pack_into(self, flat: np.ndarray, out_rows, cap_n: int, cap_s: int,
                   o_m: int, o_sm: int, o_w: int = -1,

@@ -128,7 +128,9 @@ class PanelMasks:
     reference row, the whole line equal to its region string, blanked to a
     NUL line, which no name holds.  Two windows of one key hold the same
     names at the same sorted positions but that row, whose stem the target
-    fixes, so their masks are equal."""
+    fixes, so their masks are equal.  :meth:`panels_native` groups a
+    native batch's windows by that key in one call (``NativeBatch.
+    row_sets``) and builds the key of each set's first window alone."""
 
     def __init__(self, panel_lists: Sequence[list]):
         self.panel_lists = list(panel_lists)
@@ -163,19 +165,38 @@ class PanelMasks:
             names[names.index("\0")] = target
         return self.for_names(tuple(names))
 
-    def fill_row_sets(self, panels: np.ndarray,
-                      rows_by_key: Dict[Tuple[str, bytes], List[int]],
-                      n_windows: int) -> None:
-        """``panels[rows, :, :n]`` = each row set's masks, one lookup a
-        row set; counts ``masks.resolved_windows`` (row sets not in the
-        table) and ``masks.cached_windows`` (the other windows)."""
+    def panels_native(self, groups, batches, out_rows: Sequence[np.ndarray],
+                      w: int, cap_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The masks of open native batches' windows (``groups`` and
+        ``out_rows`` as :func:`_kept_rows` gives them): ``(panels [w, P,
+        cap_n], set_panels [S, P, cap_n])``, each buffer row the masks of
+        its row set, the padding rows all-zero.  One ``NativeBatch.
+        row_sets`` call a batch, one name blob, key and lookup a row set
+        (the sets of one target in two batches share their key), one
+        gather for the rows.  Counts ``build.row_sets`` (the S sets),
+        ``masks.resolved_windows`` (sets not in the table) and
+        ``masks.cached_windows`` (the other windows)."""
+        set_ids: Dict[Tuple[str, bytes], int] = {}
+        set_row = np.full(w, -1, np.int64)
+        for (tgt, items), nb, rows in zip(groups, batches, out_rows):
+            set_of, first = nb.row_sets([rs for _, rs in items])
+            ids = np.array([set_ids.setdefault(
+                self.row_set_key(tgt, nb.names_blob(f), items[f][1]),
+                len(set_ids)) for f in first.tolist()], np.int64)
+            ok = rows >= 0
+            set_row[rows[ok]] = ids[set_of[ok]]
         misses = self.for_row_set.cache_info().misses
-        for key, rows in rows_by_key.items():
+        # one all-zero set past the last, which the padding rows (-1) take
+        set_panels = np.zeros((len(set_ids) + 1, len(self.panel_lists),
+                               cap_n), bool)
+        for key, k in set_ids.items():
             m = self.for_row_set(key)
-            panels[np.asarray(rows), :, :m.shape[1]] = m
+            set_panels[k, :, :m.shape[1]] = m
         resolved = self.for_row_set.cache_info().misses - misses
+        count("build.row_sets", len(set_ids))
         count("masks.resolved_windows", resolved)
-        count("masks.cached_windows", n_windows - resolved)
+        count("masks.cached_windows", int((set_row >= 0).sum()) - resolved)
+        return set_panels[set_row], set_panels[:-1]
 
 
 def _read_ehh_targets(path: Optional[str]) -> Dict[str, list]:
@@ -190,21 +211,67 @@ def _read_ehh_targets(path: Optional[str]) -> Dict[str, list]:
     return targets
 
 
+def _by_position(positions: list) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+    """``--ehh-focal`` positions of one chromosome: in file order, sorted,
+    and the file index of each sorted one with a sentinel past the end."""
+    pos = np.asarray(positions, np.int64)
+    order = np.argsort(pos, kind="stable")
+    return pos, pos[order], np.append(order, len(pos))
+
+
 class EhhFocus:
     """The EHH focal of each window: the variant nearest the window's
-    ``--ehh-focal`` position, or its midpoint.  :meth:`index` runs on the
-    build worker and records the chosen position in :attr:`position`
-    (region string -> genomic position), which the drain reads on the main
-    thread: a batch is built before its ``wait_input`` returns, so its
-    windows' entries are written before its emit reads them (later
-    batches' entries may be added meanwhile: one dict item set or get is
-    atomic under the interpreter lock)."""
+    target, its first ``--ehh-focal`` position in file order, or its
+    midpoint.  :meth:`index` (the tile path) and :meth:`focals_native`
+    run on the build worker and record the chosen position in
+    :attr:`position` (region string -> genomic position), which the drain
+    reads on the main thread: a batch is built before its ``wait_input``
+    returns, so its windows' entries are written before its emit reads
+    them (later batches' entries may be added meanwhile: one dict item set
+    or get is atomic under the interpreter lock)."""
 
     def __init__(self, targets_path: Optional[str]):
         self.targets = _read_ehh_targets(targets_path)
+        self._sorted = {chrom: _by_position(pos)
+                        for chrom, pos in self.targets.items()}
         self.position: Dict[str, int] = {}
 
+    def targets_of(self, regs: Sequence) -> np.ndarray:
+        """The windows' targets [W] (int64)."""
+        starts = np.array([reg.start for reg in regs], np.int64)
+        ends = np.array([reg.end for reg in regs], np.int64)
+        target = (starts + ends) // 2
+        chroms = np.array([reg.chrom for reg in regs], object)
+        for chrom in self._sorted.keys() & set(chroms.tolist()):
+            on = np.flatnonzero(chroms == chrom)
+            pos, by_pos, order = self._sorted[chrom]
+            lo = np.searchsorted(by_pos, starts[on], "left")
+            hi = np.searchsorted(by_pos, ends[on], "left")
+            # the least file index among the positions in [start, end)
+            first = np.minimum.reduceat(order, np.stack([lo, hi], 1).ravel())
+            inside = lo < hi
+            target[on[inside]] = pos[first[::2][inside]]
+        return target
+
+    def focals_native(self, groups, batches, out_rows: Sequence[np.ndarray],
+                      kept: Sequence[Window], w: int) -> np.ndarray:
+        """The focal site index of each kept window [w] (uint32, 0 for a
+        window without sites and for padding): one
+        ``NativeBatch.nearest_sites`` call a batch."""
+        target = self.targets_of([reg for reg, _ in kept])
+        focals = np.zeros(w, np.uint32)
+        for (_tgt, items), nb, rows in zip(groups, batches, out_rows):
+            index, pos = nb.nearest_sites(np.where(rows >= 0, target[rows], 0))
+            hit = np.flatnonzero(index >= 0)
+            focals[rows[hit]] = index[hit]
+            self.position.update(zip([items[k][1] for k in hit.tolist()],
+                                     pos[hit].tolist()))
+        return focals
+
     def index(self, reg, rs: str, pos_arr) -> int:
+        """Window ``reg``'s focal index among its sites ``pos_arr`` (the
+        tile path: the target by a loop, as :meth:`targets_of` finds it)."""
         if pos_arr is None or len(pos_arr) == 0:
             return 0
         target = (reg.start + reg.end) // 2
@@ -359,17 +426,19 @@ def load_chunk(source: ScanSource, chunk: Sequence[Window], batch: int):
 
 
 def _kept_rows(groups, batches):
-    """The windows the native batches extracted: (failures, kept, rows),
-    rows (group, index in group) in kept's order."""
-    failures, kept, rows = [], [], []
-    for gi, ((_tgt, items), nb) in enumerate(zip(groups, batches)):
-        for k, (reg, rs) in enumerate(items):
-            if nb.errors[k]:
-                failures.append((rs, nb.errors[k]))
-            else:
-                kept.append((reg, rs))
-                rows.append((gi, k))
-    return failures, kept, rows
+    """The windows the native batches extracted: (failures, kept,
+    out_rows), ``out_rows[g][k]`` the buffer row of window k of batch g,
+    in kept's order, -1 for a failed window."""
+    failures, kept, out_rows = [], [], []
+    for (_tgt, items), nb in zip(groups, batches):
+        ok = np.array([not err for err in nb.errors], bool)
+        rows = np.full(nb.count, -1, np.int64)
+        rows[ok] = np.arange(len(kept), len(kept) + int(ok.sum()))
+        kept += [items[k] for k in np.flatnonzero(ok).tolist()]
+        failures += [(items[k][1], nb.errors[k])
+                     for k in np.flatnonzero(~ok).tolist()]
+        out_rows.append(rows)
+    return failures, kept, out_rows
 
 
 def build_native(plan: ScanPlan, masks: PanelMasks, focus: EhhFocus,
@@ -377,10 +446,13 @@ def build_native(plan: ScanPlan, masks: PanelMasks, focus: EhhFocus,
                  dev, batch: int) -> Prepared:
     """Wire-pack straight from the native batches' memory, then deal the
     batch to ``dev``; ``pad_to`` windows (else the kept ones), the
-    padding all-zero rows (no members, length 0: inert)."""
+    padding all-zero rows (no members, length 0: inert).  The metadata
+    comes a batch at a time: the row sets' masks (:meth:`PanelMasks.
+    panels_native`) and the EHH focals (:meth:`EhhFocus.focals_native`);
+    the pairs are disjoint when every row set's masks are."""
     groups, batches = extracted
     with span("build", batch=batch, cpu=True):
-        failures, kept, rows = _kept_rows(groups, batches)
+        failures, kept, out_rows = _kept_rows(groups, batches)
         if not kept:
             for nb in batches:
                 nb.close()
@@ -392,29 +464,25 @@ def build_native(plan: ScanPlan, masks: PanelMasks, focus: EhhFocus,
         blay = _scan_buf_layout(cap_n, cap_s, plan.p_count, plan.use_weights,
                                 plan.want_ehh)
         flat = np.zeros((w, blay["total"]), np.uint8)
-        row_of = {key: wi for wi, key in enumerate(rows)}
         with span("build.pack"):
-            for gi, nb in enumerate(batches):
-                nb.pack_into(
-                    flat, [row_of.get((gi, k), -1) for k in range(nb.count)],
-                    cap_n, cap_s, blay["m"], blay["sm"],
-                    blay["w"] if plan.use_weights else -1)
-        panels = np.zeros((w, plan.p_count, cap_n), bool)
+            for nb, rows in zip(batches, out_rows):
+                nb.pack_into(flat, rows.tolist(), cap_n, cap_s, blay["m"],
+                             blay["sm"],
+                             blay["w"] if plan.use_weights else -1)
+        if plan.panel_lists:
+            panels, set_panels = masks.panels_native(
+                groups, batches, out_rows, w, cap_n)
+        else:
+            n_rows = np.zeros(w, np.int64)
+            for nb, rows in zip(batches, out_rows):
+                ok = rows >= 0
+                n_rows[rows[ok]] = np.asarray(nb.dims, np.int64)[ok, 0]
+            panels = (np.arange(cap_n) < n_rows[:, None])[:, None]
+            set_panels = panels
         lengths = np.zeros(w, np.uint32)
         lengths[:len(kept)] = [reg.length for reg, _ in kept]
-        focals = np.zeros(w, np.uint32)
-        by_row_set: dict = {}   # key -> buffer rows
-        for wi, ((gi, k), (reg, rs)) in enumerate(zip(rows, kept)):
-            nb = batches[gi]
-            if plan.want_ehh:
-                focals[wi] = focus.index(reg, rs, nb.site_pos(k))
-            if not plan.panel_lists:
-                panels[wi, 0, :nb.dims[k][0]] = True
-                continue
-            key = masks.row_set_key(groups[gi][0], nb.names_blob(k), rs)
-            by_row_set.setdefault(key, []).append(wi)
-        if plan.panel_lists:
-            masks.fill_row_sets(panels, by_row_set, len(kept))
+        if plan.want_ehh:
+            focals = focus.focals_native(groups, batches, out_rows, kept, w)
         for nb in batches:
             nb.close()
         flat[:, blay["p"]:blay["l"]] = np.packbits(
@@ -424,7 +492,7 @@ def build_native(plan: ScanPlan, masks: PanelMasks, focus: EhhFocus,
         if plan.want_ehh:
             flat[:, blay["f"]:blay["f"] + 4] = (
                 focals.astype("<u4").view(np.uint8).reshape(w, 4))
-        disjoint = plan.disjoint_of(panels)
+        disjoint = plan.disjoint_of(set_panels)
     with span("h2d", batch=batch):
         wire = scanstep.deal_wire(flat, dev)
     return Prepared(wire, kept, failures, disjoint, (cap_n, cap_s))

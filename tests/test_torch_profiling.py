@@ -251,7 +251,8 @@ def test_fallback_windows(scan_inputs, bed, fallback):
 ])
 def test_mask_counters(scan_inputs, sim, bed, row_sets):
     """Every emitted window's masks are cached or resolved; the resolved
-    windows are the row sets: one where every window holds every
+    windows are the row sets (``build.row_sets`` counts them again in
+    each chunk that holds them): one where every window holds every
     assembly, more where they do not (tests/test_torch_build_masks.py
     counts them)."""
     _, run = scan_inputs
@@ -259,6 +260,9 @@ def test_mask_counters(scan_inputs, sim, bed, row_sets):
     c = doc["counters"]
     assert c["masks.cached_windows"] + c["masks.resolved_windows"] \
         == doc["windows"] > 0
+    # a chunk's row sets, each resolved at most once a call
+    assert c["masks.resolved_windows"] <= c["build.row_sets"] \
+        <= doc["windows"]
     if row_sets is None:
         assert c["masks.resolved_windows"] > 1
     else:

@@ -4,8 +4,8 @@ without ``cli.main``:
 - ``PanelMasks``: a row set's masks (``for_row_set``) equal the masks of
   the window's names (``for_names``) and the per-window oracle of
   ``tests/test_torch_build_masks.py``, with the reference row blanked in
-  the key; ``fill_row_sets`` counts ``masks.resolved_windows`` and
-  ``masks.cached_windows``;
+  the key; ``panels_native`` gives each window its set's masks and counts
+  ``masks.resolved_windows`` and ``masks.cached_windows``;
 - ``build_native`` on CPU devices: the wire bytes of the per-window masks
   oracle, padding rows zero;
 - ``InputPipeline``: chunk k built for device k mod D, in chunk order,
@@ -112,10 +112,15 @@ def test_row_set_masks_equal_the_names_masks(inputs):
     for wi, key in enumerate(keys):
         rows_by_key.setdefault(key, []).append(wi)
     n_cap = max(m.shape[1] for m in map(masks.for_row_set, keys))
-    panels = np.zeros((len(keys), len(PANELS), n_cap), bool)
     with timers.bound("main"):
-        fresh.fill_row_sets(panels, rows_by_key, len(keys))
-        fresh.fill_row_sets(panels, rows_by_key, len(keys))
+        for _ in range(2):
+            groups, batches = scanrun.extract_native(ext, chunk, 0)
+            _, kept, out_rows = scanrun._kept_rows(groups, batches)
+            panels, set_panels = fresh.panels_native(
+                groups, batches, out_rows, len(keys), n_cap)
+            for nb in batches:
+                nb.close()
+            assert kept == chunk and len(set_panels) == len(rows_by_key)
     for wi, key in enumerate(keys):
         m = masks.for_row_set(key)
         assert np.array_equal(panels[wi, :, :m.shape[1]], m)
